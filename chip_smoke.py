@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""On-card smoke test of satdump_tpu_torch (the PyTorch/CUDA port).
+
+Run from the root of a checkout, on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+ 1. environment: torch, nvcc, the card's name and power limit;
+ 2. build: every CUDA source under satdump_tpu_torch/csrc, one nvcc each,
+    all started together;
+ 3. K1 (register-exchange Viterbi) against its plain torch version on the
+    card at the main-path shape, integer and non-integer softs: must be
+    bit-identical; the kernel's device time (median over launches in
+    torch.profiler's trace), the time per wrapper call (median of CUDA
+    events around single calls), the plain version's time and the bound;
+ 4. K2 (arithmetic-grid resampler) against its plain version at 2^18- and
+    2^21-sample blocks, sps 18/7, skew 0 and 0.005; same numbers;
+ 5. 12-CADU passes of MetOp AHRPT (6 Msps, sps 18/7) and METEOR-M2 LRPT
+    (280 ksps, sps 35/9) through the port on the card and on the CPU: the
+    .cadu files must be byte-identical and equal to the sent CADUs;
+ 6. the main path: ~2^23 samples (~1.4 s) of MetOp AHRPT at 6 Msps through
+    the port's run_pipeline on the card with MetOp.json's psk_demod and
+    metop_ahrpt_decoder steps; every CADU must be one that was sent, at
+    most 2 may be missing, and every kernel must have launched;
+ 7. where the main path's time goes: each of its two steps run again on
+    the same input, once timed and once under torch.profiler, giving the
+    device busy time, idle share, launches, copies and the top device
+    kernels and host operators;
+ 8. one JSON line describing each kernel, then the card's line and the
+    result line.
+
+Imports nothing of JAX and nothing of the satdump_tpu package. Without a
+CUDA device, or outside a checkout, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12            # float32 outside the tensor cores
+# the same units issue one add, compare or select where they issue one FMA
+# (two flops), so operations that are not FMAs run at half the flop rate
+H100_F32_OPS = H100_F32_FLOPS / 2
+SEED = 20261016
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def call_ms(fn, reps: int) -> float:
+    """Time per call of fn(): the median over `reps` calls of CUDA events
+    recorded around each single call, after one warm-up call. For a
+    kernel's wrapper this includes the host's launch path wherever that
+    takes longer than the kernel."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def kernel_ms(fn, kernel: str, reps: int) -> float:
+    """Device time per launch of the CUDA kernel whose name contains
+    `kernel`: the median over the launches of `reps` calls of fn() in
+    torch.profiler's device trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if len(ev) != reps:
+        raise AssertionError(f"profiler saw {len(ev)} launches of {kernel}, "
+                             f"expected {reps}")
+    return float(np.median([e.time_range.elapsed_us() for e in ev])) / 1e3
+
+
+def bound_ms(nbytes: float, ops: float, ops_per_s: float):
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_env():
+    import torch
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    nv = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                        check=True).stdout.strip().splitlines()[-1]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"env: python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} nvcc [{nv}] devices "
+        f"{torch.cuda.device_count()}")
+    log(f"card: {smi}")
+    return smi
+
+
+def phase_build():
+    from satdump_tpu_torch.ops.cuda import _build
+    t0 = time.perf_counter()
+    secs = _build.build()
+    log(f"build: {len(secs)} sources compiled in "
+        f"{time.perf_counter() - t0:.1f} s {secs}")
+    for name, text in _build.ptxas_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
+def _viterbi_inputs(rng, T: int, integer: bool):
+    from satdump_tpu_torch.ops.fec import convolutional as cc
+    bits = rng.integers(0, 2, T).astype(np.uint8)
+    enc = cc.conv_encode_batch(bits)
+    soft = np.where(enc > 0, 235.0, 20.0) + rng.normal(0, 30.0, enc.shape)
+    soft = np.clip(soft, 0, 255)
+    if integer:
+        soft = np.round(soft)
+    return bits, soft.astype(np.float32).reshape(-1, 2)
+
+
+def phase_k1(rng):
+    """K1 against viterbi_decode_tiled_re on the card, T = 2^20+1024."""
+    import torch
+    from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
+    from satdump_tpu_torch.ops.fec import convolutional as cc
+    seg, ovl = 1024, 128
+    T = (1 << 20) + 1024          # CaduChain.vit_pairs at chunk 2^20 pairs
+    res = {}
+    for integer in (True, False):
+        bits, soft = _viterbi_inputs(rng, T, integer)
+        x = torch.from_numpy(soft).cuda()
+        got = viterbi_re(x, seg=seg, ovl=ovl)
+        ref = cc.viterbi_decode_tiled_re(x, seg=seg, ovl=ovl)
+        torch.cuda.synchronize()
+        ndiff = int((got != ref).sum())
+        ber = float((got.cpu().numpy() != bits).mean())
+        log(f"K1 {'integer' if integer else 'non-integer'} softs T={T}: "
+            f"{ndiff} bits differ from plain (tolerance: 0, bit-identical);"
+            f" decoded BER vs sent {ber:.2e}")
+        if ndiff:
+            raise AssertionError(f"K1 differs from its plain version in "
+                                 f"{ndiff} bits")
+        if integer:
+            kern = lambda: viterbi_re(x, seg=seg, ovl=ovl)  # noqa: E731
+            res["ms"] = kernel_ms(kern, "viterbi_re_kernel", 20)
+            res["call_ms"] = call_ms(kern, 20)
+            res["plain_ms"] = call_ms(
+                lambda: cc.viterbi_decode_tiled_re(x, seg=seg, ovl=ovl), 3)
+            L = T // seg
+            steps = ovl + cc.RE_DELAY + seg
+            # per lane-step: 4 branch metrics (2 ops each) + 64 states x
+            # (2 candidate adds + 1 compare-select); survivors are integer;
+            # none of these is an FMA
+            ops = L * steps * (4 * 2 + 64 * 3)
+            nbytes = T * 2 * 4 + T          # soft pairs in, bits out
+            res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops,
+                                                        H100_F32_OPS)
+    res["max_abs_err"] = 0.0
+    log(f"K1 times at T={T}: kernel {res['ms']:.4f} ms on the card "
+        f"(profiler), {res['call_ms']:.4f} ms per wrapper call (events), "
+        f"plain {res['plain_ms']:.2f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']})")
+    return res
+
+
+K2_ATOL = 1e-4   # same branch picks; only the 8-term sum order differs
+
+
+def phase_k2(rng):
+    """K2 against its plain version on the card."""
+    import torch
+    from satdump_tpu_torch.ops.cuda.resample import (
+        resample_arith_grid, resample_arith_grid_plain)
+    from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
+    bank = torch.as_tensor(mm_interpolator_bank()).cuda()
+    sps = 6e6 / 2333333
+    res = {"max_abs_err": 0.0}
+    for n in (1 << 18, 1 << 21):
+        for skew in (0.0, 0.005):
+            ext_np = (rng.standard_normal(n + 7)
+                      + 1j * rng.standard_normal(n + 7)).astype(np.complex64)
+            ext = torch.from_numpy(ext_np).cuda()
+            start = torch.tensor(0.37, dtype=torch.float32, device="cuda")
+            omega = torch.tensor(sps * (1 + skew), dtype=torch.float32,
+                                 device="cuda")
+            cap = int(np.ceil(n / (sps * 0.99))) + 2   # psk_demod's out_cap
+            got = resample_arith_grid(ext, start, omega, bank, out_cap=cap)
+            ref = resample_arith_grid_plain(ext, start, omega, bank,
+                                            out_cap=cap)
+            err = float((got - ref).abs().max())
+            n_bad = int(((got - ref).abs() > K2_ATOL).sum())
+            log(f"K2 n=2^{n.bit_length() - 1} skew {skew}: max |err| "
+                f"{err:.3e} over {cap} symbols, {n_bad} above {K2_ATOL}")
+            if not np.isfinite(err) or err > K2_ATOL:
+                raise AssertionError(f"K2 differs from its plain version: "
+                                     f"max |err| {err}")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            if n == 1 << 18 and skew == 0.0:      # the main path's block
+                kern = lambda: resample_arith_grid(  # noqa: E731
+                    ext, start, omega, bank, out_cap=cap)
+                res["ms"] = kernel_ms(kern, "resample_arith_kernel", 50)
+                res["call_ms"] = call_ms(kern, 50)
+                res["plain_ms"] = call_ms(lambda: resample_arith_grid_plain(
+                    ext, start, omega, bank, out_cap=cap), 20)
+                nbytes = (n + 7) * 8 + bank.numel() * 4 + 8 + cap * 8
+                # flops: 8 complex-by-real FMAs (2 each, 2 flops each) and
+                # the position
+                ops = cap * (8 * 4 + 6)
+                res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops,
+                                                            H100_F32_FLOPS)
+                log(f"K2 times at n=2^18 (out_cap {cap}): kernel "
+                    f"{res['ms']:.4f} ms on the card (profiler), "
+                    f"{res['call_ms']:.4f} ms per wrapper call (events), "
+                    f"plain {res['plain_ms']:.4f} ms, bound "
+                    f"{res['bound_ms']:.5f} ms ({res['bound_by']})")
+    return res
+
+
+# (pipeline file, pipeline id, samples/symbol as up/down, user parameters)
+METOP = ("MetOp.json", "metop_ahrpt", (18, 7), {})
+METEOR = ("Meteor-M.json", "meteor_m2_lrpt", (35, 9), {"samplerate": 280e3})
+
+
+def _pass(rng, n_cadus: int, work: Path, sps):
+    """`n_cadus` random CADUs as QPSK downlink baseband at sps up/down
+    (sim.ccsds_qpsk_baseband: SNR 18 dB, carrier offset and phase) written
+    to work/pass.cf32; returns (cadus, path, samples)."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.io import write_baseband
+    cadus = sim.make_cadus(n_cadus, rng)
+    bb = sim.ccsds_qpsk_baseband(cadus, rng, sps)
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "pass.cf32"
+    write_baseband(path, "cf32", bb)
+    return cadus, path, len(bb)
+
+
+def _pipeline(fname: str, pipe_id: str, start: str = "baseband",
+              stop: str = "cadu"):
+    from satdump_tpu_torch.pipeline.pipeline import parse_pipeline_file
+    pipe = parse_pipeline_file(ROOT / "resources" / "pipelines" /
+                               fname)[pipe_id]
+    pipe.steps = pipe.steps[pipe.level_index(start):
+                            pipe.level_index(stop) + 1]
+    return pipe
+
+
+def _check_cadus(out: str, cadus: np.ndarray, label: str) -> np.ndarray:
+    got = np.fromfile(out, dtype=np.uint8).reshape(-1, cadus.shape[1])
+    sent = {c.tobytes() for c in cadus}
+    bad = sum(g.tobytes() not in sent for g in got)
+    log(f"{label}: {len(got)} CADUs decoded of {len(cadus)} sent, "
+        f"{bad} not bit-exact")
+    if bad or len(got) < len(cadus) - 2:
+        raise AssertionError(f"{label}: {bad} corrupt CADUs, {len(got)} of "
+                             f"{len(cadus)} decoded")
+    return got
+
+
+def phase_small_pass(rng, work: Path):
+    """12-CADU passes of each configuration through the port on the card
+    and on the CPU."""
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    for fname, pipe_id, sps, params in (METOP, METEOR):
+        cadus, path, n = _pass(rng, 12, work / pipe_id, sps)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            outs[dev] = run_pipeline(_pipeline(fname, pipe_id), str(path),
+                                     str(work / pipe_id / dev),
+                                     user_params=dict(params,
+                                                      torch_device=dev))
+        got = {d: _check_cadus(o, cadus, f"{pipe_id} small pass ({d}, "
+                                         f"{n} samples)")
+               for d, o in outs.items()}
+        if not np.array_equal(got["cuda"], got["cpu"]):
+            raise AssertionError(f"{pipe_id} small pass: .cadu differs "
+                                 "between cuda and cpu")
+        soft = {d: np.fromfile(Path(o).with_suffix(".soft"), np.int8)
+                for d, o in outs.items()}
+        dsoft = np.abs(soft["cuda"].astype(np.int16) - soft["cpu"])
+        log(f"{pipe_id} small pass: .cadu byte-identical cuda vs cpu; "
+            f".soft max |diff| {int(dsoft.max())} LSB, mean "
+            f"{float(dsoft.mean()):.4f}")
+
+
+def phase_main(rng, work: Path):
+    """The main path; returns the kernels' launches and the input file."""
+    import torch
+    from satdump_tpu_torch.ops.cuda.resample import resample_arith_grid
+    from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    fname, pipe_id, (up, down), _ = METOP
+    n_cadus = int((1 << 23) / (8192 * up / down))
+    cadus, path, n = _pass(rng, n_cadus, work / "main", (up, down))
+    pipe = _pipeline(fname, pipe_id)
+    kernels = (viterbi_re, resample_arith_grid)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = run_pipeline(pipe, str(path), str(work / "main" / "out"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    _check_cadus(out, cadus, f"main path ({n} samples)")
+    log(f"main path: wall {wall:.3f} s, baseband->CADU "
+        f"{n / wall / 1e6:.3f} Msamp/s on {torch.cuda.get_device_name(0)}; "
+        f"launches {launches}")
+    for name, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"main path never launched {name}")
+    return launches, path
+
+
+def _union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals, microseconds."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def phase_profile(src: Path, work: Path, top: int = 8):
+    """Each step of the main path run again on the main path's input (and
+    the .soft it made): once timed by the host clock, ended by a
+    synchronize, and once under torch.profiler, whose device trace gives
+    the busy time (the union of kernel and copy intervals) and the idle
+    share of the profiled wall. The profiler slows the host, so the
+    profiled wall, and with it the idle share, is above the timed one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    fname, pipe_id, _, _ = METOP
+    for label, start, stop in (("psk_demod", "baseband", "soft"),
+                               ("metop_ahrpt_decoder", "soft", "cadu")):
+        pipe = _pipeline(fname, pipe_id, start, stop)
+
+        def once(tag):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_pipeline(pipe, str(src), str(work / f"{label}-{tag}"),
+                               start_level=start)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        out, wall = once("timed")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, pwall = once("profiled")
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = _union_us((e.time_range.start, e.time_range.end)
+                         for e in dev) / 1e3
+        by_name: dict = {}
+        for e in dev:
+            d = by_name.setdefault(e.name, [0, 0.0])
+            d[0] += 1
+            d[1] += e.time_range.elapsed_us() / 1e3
+        host = {a.key: a for a in prof.key_averages()}
+        launches = sum(host[k].count for k in ("cudaLaunchKernel",
+                                                 "cuLaunchKernel")
+                       if k in host)
+        copies = sum(a.count for k, a in host.items()
+                     if k.startswith("cudaMemcpy"))
+        log(f"profile {label}: wall {wall * 1e3:.1f} ms, profiled "
+            f"{pwall * 1e3:.1f} ms, device busy {busy:.2f} ms, idle share "
+            f"{1 - busy / (pwall * 1e3):.3f}, {launches} kernel launches, "
+            f"{copies} cudaMemcpy* calls")
+        for name, (c, ms) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][1])[:top]:
+            log(f"   dev  {ms:9.3f} ms  x{c:<6d} {name[:80]}")
+        for a in sorted(host.values(),
+                        key=lambda a: -a.self_cpu_time_total)[:top]:
+            log(f"   host {a.self_cpu_time_total / 1e3:9.3f} ms  "
+                f"x{a.count:<6d} {a.key[:80]}")
+        src = Path(out)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import satdump_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    t_start = time.perf_counter()
+    card = phase_env()
+    phase_build()
+    rng = np.random.default_rng(SEED)
+    k1 = phase_k1(rng)
+    k2 = phase_k2(rng)
+    work = ROOT / "satdump_tpu_torch" / "_build" / "smoke"
+    try:
+        phase_small_pass(rng, work)
+        launches, main_input = phase_main(rng, work)
+        phase_profile(main_input, work / "profile")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rows = []
+    for name, src, rep, r in (
+            ("viterbi_re", "satdump_tpu_torch/csrc/viterbi_re.cu",
+             "satdump_tpu/ops/pallas/viterbi.py:136", k1),
+            ("resample_arith_grid", "satdump_tpu_torch/csrc/resample_arith.cu",
+             "satdump_tpu/ops/pallas/resample.py:103", k2)):
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": launches[name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None,
+                     "call_ms": r["call_ms"]})
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,27 @@
+"""satdump_tpu_torch — the PyTorch/CUDA port of satdump_tpu.
+
+The same data-level contract as the JAX package beside it:
+
+    baseband (IQ) -> soft (int8 soft symbols) -> cadu (FEC-decoded frames)
+
+Tensor code is plain PyTorch; the two hot kernels of the main path (the
+register-exchange Viterbi and the arithmetic-grid polyphase resampler) are
+hand-written CUDA C++ for sm_90a under ``csrc/``, built with nvcc at first
+use and bound with ctypes (``ops/cuda/``). Every op dispatches on the
+device of the tensor it is given: a CUDA tensor goes to the hand kernel, a
+CPU tensor to the plain PyTorch version beside it. Entry points run on
+``cuda`` unless the caller asks for the CPU (``device=`` on functions and
+classes, ``torch_device`` on pipeline modules).
+
+Subpackages mirror satdump_tpu's layout:
+  core      config / logging / registry / events
+  io        baseband file formats
+  ops       DSP + FEC ops (plain torch) and the CUDA kernel wrappers
+  pipeline  JSON pipeline engine + the ported processing modules
+  utils     device selection, state conversion
+"""
+
+__version__ = "0.1.0"
+
+from satdump_tpu_torch.core.config import Config, get_config  # noqa: F401
+from satdump_tpu_torch.core.log import logger  # noqa: F401

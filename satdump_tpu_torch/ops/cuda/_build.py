@@ -1,0 +1,97 @@
+"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
+``_build/lib<name>-<hash>.so`` (the hash covers the source and the flags, so
+an edited source is rebuilt). The build runs at first use, from the repo's
+sources only; `build()` starts one nvcc per source, all at once. A missing
+nvcc or a failed compile raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+from satdump_tpu_torch.core.exceptions import SatdumpError
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("viterbi_re", "resample_arith")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+ptxas_log: Dict[str, str] = {}     # nvcc's -Xptxas -v report per source
+
+
+class KernelBuildError(SatdumpError):
+    pass
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelBuildError("nvcc not found (PATH or /usr/local/cuda/bin)")
+
+
+def _target(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every named source that is not built yet, one nvcc process
+    each, all started together. Returns seconds per compiled source."""
+    todo = [n for n in names if not _target(n).exists()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    secs, failed = {}, []
+    for n, (tmp, p) in procs.items():
+        log, _ = p.communicate()
+        secs[n] = time.perf_counter() - t0
+        ptxas_log[n] = log
+        if p.returncode != 0:
+            failed.append(f"{n}.cu (rc {p.returncode}):\n{log}")
+            continue
+        os.replace(tmp, _target(n))
+    if failed:
+        raise KernelBuildError("nvcc failed for " + "\n".join(failed))
+    return secs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        err_str = getattr(lib, f"{name}_error_string")
+        err_str.argtypes = [ctypes.c_int]
+        err_str.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def check(name: str, lib: ctypes.CDLL, err: int) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch."""
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

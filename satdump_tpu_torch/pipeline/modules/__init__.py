@@ -1,0 +1,4 @@
+"""Ported processing modules. Importing this package registers them all."""
+
+import satdump_tpu_torch.pipeline.modules.demod  # noqa: F401
+import satdump_tpu_torch.pipeline.modules.ccsds  # noqa: F401

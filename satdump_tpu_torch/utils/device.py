@@ -1,0 +1,33 @@
+"""Device selection for the port's entry points.
+
+Entry points run on ``cuda`` unless the caller asks for the CPU. Asking for
+``cuda`` where PyTorch sees no card raises: nothing silently continues on
+the CPU. Tensors carry their device from then on, and every op dispatches
+on the device of the tensor it is given.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from satdump_tpu_torch.core.exceptions import SatdumpError
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """`device` (default ``cuda``) as a torch.device; raises if it names
+    CUDA and no card is visible."""
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SatdumpError(
+            f"device '{dev}' requested but torch.cuda.is_available() is False"
+            " (pass device='cpu' / torch_device: cpu to run on the CPU)")
+    if dev.type not in ("cuda", "cpu"):
+        raise SatdumpError(f"unsupported device '{dev}' (cuda or cpu)")
+    return dev
+
+
+def to_numpy(t: torch.Tensor):
+    """Tensor -> host numpy array (synchronizes with the card)."""
+    return t.detach().cpu().numpy()

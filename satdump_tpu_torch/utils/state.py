@@ -1,0 +1,76 @@
+"""Carried stream state between numpy and the port's tensors.
+
+The reference (satdump_tpu) and the port carry the same mid-stream state:
+the feedforward demod's `FFClockState` and the CADU chain's seam carries.
+These helpers turn numpy arrays (for example `np.asarray` of the
+reference's JAX arrays) into the port's state and back, so both packages
+can be started from the same point of a stream.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from satdump_tpu_torch.ops.ffsync import FFClockState
+from satdump_tpu_torch.utils.device import resolve_device
+
+_FF_F32_FIELDS = ("next_pos", "last_phase", "last_f", "nco_phase", "oq_imag",
+                  "sym_phase")
+_FF_C64_FIELDS = ("history", "rrc_history")
+
+
+def ff_clock_state_from_numpy(fields: Mapping[str, np.ndarray],
+                              device: str | torch.device | None = None
+                              ) -> FFClockState:
+    """{FFClockState field: numpy array} -> FFClockState on `device`.
+    Scalars become float32, the tails complex64; missing optional fields
+    stay None."""
+    dev = resolve_device(device)
+    out = {}
+    for name in FFClockState._fields:
+        v = fields.get(name)
+        if v is None:
+            out[name] = None
+            continue
+        dt = np.float32 if name in _FF_F32_FIELDS else np.complex64
+        out[name] = torch.as_tensor(np.array(v, dtype=dt), device=dev)
+    return FFClockState(**out)
+
+
+def ff_clock_state_to_numpy(state: FFClockState) -> dict:
+    """FFClockState -> {field: numpy array} (None stays None)."""
+    return {k: (None if v is None else v.detach().cpu().numpy())
+            for k, v in state._asdict().items()}
+
+
+def cadu_chain_state_from_numpy(bit_carry: np.ndarray, soft_ctx: np.ndarray,
+                                nrzm_carry, abs_base: int,
+                                last_emitted: int,
+                                device: str | torch.device | None = None
+                                ) -> dict:
+    """The CADU chain's carries (as CaduChain.init_state lays them out) from
+    numpy: bit_carry (carry_bits,) int32, soft_ctx (HALO, 2) f32,
+    nrzm_carry int32 scalar, plus the host-side dedup positions."""
+    dev = resolve_device(device)
+    return dict(
+        bit_carry=torch.as_tensor(np.array(bit_carry, np.int32), device=dev),
+        soft_ctx=torch.as_tensor(np.array(soft_ctx, np.float32), device=dev),
+        nrzm_carry=torch.as_tensor(np.array(nrzm_carry, np.int32),
+                                   device=dev),
+        abs_base=int(abs_base),
+        last_emitted=int(last_emitted),
+    )
+
+
+def cadu_chain_state_to_numpy(state: dict) -> dict:
+    """Inverse of cadu_chain_state_from_numpy."""
+    return dict(
+        bit_carry=state["bit_carry"].detach().cpu().numpy(),
+        soft_ctx=state["soft_ctx"].detach().cpu().numpy(),
+        nrzm_carry=state["nrzm_carry"].detach().cpu().numpy(),
+        abs_base=int(state["abs_base"]),
+        last_emitted=int(state["last_emitted"]),
+    )

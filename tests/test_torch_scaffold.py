@@ -1,0 +1,185 @@
+"""satdump_tpu_torch stands alone: it imports neither JAX nor the satdump_tpu
+package, and its CUDA kernel wrappers never fall back to the plain version
+when asked for the card."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "satdump_tpu_torch"
+
+SLICE_MODULES = [
+    "satdump_tpu_torch",
+    "satdump_tpu_torch.cli",
+    "satdump_tpu_torch.sim",
+    "satdump_tpu_torch.core",
+    "satdump_tpu_torch.io",
+    "satdump_tpu_torch.io.detect",
+    "satdump_tpu_torch.ops.firdes",
+    "satdump_tpu_torch.ops.ffsync",
+    "satdump_tpu_torch.ops.cuda.viterbi",
+    "satdump_tpu_torch.ops.cuda.resample",
+    "satdump_tpu_torch.ops.fec.convolutional",
+    "satdump_tpu_torch.ops.fec.rs_device",
+    "satdump_tpu_torch.ops.fec.cadu_chain",
+    "satdump_tpu_torch.ops.fec.depuncture",
+    "satdump_tpu_torch.ops.fec.differential",
+    "satdump_tpu_torch.pipeline.runner",
+    "satdump_tpu_torch.pipeline.modules",
+    "satdump_tpu_torch.utils.device",
+    "satdump_tpu_torch.utils.state",
+]
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from satdump_tpu_torch.pipeline.module import register_all_modules\n"
+        "register_all_modules()\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'satdump_tpu' or m.startswith('satdump_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+_IMPORT_RE = re.compile(
+    r"^\s*(?:from|import)\s+(jax|jaxlib|satdump_tpu)(?:\.|\s|$)", re.M)
+
+
+def test_sources_name_no_jax_or_reference_package():
+    # _build/ holds what the kernels' build writes, not sources
+    files = sorted(f for f in PKG.rglob("*.py")
+                   if "_build" not in f.relative_to(PKG).parts)
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 30
+    offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+                 for f in files for m in _IMPORT_RE.finditer(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_port_registry_holds_only_ported_modules():
+    from satdump_tpu_torch.core.exceptions import SatdumpError
+    from satdump_tpu_torch.pipeline.module import (module_registry,
+                                                   register_all_modules)
+    register_all_modules()
+    assert sorted(module_registry) == [
+        "ccsds_conv_concat_decoder", "meteor_lrpt_decoder",
+        "metop_ahrpt_decoder", "psk_demod"]
+    with pytest.raises(SatdumpError, match="unknown module 'metop_instruments'"):
+        module_registry.get("metop_instruments")
+
+
+class _CudaLike:
+    """Stands in for a CUDA tensor on a machine without CUDA."""
+
+    def __init__(self, shape, dtype):
+        self.shape = shape
+        self.dtype = dtype
+        self.ndim = len(shape)
+        self.device = torch.device("cuda")
+
+    def numel(self):
+        return int(torch.tensor(self.shape).prod()) if self.shape else 1
+
+    def is_contiguous(self):
+        return True
+
+
+def test_wrappers_raise_on_cuda_without_fallback(monkeypatch):
+    from satdump_tpu_torch.ops import ffsync
+    from satdump_tpu_torch.ops.cuda import resample, viterbi
+    from satdump_tpu_torch.ops.fec import convolutional as cc
+
+    class FellBack(Exception):
+        pass
+
+    def no_fallback(*a, **k):
+        raise FellBack("wrapper fell back to the plain version")
+
+    monkeypatch.setattr(cc, "viterbi_decode_tiled_re", no_fallback)
+    monkeypatch.setattr(resample, "resample_arith_grid_plain", no_fallback)
+    monkeypatch.setattr(resample, "interp_at", no_fallback)
+    with pytest.raises(Exception) as e1:
+        viterbi.viterbi_re(_CudaLike((2048, 2), torch.float32))
+    with pytest.raises(Exception) as e2:
+        resample.resample_arith_grid(
+            _CudaLike((4096,), torch.complex64),
+            _CudaLike((), torch.float32), _CudaLike((), torch.float32),
+            _CudaLike((128, 8), torch.float32), out_cap=100)
+    for e in (e1, e2):
+        assert not isinstance(e.value, FellBack), e.value
+    assert viterbi.viterbi_re.launches == 0
+    assert resample.resample_arith_grid.launches == 0
+    # no third path: a device that is neither cuda nor cpu is refused
+    with pytest.raises(ValueError, match="unsupported device"):
+        viterbi.viterbi_re(torch.zeros((1024, 2), device="meta"))
+
+
+def test_cuda_request_raises_here():
+    from satdump_tpu_torch.core.exceptions import SatdumpError
+    from satdump_tpu_torch.ops.fec.cadu_chain import CaduChain
+    from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
+    from satdump_tpu_torch.utils.device import resolve_device
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is available")
+    with pytest.raises(SatdumpError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(SatdumpError):
+        CaduChain(cadu_bits=8192, chunk_pairs=1 << 15, rs_i=4)
+    with pytest.raises(SatdumpError):
+        PSKDemodModule("x.cf32", "out", {
+            "samplerate": 6e6, "symbolrate": 2333333, "constellation": "qpsk",
+            "rrc_alpha": 0.5, "pll_bw": 0.003})
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch):
+    from satdump_tpu_torch.ops.cuda import _build
+    monkeypatch.setattr(_build, "nvcc_path", lambda: (_ for _ in ()).throw(
+        _build.KernelBuildError("nvcc not found")))
+    monkeypatch.setattr(_build, "BUILD_DIR", Path("/nonexistent-build-dir"))
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(_build.KernelBuildError):
+        _build.load("viterbi_re")
+
+
+@pytest.mark.parametrize("params,what", [
+    ({"fast": False}, "fast: false"),
+    ({"multichip": True}, "multichip"),
+    ({"freq_shift": 1000.0}, "freq_shift"),
+    ({"dc_block": True}, "dc_block"),
+])
+def test_unported_psk_options_raise(params, what):
+    from satdump_tpu_torch.core.exceptions import PipelineError
+    from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
+    base = {"samplerate": 6e6, "symbolrate": 2333333, "constellation": "qpsk",
+            "rrc_alpha": 0.5, "pll_bw": 0.003, "torch_device": "cpu"}
+    with pytest.raises(PipelineError, match=f"{re.escape(what)}.*not yet ported"):
+        PSKDemodModule("x.cf32", "out", dict(base, **params))
+
+
+def test_unported_resampling_and_doppler_raise(tmp_path):
+    from satdump_tpu_torch.core.exceptions import PipelineError
+    from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
+    base = {"samplerate": 6e6, "symbolrate": 2333333, "constellation": "qpsk",
+            "rrc_alpha": 0.5, "pll_bw": 0.003, "torch_device": "cpu"}
+    m = PSKDemodModule("x.cf32", str(tmp_path / "o"),
+                       dict(base, samplerate=20e6))       # sps 8.6 > 4
+    with pytest.raises(PipelineError, match="resampling.*not yet ported"):
+        m.stream_start()
+    m = PSKDemodModule("x.cf32", str(tmp_path / "o"), base)
+    m.doppler_provider = lambda pos, n: 0.0
+    with pytest.raises(PipelineError, match="Doppler.*not yet ported"):
+        m.stream_start()
