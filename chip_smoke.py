@@ -9,11 +9,18 @@ Phases (any failure raises and the script exits non-zero):
  1. environment: torch, nvcc, the card's name and power limit;
  2. build: every CUDA source under satdump_tpu_torch/csrc, one nvcc each,
     all started together;
- 3. K1 (register-exchange Viterbi) against its plain torch version on the
-    card at the main-path shape, integer and non-integer softs: must be
-    bit-identical; the kernel's device time (median over launches in
-    torch.profiler's trace), the time per wrapper call (median of CUDA
-    events around single calls), the plain version's time and the bound;
+ 2b. the toolchain probe (y = 2x + 1, the counterpart of
+    tools/pallas_smoke.py) on its (8, 128) arange input: must equal its
+    plain version exactly; its device time, the plain version's and one
+    PyTorch call's (torch.add) and the bound;
+ 3. K1 (register-exchange Viterbi): its SASS must hold no FFMA; against
+    its plain torch version on the card, bit-identical, with both thread
+    layouts, at the main-path shape (integer and non-integer softs) and at
+    the shapes its chunking and grouping touch (5 lanes, an erasure tail,
+    uniform-noise softs, seg 512 / ovl 64, seg 1024 / ovl 200); the
+    kernel's device time (median over launches in torch.profiler's trace)
+    for each layout, the time per wrapper call (median of CUDA events
+    around single calls), the plain version's time and the bound;
  4. K2 (arithmetic-grid resampler) against its plain version at 2^18- and
     2^21-sample blocks, sps 18/7, skew 0 and 0.005; same numbers;
  5. 12-CADU passes of MetOp AHRPT (6 Msps, sps 18/7) and METEOR-M2 LRPT
@@ -22,7 +29,8 @@ Phases (any failure raises and the script exits non-zero):
  6. the main path: ~2^23 samples (~1.4 s) of MetOp AHRPT at 6 Msps through
     the port's run_pipeline on the card with MetOp.json's psk_demod and
     metop_ahrpt_decoder steps; every CADU must be one that was sent, at
-    most 2 may be missing, and every kernel must have launched;
+    most 2 may be missing, and every kernel of the path must have
+    launched;
  7. where the main path's time goes: each of its two steps run again on
     the same input, once timed and once under torch.profiler, giving the
     device busy time, idle share, launches, copies and the top device
@@ -37,6 +45,7 @@ CUDA device, or outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -134,6 +143,86 @@ def phase_build():
                 log(f"  ptxas {name}: {line.strip()}")
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of fn(): the summed duration of every CUDA
+    kernel in torch.profiler's trace of `reps` calls, over reps (for a
+    PyTorch call whose kernels' names are not known in advance)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        raise AssertionError("profiler saw no device work")
+    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3
+
+
+def phase_probe():
+    """The toolchain probe against its plain version, tolerance 0."""
+    import torch
+    from satdump_tpu_torch.ops.cuda.probe import affine_probe
+    x = torch.arange(8 * 128, dtype=torch.float32,
+                     device="cuda").reshape(8, 128)
+    got = affine_probe(x)
+    ref = x * 2 + 1
+    torch.cuda.synchronize()
+    ndiff = int((got != ref).sum())
+    expect = np.arange(8 * 128, dtype=np.float32).reshape(8, 128) * 2 + 1
+    log(f"probe (8, 128) 2x+1: {ndiff} values differ from plain "
+        f"(tolerance: 0), equal to pallas_smoke.py's expected values: "
+        f"{bool(np.array_equal(got.cpu().numpy(), expect))}")
+    if ndiff or not np.array_equal(got.cpu().numpy(), expect):
+        raise AssertionError("probe differs from its plain version")
+    ones = torch.ones_like(x)
+    res = {"max_abs_err": 0.0,
+           "ms": kernel_ms(lambda: affine_probe(x), "probe_affine_kernel",
+                           50),
+           "call_ms": call_ms(lambda: affine_probe(x), 50),
+           "plain_ms": call_ms(lambda: x * 2 + 1, 50),
+           # one PyTorch call of the same function; the port never calls it
+           "library_ms": device_ms(lambda: torch.add(ones, x, alpha=2.0),
+                                   50)}
+    # one read and one write per element; one exact product and one add
+    res["bound_ms"], res["bound_by"] = bound_ms(2 * x.numel() * 4,
+                                                2 * x.numel(),
+                                                H100_F32_FLOPS)
+    log(f"probe times: kernel {res['ms']:.4f} ms on the card (profiler), "
+        f"{res['call_ms']:.4f} ms per wrapper call (events), plain "
+        f"{res['plain_ms']:.4f} ms, torch.add {res['library_ms']:.4f} ms "
+        f"(profiler), bound {res['bound_ms']:.6f} ms ({res['bound_by']})")
+    return res
+
+
+def _k1_sass():
+    """Static instruction counts of each K1 kernel in its SASS; fails if
+    any FFMA is there (the path-metric sums must be plain adds)."""
+    from satdump_tpu_torch.ops.cuda import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build._target("viterbi_re"))],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    if not funcs:
+        raise AssertionError("cuobjdump showed no K1 function")
+    for f in funcs:
+        name = f.split("\n", 1)[0].strip()
+        ops = [m.group(1).split(".")[0] for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)",
+            f)]
+        counts = {op: ops.count(op) for op in
+                  ("FFMA", "FADD", "FSETP", "FSEL", "SHFL", "LDS", "STS",
+                   "LDGSTS", "LDG", "STG", "WARPSYNC", "BAR")}
+        log(f"K1 SASS {name[:60]}: {len(ops)} instructions, {counts}")
+        if counts["FFMA"]:
+            raise AssertionError(f"K1 SASS holds {counts['FFMA']} FFMA")
+
+
 def _viterbi_inputs(rng, T: int, integer: bool):
     from satdump_tpu_torch.ops.fec import convolutional as cc
     bits = rng.integers(0, 2, T).astype(np.uint8)
@@ -145,31 +234,73 @@ def _viterbi_inputs(rng, T: int, integer: bool):
     return bits, soft.astype(np.float32).reshape(-1, 2)
 
 
-def phase_k1(rng):
-    """K1 against viterbi_decode_tiled_re on the card, T = 2^20+1024."""
+# shapes K1's chunking (32 steps) and grouping (two lanes a warp, eight
+# a block) touch: (label, seg, ovl, lanes, softs)
+K1_CASES = (
+    ("L=5 lanes", 1024, 128, 5, "coded"),
+    ("erasure tail", 1024, 128, 4, "erasure"),
+    ("uniform-noise integer softs", 1024, 128, 3, "uniform"),
+    ("seg 512 / ovl 64", 512, 64, 6, "coded"),
+    ("seg 1024 / ovl 200", 1024, 200, 3, "coded"),
+)
+
+
+def _k1_case_softs(rng, kind: str, T: int, seg: int) -> np.ndarray:
+    if kind == "uniform":        # pure noise: ties everywhere
+        return np.round(rng.uniform(0, 255, (T, 2))).astype(np.float32)
+    _, soft = _viterbi_inputs(rng, T, integer=False)
+    if kind == "erasure":        # the CADU chain pads chunks this way
+        soft[T - seg:] = 128.0
+    return soft
+
+
+def _k1_check(x, seg: int, ovl: int, label: str) -> None:
+    """Every layout, and viterbi_re, bit-identical to the plain version."""
     import torch
-    from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
+    from satdump_tpu_torch.ops.cuda.viterbi import (LAYOUTS, viterbi_re,
+                                                    viterbi_re_layout)
     from satdump_tpu_torch.ops.fec import convolutional as cc
+    ref = cc.viterbi_decode_tiled_re(x, seg=seg, ovl=ovl)
+    outs = {"viterbi_re": viterbi_re(x, seg=seg, ovl=ovl)}
+    for tpl in LAYOUTS:
+        outs[f"{tpl} threads/lane"] = viterbi_re_layout(x, tpl, seg=seg,
+                                                        ovl=ovl)
+    torch.cuda.synchronize()
+    diffs = {k: int((v != ref).sum()) for k, v in outs.items()}
+    log(f"K1 {label} (T={x.shape[0]}, seg {seg}, ovl {ovl}): bits that "
+        f"differ from plain {diffs} (tolerance: 0, bit-identical)")
+    if any(diffs.values()):
+        raise AssertionError(f"K1 {label} differs from its plain version: "
+                             f"{diffs}")
+
+
+def phase_k1(rng):
+    """K1 against viterbi_decode_tiled_re on the card, T = 2^20+1024, and
+    at the shapes of K1_CASES."""
+    import torch
+    from satdump_tpu_torch.ops.cuda.viterbi import (LAYOUTS, viterbi_re,
+                                                    viterbi_re_layout)
+    from satdump_tpu_torch.ops.fec import convolutional as cc
+    _k1_sass()
     seg, ovl = 1024, 128
     T = (1 << 20) + 1024          # CaduChain.vit_pairs at chunk 2^20 pairs
     res = {}
     for integer in (True, False):
         bits, soft = _viterbi_inputs(rng, T, integer)
         x = torch.from_numpy(soft).cuda()
-        got = viterbi_re(x, seg=seg, ovl=ovl)
-        ref = cc.viterbi_decode_tiled_re(x, seg=seg, ovl=ovl)
-        torch.cuda.synchronize()
-        ndiff = int((got != ref).sum())
-        ber = float((got.cpu().numpy() != bits).mean())
-        log(f"K1 {'integer' if integer else 'non-integer'} softs T={T}: "
-            f"{ndiff} bits differ from plain (tolerance: 0, bit-identical);"
-            f" decoded BER vs sent {ber:.2e}")
-        if ndiff:
-            raise AssertionError(f"K1 differs from its plain version in "
-                                 f"{ndiff} bits")
+        kind = "integer" if integer else "non-integer"
+        _k1_check(x, seg, ovl, f"{kind} softs")
+        ber = float((viterbi_re(x, seg=seg, ovl=ovl).cpu().numpy()
+                     != bits).mean())
+        log(f"K1 {kind} softs: decoded BER vs sent {ber:.2e}")
         if integer:
             kern = lambda: viterbi_re(x, seg=seg, ovl=ovl)  # noqa: E731
             res["ms"] = kernel_ms(kern, "viterbi_re_kernel", 20)
+            res["layouts_ms"] = {
+                str(tpl): kernel_ms(
+                    lambda: viterbi_re_layout(x, tpl, seg=seg, ovl=ovl),
+                    "viterbi_re_kernel", 20)
+                for tpl in LAYOUTS}
             res["call_ms"] = call_ms(kern, 20)
             res["plain_ms"] = call_ms(
                 lambda: cc.viterbi_decode_tiled_re(x, seg=seg, ovl=ovl), 3)
@@ -182,9 +313,13 @@ def phase_k1(rng):
             nbytes = T * 2 * 4 + T          # soft pairs in, bits out
             res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops,
                                                         H100_F32_OPS)
+    for label, cseg, covl, lanes, kind in K1_CASES:
+        soft = _k1_case_softs(rng, kind, lanes * cseg, cseg)
+        _k1_check(torch.from_numpy(soft).cuda(), cseg, covl, label)
     res["max_abs_err"] = 0.0
     log(f"K1 times at T={T}: kernel {res['ms']:.4f} ms on the card "
-        f"(profiler), {res['call_ms']:.4f} ms per wrapper call (events), "
+        f"(profiler; by layout, threads/lane: {res['layouts_ms']}), "
+        f"{res['call_ms']:.4f} ms per wrapper call (events), "
         f"plain {res['plain_ms']:.2f} ms, bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']})")
     return res
@@ -313,6 +448,7 @@ def phase_small_pass(rng, work: Path):
 def phase_main(rng, work: Path):
     """The main path; returns the kernels' launches and the input file."""
     import torch
+    from satdump_tpu_torch.ops.cuda.probe import affine_probe
     from satdump_tpu_torch.ops.cuda.resample import resample_arith_grid
     from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
     from satdump_tpu_torch.pipeline.runner import run_pipeline
@@ -320,7 +456,8 @@ def phase_main(rng, work: Path):
     n_cadus = int((1 << 23) / (8192 * up / down))
     cadus, path, n = _pass(rng, n_cadus, work / "main", (up, down))
     pipe = _pipeline(fname, pipe_id)
-    kernels = (viterbi_re, resample_arith_grid)
+    path_kernels = (viterbi_re, resample_arith_grid)
+    kernels = path_kernels + (affine_probe,)      # the probe is on no path
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
@@ -333,9 +470,9 @@ def phase_main(rng, work: Path):
     log(f"main path: wall {wall:.3f} s, baseband->CADU "
         f"{n / wall / 1e6:.3f} Msamp/s on {torch.cuda.get_device_name(0)}; "
         f"launches {launches}")
-    for name, c in launches.items():
-        if c <= 0:
-            raise AssertionError(f"main path never launched {name}")
+    for k in path_kernels:
+        if launches[k.__name__] <= 0:
+            raise AssertionError(f"main path never launched {k.__name__}")
     return launches, path
 
 
@@ -422,6 +559,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_env()
     phase_build()
+    probe = phase_probe()
     rng = np.random.default_rng(SEED)
     k1 = phase_k1(rng)
     k2 = phase_k2(rng)
@@ -437,13 +575,18 @@ def main() -> int:
             ("viterbi_re", "satdump_tpu_torch/csrc/viterbi_re.cu",
              "satdump_tpu/ops/pallas/viterbi.py:136", k1),
             ("resample_arith_grid", "satdump_tpu_torch/csrc/resample_arith.cu",
-             "satdump_tpu/ops/pallas/resample.py:103", k2)):
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches[name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"], "library_ms": None,
-                     "call_ms": r["call_ms"]})
+             "satdump_tpu/ops/pallas/resample.py:103", k2),
+            ("affine_probe", "satdump_tpu_torch/csrc/probe_affine.cu",
+             "tools/pallas_smoke.py:10", probe)):
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": rep, "launches": launches[name],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"],
+               "library_ms": r.get("library_ms"), "call_ms": r["call_ms"]}
+        if "layouts_ms" in r:
+            row["layouts_ms"] = r["layouts_ms"]
+        rows.append(row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -10,27 +10,59 @@
 // the 64 states an f32 path metric (never renormalized) and a 64-bit
 // survivor register. The bit at delay 63 is read from state 0's register
 // for the window steps ovl+63 .. ovl+63+seg-1 and written to out[l*seg ..].
+// Steps after the last emitted bit change nothing that is emitted, so a lane
+// runs ovl+63+seg steps (rounded up to whole chunks) instead of seg+2*ovl.
 //
-// Design: one warp per lane. Thread t holds the new states 2t and 2t+1; both
-// read the old states t and t+32, which sit in threads t>>1 and 16+(t>>1),
-// so the butterfly is four __shfl_sync per step for the metrics and four for
-// the 64-bit survivors (each two 32-bit shuffles). Survivors are native
-// uint64 registers (the TPU kernel splits them into hi/lo uint32). Steps
-// after the last emitted bit change nothing that is emitted, so the scan
-// stops there (ovl+63+seg steps instead of seg+2*ovl).
+// What bounds it on an H100: not memory (8 bytes in, 1 byte out per pair)
+// and not the card's peak arithmetic. Each lane is a chain of dependent
+// steps and there are only L lanes (1025 on the main path), so the card
+// holds few warps (4 to 8 an SM) and the time is the steps times each
+// step's instruction count and latency. The design cuts both:
 //
-// Exactness: every float op is written with an explicit _rn intrinsic in the
-// reference's order, bm = ((s0 + s1) + e0*(255 - 2 s0)) + e1*(255 - 2 s1),
-// then pm + bm; e is 0 or 1 so the products are exact. The tie rule is the
-// reference's strict `cand_b < cand_a`: on a tie the survivor comes from the
-// s>>1 predecessor.
+//  1. Softs are staged in shared memory by cp.async, 32 steps a chunk,
+//     double-buffered: the next chunk's copy is in flight while the current
+//     one is decoded, and no global load is left inside the step loop. The
+//     copies are 8 bytes (one pair), so any ovl and any 8-byte-aligned base
+//     works. The lane's threads turn each staged pair into the step's four
+//     distinct branch metrics once, stored as four permutations (one per
+//     butterfly type), so an ACS thread reads its metrics with one 16-byte
+//     shared load a step. Pairs outside [0, T) are written as 128.
+//  2. Two layouts of a lane's 64 states (template kTPL, threads per lane):
+//     - 32 threads (radix-2): thread t holds the new states 2t, 2t+1 and
+//       reads the old states t, t+32 from threads t>>1 and 16+(t>>1) by
+//       shuffle, 12 __shfl_sync a step (the uint64 survivors take two each).
+//     - 16 threads (radix-4), two lanes a warp: thread j holds the old
+//       states {j, j+16, j+32, j+48}; one trellis step leads them to
+//       {2j, 2j+1, 2j+32, 2j+33} and a second to {4j .. 4j+3}, so the group
+//       is closed over two steps and both are done in registers, each with
+//       exactly the radix-2 reference's ACS and rounding. The threads then
+//       re-form the layout once per two steps through shared memory (double
+//       buffered, one __syncwarp).
+//     chip_smoke.py times both; viterbi_re_launch uses the faster
+//     (kDefaultThreadsPerLane), viterbi_re_launch_layout either.
+//  3. 128 threads a block, L lanes rounded up to whole blocks; a warp
+//     whose lanes all lie past L returns, a lane past L in a live warp
+//     decodes a copy of lane L-1 and stores nothing. Shared memory stays
+//     under the 48 KB static limit.
+//  4. Thread 0 of a lane (which always holds state 0) gathers a chunk's
+//     emitted bits in one word; the lane's threads then store them as
+//     neighbouring bytes.
 //
-// What bounds it on an H100: neither memory (8 bytes in, 1 byte out per
-// pair) nor peak arithmetic; each step is a serial chain of shuffles and
-// dependent adds, so it is bound by latency and by how many warps (one per
-// lane, 1025 at the main-path shape) the 132 SMs can interleave.
+// Exactness: the ACS is only adds and compares, bm = ((s0 + s1) + e0*u0) +
+// e1*u1 with u = 255 - 2s, then pm + bm, written with explicit _rn
+// intrinsics. e is 0 or 1, so each step has four distinct metrics, base,
+// base+u1, base+u0 and (base+u0)+u1, which equal the reference's form bit
+// for bit (adding e*u = +-0 changes nothing). The products 2*s are __fmul_rn,
+// so the kernel holds no FFMA at all (chip_smoke.py checks its SASS). The
+// tie rule is the reference's strict `cand_b < cand_a`: on a tie the
+// survivor comes from the s>>1 predecessor.
+//
+// Tensor cores do not apply: the ACS is a min-plus recurrence, not a
+// multiply-add.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -38,103 +70,264 @@ namespace {
 constexpr int kPolyA = 79;
 constexpr int kPolyB = 109;
 constexpr int kReDelay = 63;
+constexpr int kChunk = 32;        // steps staged per chunk
+constexpr int kThreads = 128;     // threads a block
+constexpr int kDefaultThreadsPerLane = 16;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float parity(int x) {
-  return static_cast<float>(__popc(x) & 1);
+using u64 = unsigned long long;
+
+struct LaneSmem {
+  // q[k][t]: chunk step k's metrics for a butterfly of type t,
+  // (bm_t, bm_t^3, bm_t^1, bm_t^2)
+  float4 q[kChunk][4];
+  float2 raw[2][kChunk];          // staged soft pairs, double-buffered
+  float xpm[2][64];               // radix-4 exchange, double-buffered
+  u64 xreg[2][64];
+  float pad[16];                  // the warp's two lanes' xpm 64 B apart
+};
+
+__device__ __forceinline__ int parity(int x) { return __popc(x) & 1; }
+
+// butterfly type of m: the expected bits (e0, e1) of the transition from
+// old state m into new state 2m, as t = 2*e0 + e1. The other three
+// transitions of the butterfly (m, m+32) -> (2m, 2m+1) use t ^ 3, t ^ 3, t.
+__device__ __forceinline__ int bfly_type(int m) {
+  return 2 * parity((2 * m) & kPolyA) + parity((2 * m) & kPolyB);
 }
 
-__global__ void viterbi_re_kernel(const float2* __restrict__ soft, int T,
-                                  int L, int seg, int ovl,
-                                  uint8_t* __restrict__ out) {
-  const int lane = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int t = threadIdx.x & 31;
-  if (lane >= L) return;  // uniform across the warp
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(gmem));
+}
 
-  // expected output bits for the transitions into new state 2t+b from the
-  // predecessors t (A) and t+32 (B): register (pred << 1) | b
-  float eA0[2], eA1[2], eB0[2], eB1[2];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// stage window pairs [first, first + kChunk) into raw[buf]; 128 outside
+// [0, T)
+template <int kTPL>
+__device__ __forceinline__ void stage(LaneSmem& sm, int buf,
+                                      const float2* __restrict__ soft,
+                                      int T, long long first, int j) {
 #pragma unroll
-  for (int b = 0; b < 2; ++b) {
-    const int ra = (t << 1) | b;
-    const int rb = ((t + 32) << 1) | b;
-    eA0[b] = parity(ra & kPolyA);
-    eA1[b] = parity(ra & kPolyB);
-    eB0[b] = parity(rb & kPolyA);
-    eB1[b] = parity(rb & kPolyB);
+  for (int k = j; k < kChunk; k += kTPL) {
+    const long long idx = first + k;
+    if (idx >= 0 && idx < T) {
+      cp_async8(&sm.raw[buf][k], soft + idx);
+    } else {
+      sm.raw[buf][k] = make_float2(128.f, 128.f);
+    }
   }
-  const int srcA = t >> 1;
-  const int srcB = 16 + (t >> 1);
-  const bool odd = (t & 1) != 0;
+  cp_async_commit();
+}
 
-  float pm0 = 0.f, pm1 = 0.f;                     // states 2t, 2t+1
-  unsigned long long r0 = 0ull, r1 = 0ull;
+// the four distinct branch metrics of each staged step, in the four
+// butterfly-type orders
+template <int kTPL>
+__device__ __forceinline__ void make_metrics(LaneSmem& sm, int buf, int j) {
+#pragma unroll
+  for (int k = j; k < kChunk; k += kTPL) {
+    const float2 v = sm.raw[buf][k];
+    const float base = __fadd_rn(v.x, v.y);
+    const float u0 = __fsub_rn(255.f, __fmul_rn(2.f, v.x));
+    const float u1 = __fsub_rn(255.f, __fmul_rn(2.f, v.y));
+    float bm[4];
+    bm[0] = base;                        // e0 = 0, e1 = 0
+    bm[1] = __fadd_rn(base, u1);         // e0 = 0, e1 = 1
+    bm[2] = __fadd_rn(base, u0);         // e0 = 1, e1 = 0
+    bm[3] = __fadd_rn(bm[2], u1);        // e0 = 1, e1 = 1
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      sm.q[k][t] = make_float4(bm[t], bm[t ^ 3], bm[t ^ 1], bm[t ^ 2]);
+    }
+  }
+}
+
+// one butterfly: old states a = m, b = m+32 -> new 2m (bit 0), 2m+1 (bit 1);
+// X is the metric of a -> 2m and b -> 2m+1, Y of b -> 2m and a -> 2m+1
+__device__ __forceinline__ void bfly(float pa, u64 ra, float pb, u64 rb,
+                                     float X, float Y, float& p0, u64& r0,
+                                     float& p1, u64& r1) {
+  const float c0a = __fadd_rn(pa, X);
+  const float c0b = __fadd_rn(pb, Y);
+  const bool d0 = c0b < c0a;
+  p0 = d0 ? c0b : c0a;
+  r0 = (d0 ? rb : ra) << 1;
+  const float c1a = __fadd_rn(pa, Y);
+  const float c1b = __fadd_rn(pb, X);
+  const bool d1 = c1b < c1a;
+  p1 = d1 ? c1b : c1a;
+  r1 = ((d1 ? rb : ra) << 1) | 1ull;
+}
+
+__device__ __forceinline__ unsigned top_bit(u64 r) {
+  return static_cast<unsigned>(r >> 63);
+}
+
+// kTPL = 32: radix-2 steps, shuffle exchange every step
+struct Radix2 {
+  float pm0 = 0.f, pm1 = 0.f;     // states 2t, 2t+1
+  u64 r0 = 0ull, r1 = 0ull;
+  int tau, srcA, srcB;
+  bool odd;
+  __device__ explicit Radix2(int t)
+      : tau(bfly_type(t)), srcA(t >> 1), srcB(16 + (t >> 1)),
+        odd((t & 1) != 0) {}
+
+  __device__ __forceinline__ unsigned chunk(const LaneSmem& sm) {
+    unsigned mask = 0;
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const float a0 = __shfl_sync(kFull, pm0, srcA);
+      const float a1 = __shfl_sync(kFull, pm1, srcA);
+      const float b0 = __shfl_sync(kFull, pm0, srcB);
+      const float b1 = __shfl_sync(kFull, pm1, srcB);
+      const u64 ra0 = __shfl_sync(kFull, r0, srcA);
+      const u64 ra1 = __shfl_sync(kFull, r1, srcA);
+      const u64 rb0 = __shfl_sync(kFull, r0, srcB);
+      const u64 rb1 = __shfl_sync(kFull, r1, srcB);
+      const float2 q = *reinterpret_cast<const float2*>(&sm.q[k][tau]);
+      bfly(odd ? a1 : a0, odd ? ra1 : ra0, odd ? b1 : b0, odd ? rb1 : rb0,
+           q.x, q.y, pm0, r0, pm1, r1);
+      mask |= top_bit(r0) << k;
+    }
+    return mask;
+  }
+};
+
+// kTPL = 16: radix-4 pairs of steps, shared-memory exchange every two
+struct Radix4 {
+  float pm[4] = {0.f, 0.f, 0.f, 0.f};   // states j, j+16, j+32, j+48
+  u64 rg[4] = {0ull, 0ull, 0ull, 0ull};
+  int j, tau, sig;
+  __device__ explicit Radix4(int j_)
+      : j(j_), tau(bfly_type(j_)), sig(bfly_type(2 * j_)) {}
+
+  __device__ __forceinline__ unsigned chunk(LaneSmem& sm) {
+    unsigned mask = 0;
+#pragma unroll
+    for (int k = 0; k < kChunk; k += 2) {
+      // step 1: butterflies m = j (type tau) and m = j+16 (type tau^1)
+      float ip0, ip1, ip2, ip3;
+      u64 ir0, ir1, ir2, ir3;
+      float4 q = sm.q[k][tau];
+      bfly(pm[0], rg[0], pm[2], rg[2], q.x, q.y, ip0, ir0, ip1, ir1);
+      bfly(pm[1], rg[1], pm[3], rg[3], q.z, q.w, ip2, ir2, ip3, ir3);
+      mask |= top_bit(ir0) << k;
+      // step 2: butterflies m = 2j (type sig) and m = 2j+1 (type sig^2)
+      float n0, n1, n2, n3;
+      u64 nr0, nr1, nr2, nr3;
+      q = sm.q[k + 1][sig];
+      bfly(ip0, ir0, ip2, ir2, q.x, q.y, n0, nr0, n1, nr1);
+      bfly(ip1, ir1, ip3, ir3, q.w, q.z, n2, nr2, n3, nr3);
+      mask |= top_bit(nr0) << (k + 1);
+      // states 4j .. 4j+3 out, states j + 16i in
+      const int xb = (k >> 1) & 1;
+      reinterpret_cast<float4*>(sm.xpm[xb])[j] = make_float4(n0, n1, n2, n3);
+      ulonglong2* xr = reinterpret_cast<ulonglong2*>(sm.xreg[xb]);
+      xr[2 * j] = make_ulonglong2(nr0, nr1);
+      xr[2 * j + 1] = make_ulonglong2(nr2, nr3);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pm[i] = sm.xpm[xb][j + 16 * i];
+        rg[i] = sm.xreg[xb][j + 16 * i];
+      }
+    }
+    return mask;
+  }
+};
+
+template <int kTPL>
+__global__ void __launch_bounds__(kThreads)
+    viterbi_re_kernel(const float2* __restrict__ soft, int T, int L,
+                      int seg, int ovl, uint8_t* __restrict__ out) {
+  static_assert(kTPL == 16 || kTPL == 32, "16 or 32 threads a lane");
+  constexpr int kLanesPerBlock = kThreads / kTPL;
+  __shared__ LaneSmem smem[kLanesPerBlock];
+
+  const int slot = threadIdx.x / kTPL;
+  const int j = threadIdx.x % kTPL;
+  const int lane = blockIdx.x * kLanesPerBlock + slot;
+  const int warp_first = blockIdx.x * kLanesPerBlock +
+                         (threadIdx.x / 32) * (32 / kTPL);
+  if (warp_first >= L) return;    // uniform across the warp
+  const bool live = lane < L;
+  LaneSmem& sm = smem[slot];
+
   const int emit_from = ovl + kReDelay;
   const int steps = emit_from + seg;
-  const long long base_idx = static_cast<long long>(lane) * seg - ovl;
+  const int nch = (steps + kChunk - 1) / kChunk;
+  const long long first =
+      static_cast<long long>(live ? lane : L - 1) * seg - ovl;
   uint8_t* out_lane = out + static_cast<long long>(lane) * seg;
+  // thread 0 of this lane, as a lane index within the warp
+  const int leader = (threadIdx.x & 31) & ~(kTPL - 1);
 
-  for (int s = 0; s < steps; ++s) {
-    const long long idx = base_idx + s;
-    float s0 = 128.f, s1 = 128.f;
-    if (idx >= 0 && idx < T) {
-      const float2 v = soft[idx];
-      s0 = v.x;
-      s1 = v.y;
+  typename std::conditional<kTPL == 32, Radix2, Radix4>::type acs(j);
+  stage<kTPL>(sm, 0, soft, T, first, j);
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) {
+      stage<kTPL>(sm, (c + 1) & 1, soft, T, first + (c + 1) * kChunk, j);
+    } else {
+      cp_async_commit();          // an empty group keeps the wait uniform
     }
-    // old metrics / survivors of states t (A) and t+32 (B)
-    const float a0 = __shfl_sync(kFull, pm0, srcA);
-    const float a1 = __shfl_sync(kFull, pm1, srcA);
-    const float b0 = __shfl_sync(kFull, pm0, srcB);
-    const float b1 = __shfl_sync(kFull, pm1, srcB);
-    const unsigned long long ra0 = __shfl_sync(kFull, r0, srcA);
-    const unsigned long long ra1 = __shfl_sync(kFull, r1, srcA);
-    const unsigned long long rb0 = __shfl_sync(kFull, r0, srcB);
-    const unsigned long long rb1 = __shfl_sync(kFull, r1, srcB);
-    const float pmA = odd ? a1 : a0;
-    const float pmB = odd ? b1 : b0;
-    const unsigned long long regA = odd ? ra1 : ra0;
-    const unsigned long long regB = odd ? rb1 : rb0;
-
-    const float base = __fadd_rn(s0, s1);
-    const float u0 = __fsub_rn(255.f, __fmul_rn(2.f, s0));
-    const float u1 = __fsub_rn(255.f, __fmul_rn(2.f, s1));
-    float npm[2];
-    unsigned long long nr[2];
+    cp_async_wait_one();          // chunk c has landed
+    __syncwarp();
+    make_metrics<kTPL>(sm, c & 1, j);
+    __syncwarp();
+    const unsigned mask = __shfl_sync(kFull, acs.chunk(sm), leader);
+    const int o0 = c * kChunk - emit_from;
+    if (live) {
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const float bmA = __fadd_rn(__fadd_rn(base, __fmul_rn(eA0[b], u0)),
-                                  __fmul_rn(eA1[b], u1));
-      const float bmB = __fadd_rn(__fadd_rn(base, __fmul_rn(eB0[b], u0)),
-                                  __fmul_rn(eB1[b], u1));
-      const float ca = __fadd_rn(pmA, bmA);
-      const float cb = __fadd_rn(pmB, bmB);
-      const bool dec = cb < ca;
-      npm[b] = dec ? cb : ca;
-      nr[b] = ((dec ? regB : regA) << 1) | static_cast<unsigned long long>(b);
-    }
-    pm0 = npm[0];
-    pm1 = npm[1];
-    r0 = nr[0];
-    r1 = nr[1];
-    if (t == 0 && s >= emit_from) {
-      out_lane[s - emit_from] = static_cast<uint8_t>(r0 >> 63);
+      for (int k = j; k < kChunk; k += kTPL) {
+        const int o = o0 + k;
+        if (o >= 0 && o < seg) {
+          out_lane[o] = static_cast<uint8_t>((mask >> k) & 1u);
+        }
+      }
     }
   }
+}
+
+template <int kTPL>
+int launch(const void* soft, int T, int L, int seg, int ovl, void* out,
+           void* stream) {
+  constexpr int kLanesPerBlock = kThreads / kTPL;
+  const int blocks = (L + kLanesPerBlock - 1) / kLanesPerBlock;
+  viterbi_re_kernel<kTPL><<<blocks, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(soft), T, L, seg, ovl,
+      static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+extern "C" int viterbi_re_launch_layout(const void* soft, int T, int L,
+                                        int seg, int ovl, void* out,
+                                        int threads_per_lane, void* stream) {
+  switch (threads_per_lane) {
+    case 16:
+      return launch<16>(soft, T, L, seg, ovl, out, stream);
+    case 32:
+      return launch<32>(soft, T, L, seg, ovl, out, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" int viterbi_re_launch(const void* soft, int T, int L, int seg,
                                  int ovl, void* out, void* stream) {
-  constexpr int kWarpsPerBlock = 4;
-  const int threads = 32 * kWarpsPerBlock;
-  const int blocks = (L + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  viterbi_re_kernel<<<blocks, threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(soft), T, L, seg, ovl,
-      static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return viterbi_re_launch_layout(soft, T, L, seg, ovl, out,
+                                  kDefaultThreadsPerLane, stream);
 }
 
 extern "C" const char* viterbi_re_error_string(int err) {

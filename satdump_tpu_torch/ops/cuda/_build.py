@@ -23,7 +23,7 @@ from satdump_tpu_torch.core.exceptions import SatdumpError
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("viterbi_re", "resample_arith")
+SOURCES = ("viterbi_re", "resample_arith", "probe_affine")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
