@@ -263,7 +263,7 @@ def _k1_check(x, seg: int, ovl: int, label: str) -> None:
     ref = cc.viterbi_decode_tiled_re(x, seg=seg, ovl=ovl)
     outs = {"viterbi_re": viterbi_re(x, seg=seg, ovl=ovl)}
     for tpl in LAYOUTS:
-        outs[f"{tpl} threads/lane"] = viterbi_re_layout(x, tpl, seg=seg,
+        outs[f"layout {tpl}"] = viterbi_re_layout(x, tpl, seg=seg,
                                                         ovl=ovl)
     torch.cuda.synchronize()
     diffs = {k: int((v != ref).sum()) for k, v in outs.items()}
@@ -318,7 +318,7 @@ def phase_k1(rng):
         _k1_check(torch.from_numpy(soft).cuda(), cseg, covl, label)
     res["max_abs_err"] = 0.0
     log(f"K1 times at T={T}: kernel {res['ms']:.4f} ms on the card "
-        f"(profiler; by layout, threads/lane: {res['layouts_ms']}), "
+        f"(profiler; by layout: {res['layouts_ms']}), "
         f"{res['call_ms']:.4f} ms per wrapper call (events), "
         f"plain {res['plain_ms']:.2f} ms, bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']})")

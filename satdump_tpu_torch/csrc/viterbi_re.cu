@@ -297,6 +297,192 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Warp-specialised radix-4 (layout 2): a lane's 16 metric threads (one
+// warp holds two lanes' worth) run the path metrics and publish each
+// step's decisions as warp ballots; the lane's 16 survivor threads, in the
+// partner warp, replay those decisions on the survivor registers one chunk
+// behind. Registers are kept as (lo, hi) halves with the bit of window step
+// s written at position s & 63 instead of shifting (the same 64 bits,
+// rotated), so the emitted bit is position (s + 1) & 63.
+constexpr int kWsLanesPerBlock = kThreads / 32;    // 4: two warp pairs
+
+struct MetricR4 {
+  float pm[4] = {0.f, 0.f, 0.f, 0.f};   // states j, j+16, j+32, j+48
+  int j, tau, sig;
+  __device__ explicit MetricR4(int j_)
+      : j(j_), tau(bfly_type(j_)), sig(bfly_type(2 * j_)) {}
+
+  __device__ __forceinline__ static void acs(float pa, float pb, float X,
+                                             float Y, float& p0, bool& d0,
+                                             float& p1, bool& d1) {
+    const float c0a = __fadd_rn(pa, X);
+    const float c0b = __fadd_rn(pb, Y);
+    d0 = c0b < c0a;
+    p0 = d0 ? c0b : c0a;
+    const float c1a = __fadd_rn(pa, Y);
+    const float c1b = __fadd_rn(pb, X);
+    d1 = c1b < c1a;
+    p1 = d1 ? c1b : c1a;
+  }
+
+  // dec[p][0..7]: ballots of pair p's decisions for new states
+  // (2j, 2j+1, 2j+32, 2j+33) then (4j, 4j+1, 4j+2, 4j+3)
+  __device__ __forceinline__ void chunk(LaneSmem& sm, unsigned (*dec)[8],
+                                        int lid) {
+#pragma unroll
+    for (int k = 0; k < kChunk; k += 2) {
+      float i0, i1, i2, i3, n0, n1, n2, n3;
+      bool d0, d1, d2, d3, e0, e1, e2, e3;
+      float4 q = sm.q[k][tau];
+      acs(pm[0], pm[2], q.x, q.y, i0, d0, i1, d1);
+      acs(pm[1], pm[3], q.z, q.w, i2, d2, i3, d3);
+      q = sm.q[k + 1][sig];
+      acs(i0, i2, q.x, q.y, n0, e0, n1, e1);
+      acs(i1, i3, q.w, q.z, n2, e2, n3, e3);
+      const uint4 wa = make_uint4(
+          __ballot_sync(kFull, d0), __ballot_sync(kFull, d1),
+          __ballot_sync(kFull, d2), __ballot_sync(kFull, d3));
+      const uint4 wb = make_uint4(
+          __ballot_sync(kFull, e0), __ballot_sync(kFull, e1),
+          __ballot_sync(kFull, e2), __ballot_sync(kFull, e3));
+      if (lid == 0) {
+        reinterpret_cast<uint4*>(dec[k >> 1])[0] = wa;
+        reinterpret_cast<uint4*>(dec[k >> 1])[1] = wb;
+      }
+      const int xb = (k >> 1) & 1;
+      reinterpret_cast<float4*>(sm.xpm[xb])[j] = make_float4(n0, n1, n2, n3);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pm[i] = sm.xpm[xb][j + 16 * i];
+    }
+  }
+};
+
+struct SurvivorR4 {
+  unsigned lo[4] = {0u, 0u, 0u, 0u};    // states j, j+16, j+32, j+48
+  unsigned hi[4] = {0u, 0u, 0u, 0u};
+  int j;
+  unsigned me;                          // this thread's bit in a ballot
+  __device__ SurvivorR4(int j_, int lid) : j(j_), me(1u << lid) {}
+
+  // new register = (d ? b : a) with bit `pos` of half kH set to kB (pos is
+  // a constant once the chunk loop is unrolled)
+  template <int kH, int kB>
+  __device__ __forceinline__ static void pick(unsigned alo, unsigned ahi,
+                                              unsigned blo, unsigned bhi,
+                                              bool d, int pos, unsigned& lo,
+                                              unsigned& hi) {
+    lo = d ? blo : alo;
+    hi = d ? bhi : ahi;
+    unsigned& w = kH ? hi : lo;
+    w = kB ? (w | (1u << pos)) : (w & ~(1u << pos));
+  }
+
+  // replay one chunk of decisions; kH = chunk index & 1 (which half holds
+  // this chunk's positions); returns the chunk's emitted bits (thread 0)
+  template <int kH>
+  __device__ __forceinline__ unsigned chunk(LaneSmem& sm,
+                                            const unsigned (*dec)[8]) {
+    unsigned mask = 0;
+#pragma unroll
+    for (int k = 0; k < kChunk; k += 2) {
+      const uint4 wa = reinterpret_cast<const uint4*>(dec[k >> 1])[0];
+      const uint4 wb = reinterpret_cast<const uint4*>(dec[k >> 1])[1];
+      unsigned il[4], ih[4], nl[4], nh[4];
+      pick<kH, 0>(lo[0], hi[0], lo[2], hi[2], wa.x & me, k, il[0], ih[0]);
+      pick<kH, 1>(lo[0], hi[0], lo[2], hi[2], wa.y & me, k, il[1], ih[1]);
+      pick<kH, 0>(lo[1], hi[1], lo[3], hi[3], wa.z & me, k, il[2], ih[2]);
+      pick<kH, 1>(lo[1], hi[1], lo[3], hi[3], wa.w & me, k, il[3], ih[3]);
+      // the bit of window step s sits at (s + 1) & 63
+      mask |= (((kH ? ih[0] : il[0]) >> (k + 1)) & 1u) << k;
+      pick<kH, 0>(il[0], ih[0], il[2], ih[2], wb.x & me, k + 1, nl[0], nh[0]);
+      pick<kH, 1>(il[0], ih[0], il[2], ih[2], wb.y & me, k + 1, nl[1], nh[1]);
+      pick<kH, 0>(il[1], ih[1], il[3], ih[3], wb.z & me, k + 1, nl[2], nh[2]);
+      pick<kH, 1>(il[1], ih[1], il[3], ih[3], wb.w & me, k + 1, nl[3], nh[3]);
+      // after the chunk's last step that is the next half's bit 0
+      const unsigned e = k + 2 < kChunk ? ((kH ? nh[0] : nl[0]) >> (k + 2))
+                                        : (kH ? nl[0] : nh[0]);
+      mask |= (e & 1u) << (k + 1);
+      const int xb = (k >> 1) & 1;
+      uint4* xr = reinterpret_cast<uint4*>(sm.xreg[xb]);
+      xr[2 * j] = make_uint4(nl[0], nh[0], nl[1], nh[1]);
+      xr[2 * j + 1] = make_uint4(nl[2], nh[2], nl[3], nh[3]);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint2 r = reinterpret_cast<const uint2*>(sm.xreg[xb])[j + 16 * i];
+        lo[i] = r.x;
+        hi[i] = r.y;
+      }
+    }
+    return mask;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+    viterbi_re_kernel_ws(const float2* __restrict__ soft, int T, int L,
+                         int seg, int ovl, uint8_t* __restrict__ out) {
+  static_assert(kChunk == 32, "survivor positions assume 32-step chunks");
+  __shared__ LaneSmem smem[kWsLanesPerBlock];
+  __shared__ __align__(16) unsigned dec[kWsLanesPerBlock / 2][2]
+                                       [kChunk / 2][8];
+  const int warp = threadIdx.x >> 5;
+  const int lid = threadIdx.x & 31;
+  const bool metric = (warp & 1) == 0;
+  const int wpair = warp >> 1;
+  const int slot = 2 * wpair + (lid >> 4);
+  const int j = lid & 15;
+  const int lane = blockIdx.x * kWsLanesPerBlock + slot;
+  // every warp reaches each __syncthreads; a lane past L decodes a copy of
+  // lane L-1 and stores nothing
+  const bool live = lane < L;
+  LaneSmem& sm = smem[slot];
+
+  const int emit_from = ovl + kReDelay;
+  const int steps = emit_from + seg;
+  const int nch = (steps + kChunk - 1) / kChunk;
+  const long long first =
+      static_cast<long long>(live ? lane : L - 1) * seg - ovl;
+  uint8_t* out_lane = out + static_cast<long long>(lane) * seg;
+  const int leader = lid & ~15;
+
+  MetricR4 mt(j);
+  SurvivorR4 sv(j, lid);
+  if (metric) stage<16>(sm, 0, soft, T, first, j);
+  for (int c = 0; c <= nch; ++c) {
+    if (metric) {
+      if (c < nch) {
+        if (c + 1 < nch) {
+          stage<16>(sm, (c + 1) & 1, soft, T, first + (c + 1) * kChunk, j);
+        } else {
+          cp_async_commit();
+        }
+        cp_async_wait_one();
+        __syncwarp();
+        make_metrics<16>(sm, c & 1, j);
+        __syncwarp();
+        mt.chunk(sm, dec[wpair][c & 1], lid);
+      }
+    } else if (c > 0) {
+      const int cc = c - 1;
+      const unsigned m = (cc & 1) ? sv.chunk<1>(sm, dec[wpair][cc & 1])
+                                  : sv.chunk<0>(sm, dec[wpair][cc & 1]);
+      const unsigned mask = __shfl_sync(kFull, m, leader);
+      const int o0 = cc * kChunk - emit_from;
+      if (live) {
+#pragma unroll
+        for (int k = j; k < kChunk; k += 16) {
+          const int o = o0 + k;
+          if (o >= 0 && o < seg) {
+            out_lane[o] = static_cast<uint8_t>((mask >> k) & 1u);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
 template <int kTPL>
 int launch(const void* soft, int T, int L, int seg, int ovl, void* out,
            void* stream) {
@@ -319,6 +505,14 @@ extern "C" int viterbi_re_launch_layout(const void* soft, int T, int L,
       return launch<16>(soft, T, L, seg, ovl, out, stream);
     case 32:
       return launch<32>(soft, T, L, seg, ovl, out, stream);
+    case 2: {
+      const int blocks = (L + kWsLanesPerBlock - 1) / kWsLanesPerBlock;
+      viterbi_re_kernel_ws<<<blocks, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float2*>(soft), T, L, seg, ovl,
+          static_cast<uint8_t*>(out));
+      return static_cast<int>(cudaGetLastError());
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -20,7 +20,7 @@ from satdump_tpu_torch.ops.cuda import _build
 from satdump_tpu_torch.ops.fec import convolutional as cc
 
 _NAME = "viterbi_re"
-LAYOUTS = (16, 32)          # threads per lane the kernel is built for
+LAYOUTS = (16, 32, 2)       # 16, 32 threads a lane; 2: warp-specialised
 
 
 def _lib():
