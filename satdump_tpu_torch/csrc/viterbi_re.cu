@@ -61,7 +61,6 @@
 // multiply-add.
 
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -84,6 +83,7 @@ struct LaneSmem {
   float2 raw[2][kChunk];          // staged soft pairs, double-buffered
   float xpm[2][64];               // radix-4 exchange, double-buffered
   u64 xreg[2][64];
+  unsigned xw[2][2 * 64 + 16];    // Radix4H: [h] at h * 80 words, no bank clash
   float pad[16];                  // the warp's two lanes' xpm 64 B apart
 };
 
@@ -200,6 +200,10 @@ struct Radix2 {
     }
     return mask;
   }
+
+  __device__ __forceinline__ unsigned chunk_at(LaneSmem& sm, int) {
+    return chunk(sm);
+  }
 };
 
 // kTPL = 16: radix-4 pairs of steps, shared-memory exchange every two
@@ -243,9 +247,177 @@ struct Radix4 {
     }
     return mask;
   }
+
+  __device__ __forceinline__ unsigned chunk_at(LaneSmem& sm, int) {
+    return chunk(sm);
+  }
 };
 
-template <int kTPL>
+// kTPL = 16, rotated registers: as Radix4, but each survivor is a (lo, hi)
+// pair with the bit of window step s at position s & 63 (the shifted
+// register's 64 bits, rotated), and the bits are not appended step by step:
+// the low bit of a path's state one and two steps back is bit 1 and bit 0
+// of the state after a pair whatever the decisions (both predecessors of
+// 2m+b share m's low bit), so after each pair state 4j+m writes its two
+// positions at once from m. A step then costs each state two selects.
+struct Radix4R {
+  float pm[4] = {0.f, 0.f, 0.f, 0.f};   // states j, j+16, j+32, j+48
+  unsigned lo[4] = {0u, 0u, 0u, 0u};
+  unsigned hi[4] = {0u, 0u, 0u, 0u};
+  int j, tau, sig;
+  __device__ explicit Radix4R(int j_)
+      : j(j_), tau(bfly_type(j_)), sig(bfly_type(2 * j_)) {}
+
+  __device__ __forceinline__ static void acs(float pa, float pb, float X,
+                                             float Y, float& p0, bool& d0,
+                                             float& p1, bool& d1) {
+    const float c0a = __fadd_rn(pa, X);
+    const float c0b = __fadd_rn(pb, Y);
+    d0 = c0b < c0a;
+    p0 = d0 ? c0b : c0a;
+    const float c1a = __fadd_rn(pa, Y);
+    const float c1b = __fadd_rn(pb, X);
+    d1 = c1b < c1a;
+    p1 = d1 ? c1b : c1a;
+  }
+
+  // kH = chunk index & 1: the half that holds this chunk's positions
+  template <int kH>
+  __device__ __forceinline__ unsigned run(LaneSmem& sm) {
+    unsigned mask = 0;
+#pragma unroll
+    for (int k = 0; k < kChunk; k += 2) {
+      float i0, i1, i2, i3, n0, n1, n2, n3;
+      bool d0, d1, d2, d3, e0, e1, e2, e3;
+      unsigned il[4], ih[4], nl[4], nh[4];
+      float4 q = sm.q[k][tau];
+      acs(pm[0], pm[2], q.x, q.y, i0, d0, i1, d1);
+      acs(pm[1], pm[3], q.z, q.w, i2, d2, i3, d3);
+      il[0] = d0 ? lo[2] : lo[0];
+      ih[0] = d0 ? hi[2] : hi[0];
+      il[1] = d1 ? lo[2] : lo[0];
+      ih[1] = d1 ? hi[2] : hi[0];
+      il[2] = d2 ? lo[3] : lo[1];
+      ih[2] = d2 ? hi[3] : hi[1];
+      il[3] = d3 ? lo[3] : lo[1];
+      ih[3] = d3 ? hi[3] : hi[1];
+      // the bit of window step s sits at (s + 1) & 63
+      mask |= (((kH ? ih[0] : il[0]) >> (k + 1)) & 1u) << k;
+      q = sm.q[k + 1][sig];
+      acs(i0, i2, q.x, q.y, n0, e0, n1, e1);
+      acs(i1, i3, q.w, q.z, n2, e2, n3, e3);
+      nl[0] = e0 ? il[2] : il[0];
+      nh[0] = e0 ? ih[2] : ih[0];
+      nl[1] = e1 ? il[2] : il[0];
+      nh[1] = e1 ? ih[2] : ih[0];
+      nl[2] = e2 ? il[3] : il[1];
+      nh[2] = e2 ? ih[3] : ih[1];
+      nl[3] = e3 ? il[3] : il[1];
+      nh[3] = e3 ? ih[3] : ih[1];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        unsigned& w = kH ? nh[m] : nl[m];
+        const unsigned bits = ((m >> 1) << k) | ((m & 1) << (k + 1));
+        w = (w & ~(3u << k)) | bits;
+      }
+      // after the chunk's last step that is the next half's bit 0
+      const unsigned e = k + 2 < kChunk ? ((kH ? nh[0] : nl[0]) >> (k + 2))
+                                        : (kH ? nl[0] : nh[0]);
+      mask |= (e & 1u) << (k + 1);
+      const int xb = (k >> 1) & 1;
+      reinterpret_cast<float4*>(sm.xpm[xb])[j] = make_float4(n0, n1, n2, n3);
+      uint4* xr = reinterpret_cast<uint4*>(sm.xreg[xb]);
+      xr[2 * j] = make_uint4(nl[0], nh[0], nl[1], nh[1]);
+      xr[2 * j + 1] = make_uint4(nl[2], nh[2], nl[3], nh[3]);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pm[i] = sm.xpm[xb][j + 16 * i];
+        const uint2 r =
+            reinterpret_cast<const uint2*>(sm.xreg[xb])[j + 16 * i];
+        lo[i] = r.x;
+        hi[i] = r.y;
+      }
+    }
+    return mask;
+  }
+
+  __device__ __forceinline__ unsigned chunk_at(LaneSmem& sm, int c) {
+    return (c & 1) ? run<1>(sm) : run<0>(sm);
+  }
+};
+
+// kTPL = 32, split registers: the radix-4 grouping of Radix4R with each
+// group held by two threads, h = 0 and h = 1, one lane a warp. Both compute
+// the group's metrics and decisions; thread h holds one 32-bit half of
+// each survivor, thread 0 the half that the current chunk's positions fall
+// in (the halves change hands at each chunk boundary by one shuffle), so a
+// step costs each state one select.
+struct Radix4H {
+  float pm[4] = {0.f, 0.f, 0.f, 0.f};   // states j, j+16, j+32, j+48
+  unsigned w[4] = {0u, 0u, 0u, 0u};     // this thread's half of each
+  int j, h, tau, sig;
+  __device__ explicit Radix4H(int t)
+      : j(t & 15), h(t >> 4), tau(bfly_type(t & 15)),
+        sig(bfly_type(2 * (t & 15))) {}
+
+  __device__ __forceinline__ unsigned chunk_at(LaneSmem& sm, int c) {
+    if (c > 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[i] = __shfl_xor_sync(kFull, w[i], 16);
+    }
+    unsigned mask = 0;
+#pragma unroll
+    for (int k = 0; k < kChunk; k += 2) {
+      float i0, i1, i2, i3, n0, n1, n2, n3;
+      bool d0, d1, d2, d3, e0, e1, e2, e3;
+      unsigned iw[4], nw[4];
+      float4 q = sm.q[k][tau];
+      Radix4R::acs(pm[0], pm[2], q.x, q.y, i0, d0, i1, d1);
+      Radix4R::acs(pm[1], pm[3], q.z, q.w, i2, d2, i3, d3);
+      iw[0] = d0 ? w[2] : w[0];
+      iw[1] = d1 ? w[2] : w[0];
+      iw[2] = d2 ? w[3] : w[1];
+      iw[3] = d3 ? w[3] : w[1];
+      // the bit of window step s sits at (s + 1) & 63
+      mask |= ((iw[0] >> (k + 1)) & 1u) << k;
+      q = sm.q[k + 1][sig];
+      Radix4R::acs(i0, i2, q.x, q.y, n0, e0, n1, e1);
+      Radix4R::acs(i1, i3, q.w, q.z, n2, e2, n3, e3);
+      nw[0] = e0 ? iw[2] : iw[0];
+      nw[1] = e1 ? iw[2] : iw[0];
+      nw[2] = e2 ? iw[3] : iw[1];
+      nw[3] = e3 ? iw[3] : iw[1];
+      if (h == 0) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const unsigned bits = ((m >> 1) << k) | ((m & 1) << (k + 1));
+          nw[m] = (nw[m] & ~(3u << k)) | bits;
+        }
+      }
+      // after the chunk's last step that is bit 0 of the other half
+      mask |= ((nw[0] >> ((k + 2) % kChunk)) & 1u) << (k + 1);
+      const int xb = (k >> 1) & 1;
+      if (h == 0) {
+        reinterpret_cast<float4*>(sm.xpm[xb])[j] =
+            make_float4(n0, n1, n2, n3);
+      }
+      unsigned* xw = sm.xw[xb] + h * 80;
+      reinterpret_cast<uint4*>(xw)[j] = make_uint4(nw[0], nw[1], nw[2], nw[3]);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pm[i] = sm.xpm[xb][j + 16 * i];
+        w[i] = xw[j + 16 * i];
+      }
+    }
+    // bit 31 is the other half's (thread 16's); the rest thread 0's
+    const unsigned top = __shfl_sync(kFull, mask, 16);
+    return (mask & 0x7fffffffu) | (top & 0x80000000u);
+  }
+};
+
+template <int kTPL, class Acs>
 __global__ void __launch_bounds__(kThreads)
     viterbi_re_kernel(const float2* __restrict__ soft, int T, int L,
                       int seg, int ovl, uint8_t* __restrict__ out) {
@@ -271,7 +443,7 @@ __global__ void __launch_bounds__(kThreads)
   // thread 0 of this lane, as a lane index within the warp
   const int leader = (threadIdx.x & 31) & ~(kTPL - 1);
 
-  typename std::conditional<kTPL == 32, Radix2, Radix4>::type acs(j);
+  Acs acs(j);
   stage<kTPL>(sm, 0, soft, T, first, j);
   for (int c = 0; c < nch; ++c) {
     if (c + 1 < nch) {
@@ -283,7 +455,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
     make_metrics<kTPL>(sm, c & 1, j);
     __syncwarp();
-    const unsigned mask = __shfl_sync(kFull, acs.chunk(sm), leader);
+    const unsigned mask = __shfl_sync(kFull, acs.chunk_at(sm, c), leader);
     const int o0 = c * kChunk - emit_from;
     if (live) {
 #pragma unroll
@@ -483,12 +655,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kTPL>
+template <int kTPL, class Acs>
 int launch(const void* soft, int T, int L, int seg, int ovl, void* out,
            void* stream) {
   constexpr int kLanesPerBlock = kThreads / kTPL;
   const int blocks = (L + kLanesPerBlock - 1) / kLanesPerBlock;
-  viterbi_re_kernel<kTPL><<<blocks, kThreads, 0,
+  viterbi_re_kernel<kTPL, Acs><<<blocks, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(soft), T, L, seg, ovl,
       static_cast<uint8_t*>(out));
@@ -502,9 +674,13 @@ extern "C" int viterbi_re_launch_layout(const void* soft, int T, int L,
                                         int threads_per_lane, void* stream) {
   switch (threads_per_lane) {
     case 16:
-      return launch<16>(soft, T, L, seg, ovl, out, stream);
+      return launch<16, Radix4>(soft, T, L, seg, ovl, out, stream);
     case 32:
-      return launch<32>(soft, T, L, seg, ovl, out, stream);
+      return launch<32, Radix2>(soft, T, L, seg, ovl, out, stream);
+    case 4:
+      return launch<16, Radix4R>(soft, T, L, seg, ovl, out, stream);
+    case 5:
+      return launch<32, Radix4H>(soft, T, L, seg, ovl, out, stream);
     case 2: {
       const int blocks = (L + kWsLanesPerBlock - 1) / kWsLanesPerBlock;
       viterbi_re_kernel_ws<<<blocks, kThreads, 0,

@@ -20,7 +20,7 @@ from satdump_tpu_torch.ops.cuda import _build
 from satdump_tpu_torch.ops.fec import convolutional as cc
 
 _NAME = "viterbi_re"
-LAYOUTS = (16, 32, 2)       # 16, 32 threads a lane; 2: warp-specialised
+LAYOUTS = (16, 32, 2, 4, 5)  # 16, 32 threads a lane; 2: warp-specialised; 4, 5: rotated
 
 
 def _lib():
