@@ -14,13 +14,13 @@ Phases (any failure raises and the script exits non-zero):
     plain version exactly; its device time, the plain version's and one
     PyTorch call's (torch.add) and the bound;
  3. K1 (register-exchange Viterbi): its SASS must hold no FFMA; against
-    its plain torch version on the card, bit-identical, with both thread
-    layouts, at the main-path shape (integer and non-integer softs) and at
-    the shapes its chunking and grouping touch (5 lanes, an erasure tail,
-    uniform-noise softs, seg 512 / ovl 64, seg 1024 / ovl 200); the
-    kernel's device time (median over launches in torch.profiler's trace)
-    for each layout, the time per wrapper call (median of CUDA events
-    around single calls), the plain version's time and the bound;
+    its plain torch version on the card, bit-identical, at the main-path
+    shape (integer and non-integer softs) and at the shapes its chunking
+    and grouping touch (5 lanes, an erasure tail, uniform-noise softs,
+    seg 512 / ovl 64, seg 1024 / ovl 200); the kernel's device time
+    (median over launches in torch.profiler's trace), the time per
+    wrapper call (median of CUDA events around single calls), the plain
+    version's time and the bound;
  4. K2 (arithmetic-grid resampler) against its plain version at 2^18- and
     2^21-sample blocks, sps 18/7, skew 0 and 0.005; same numbers;
  5. 12-CADU passes of MetOp AHRPT (6 Msps, sps 18/7) and METEOR-M2 LRPT
@@ -255,31 +255,26 @@ def _k1_case_softs(rng, kind: str, T: int, seg: int) -> np.ndarray:
 
 
 def _k1_check(x, seg: int, ovl: int, label: str) -> None:
-    """Every layout, and viterbi_re, bit-identical to the plain version."""
+    """K1 bit-identical to its plain version."""
     import torch
-    from satdump_tpu_torch.ops.cuda.viterbi import (LAYOUTS, viterbi_re,
-                                                    viterbi_re_layout)
+    from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
     from satdump_tpu_torch.ops.fec import convolutional as cc
     ref = cc.viterbi_decode_tiled_re(x, seg=seg, ovl=ovl)
-    outs = {"viterbi_re": viterbi_re(x, seg=seg, ovl=ovl)}
-    for tpl in LAYOUTS:
-        outs[f"layout {tpl}"] = viterbi_re_layout(x, tpl, seg=seg,
-                                                        ovl=ovl)
+    got = viterbi_re(x, seg=seg, ovl=ovl)
     torch.cuda.synchronize()
-    diffs = {k: int((v != ref).sum()) for k, v in outs.items()}
-    log(f"K1 {label} (T={x.shape[0]}, seg {seg}, ovl {ovl}): bits that "
-        f"differ from plain {diffs} (tolerance: 0, bit-identical)")
-    if any(diffs.values()):
-        raise AssertionError(f"K1 {label} differs from its plain version: "
-                             f"{diffs}")
+    ndiff = int((got != ref).sum())
+    log(f"K1 {label} (T={x.shape[0]}, seg {seg}, ovl {ovl}): {ndiff} bits "
+        f"differ from plain (tolerance: 0, bit-identical)")
+    if ndiff:
+        raise AssertionError(f"K1 {label} differs from its plain version "
+                             f"in {ndiff} bits")
 
 
 def phase_k1(rng):
     """K1 against viterbi_decode_tiled_re on the card, T = 2^20+1024, and
     at the shapes of K1_CASES."""
     import torch
-    from satdump_tpu_torch.ops.cuda.viterbi import (LAYOUTS, viterbi_re,
-                                                    viterbi_re_layout)
+    from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
     from satdump_tpu_torch.ops.fec import convolutional as cc
     _k1_sass()
     seg, ovl = 1024, 128
@@ -296,11 +291,6 @@ def phase_k1(rng):
         if integer:
             kern = lambda: viterbi_re(x, seg=seg, ovl=ovl)  # noqa: E731
             res["ms"] = kernel_ms(kern, "viterbi_re_kernel", 20)
-            res["layouts_ms"] = {
-                str(tpl): kernel_ms(
-                    lambda: viterbi_re_layout(x, tpl, seg=seg, ovl=ovl),
-                    "viterbi_re_kernel", 20)
-                for tpl in LAYOUTS}
             res["call_ms"] = call_ms(kern, 20)
             res["plain_ms"] = call_ms(
                 lambda: cc.viterbi_decode_tiled_re(x, seg=seg, ovl=ovl), 3)
@@ -318,7 +308,7 @@ def phase_k1(rng):
         _k1_check(torch.from_numpy(soft).cuda(), cseg, covl, label)
     res["max_abs_err"] = 0.0
     log(f"K1 times at T={T}: kernel {res['ms']:.4f} ms on the card "
-        f"(profiler; by layout: {res['layouts_ms']}), "
+        f"(profiler), "
         f"{res['call_ms']:.4f} ms per wrapper call (events), "
         f"plain {res['plain_ms']:.2f} ms, bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']})")
@@ -578,15 +568,13 @@ def main() -> int:
              "satdump_tpu/ops/pallas/resample.py:103", k2),
             ("affine_probe", "satdump_tpu_torch/csrc/probe_affine.cu",
              "tools/pallas_smoke.py:10", probe)):
-        row = {"name": name, "route": "cuda", "source": src,
-               "replaces": rep, "launches": launches[name],
-               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-               "bound_by": r["bound_by"],
-               "library_ms": r.get("library_ms"), "call_ms": r["call_ms"]}
-        if "layouts_ms" in r:
-            row["layouts_ms"] = r["layouts_ms"]
-        rows.append(row)
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": rep, "launches": launches[name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r.get("library_ms"),
+                     "call_ms": r["call_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -13,40 +13,38 @@
 // Steps after the last emitted bit change nothing that is emitted, so a lane
 // runs ovl+63+seg steps (rounded up to whole chunks) instead of seg+2*ovl.
 //
-// What bounds it on an H100: not memory (8 bytes in, 1 byte out per pair)
-// and not the card's peak arithmetic. Each lane is a chain of dependent
-// steps and there are only L lanes (1025 on the main path), so the card
-// holds few warps (4 to 8 an SM) and the time is the steps times each
-// step's instruction count and latency. The design cuts both:
-//
+// Design (16 threads a lane, two lanes a warp, eight a block):
 //  1. Softs are staged in shared memory by cp.async, 32 steps a chunk,
 //     double-buffered: the next chunk's copy is in flight while the current
 //     one is decoded, and no global load is left inside the step loop. The
 //     copies are 8 bytes (one pair), so any ovl and any 8-byte-aligned base
-//     works. The lane's threads turn each staged pair into the step's four
-//     distinct branch metrics once, stored as four permutations (one per
-//     butterfly type), so an ACS thread reads its metrics with one 16-byte
-//     shared load a step. Pairs outside [0, T) are written as 128.
-//  2. Two layouts of a lane's 64 states (template kTPL, threads per lane):
-//     - 32 threads (radix-2): thread t holds the new states 2t, 2t+1 and
-//       reads the old states t, t+32 from threads t>>1 and 16+(t>>1) by
-//       shuffle, 12 __shfl_sync a step (the uint64 survivors take two each).
-//     - 16 threads (radix-4), two lanes a warp: thread j holds the old
-//       states {j, j+16, j+32, j+48}; one trellis step leads them to
-//       {2j, 2j+1, 2j+32, 2j+33} and a second to {4j .. 4j+3}, so the group
-//       is closed over two steps and both are done in registers, each with
-//       exactly the radix-2 reference's ACS and rounding. The threads then
-//       re-form the layout once per two steps through shared memory (double
-//       buffered, one __syncwarp).
-//     chip_smoke.py times both; viterbi_re_launch uses the faster
-//     (kDefaultThreadsPerLane), viterbi_re_launch_layout either.
-//  3. 128 threads a block, L lanes rounded up to whole blocks; a warp
-//     whose lanes all lie past L returns, a lane past L in a live warp
-//     decodes a copy of lane L-1 and stores nothing. Shared memory stays
-//     under the 48 KB static limit.
+//     works. Pairs outside [0, T) are written as 128. The lane's threads
+//     turn each staged pair into the step's four distinct branch metrics
+//     once, stored in four orders (one per butterfly type), so a thread
+//     reads its step's metrics with one 16-byte shared load.
+//  2. Radix-4 grouping: thread j holds the old states {j, j+16, j+32, j+48};
+//     one trellis step leads them to {2j, 2j+1, 2j+32, 2j+33} and a second
+//     to {4j .. 4j+3}, so the group is closed over two steps and both are
+//     done in registers, each with exactly the radix-2 reference's ACS and
+//     rounding. The threads then re-form the layout once per two steps
+//     through shared memory (double-buffered, one __syncwarp), laid out so
+//     that neither the stores nor the loads clash on a bank.
+//  3. 128 threads a block; L lanes are rounded up to whole blocks without
+//     needing to divide: a warp whose lanes all lie past L returns, a lane
+//     past L in a live warp decodes a copy of lane L-1 and stores nothing.
+//     Shared memory stays under the 48 KB static limit.
 //  4. Thread 0 of a lane (which always holds state 0) gathers a chunk's
 //     emitted bits in one word; the lane's threads then store them as
 //     neighbouring bytes.
+//
+// What bounds it on an H100 (measured, see PERF.md): not device memory
+// (8 bytes in, 1 byte out per pair) and not the arithmetic peak. Each lane
+// is a chain of dependent steps and there are only L lanes (1025 on the
+// main path, one warp per scheduler), and each pair of steps moves every
+// state's metric and survivor (12 bytes) through shared memory and back.
+// Layouts with 32 threads a lane (shuffles, or split survivor halves),
+// warp-specialised metric and survivor warps, and rotated registers with
+// fewer integer operations all ran within 6 % of this one.
 //
 // Exactness: the ACS is only adds and compares, bm = ((s0 + s1) + e0*u0) +
 // e1*u1 with u = 255 - 2s, then pm + bm, written with explicit _rn
@@ -71,7 +69,9 @@ constexpr int kPolyB = 109;
 constexpr int kReDelay = 63;
 constexpr int kChunk = 32;        // steps staged per chunk
 constexpr int kThreads = 128;     // threads a block
-constexpr int kDefaultThreadsPerLane = 16;
+constexpr int kLaneThreads = 16;  // threads a lane
+constexpr int kLanesPerBlock = kThreads / kLaneThreads;
+constexpr int kRegHi = 40;        // survivor slot of states 4j+2, 4j+3
 constexpr unsigned kFull = 0xffffffffu;
 
 using u64 = unsigned long long;
@@ -81,17 +81,19 @@ struct LaneSmem {
   // (bm_t, bm_t^3, bm_t^1, bm_t^2)
   float4 q[kChunk][4];
   float2 raw[2][kChunk];          // staged soft pairs, double-buffered
-  float xpm[2][64];               // radix-4 exchange, double-buffered
-  u64 xreg[2][64];
-  unsigned xw[2][2 * 64 + 16];    // Radix4H: [h] at h * 80 words, no bank clash
+  float xpm[2][64];               // exchange, double-buffered
+  // state 4a+m's survivor at 2a+m (m < 2) or kRegHi+2a+m-2 (m >= 2): each
+  // thread stores two neighbouring 16-byte pairs, and the 8-slot gap keeps
+  // the loads of states j + 16i off each other's banks
+  u64 xreg[2][kRegHi + 32];
   float pad[16];                  // the warp's two lanes' xpm 64 B apart
 };
 
 __device__ __forceinline__ int parity(int x) { return __popc(x) & 1; }
 
 // butterfly type of m: the expected bits (e0, e1) of the transition from
-// old state m into new state 2m, as t = 2*e0 + e1. The other three
-// transitions of the butterfly (m, m+32) -> (2m, 2m+1) use t ^ 3, t ^ 3, t.
+// old state m into new state 2m, as t = 2*e0 + e1. The transitions m+32 ->
+// 2m and m -> 2m+1 use t ^ 3, and m+32 -> 2m+1 uses t again.
 __device__ __forceinline__ int bfly_type(int m) {
   return 2 * parity((2 * m) & kPolyA) + parity((2 * m) & kPolyB);
 }
@@ -112,12 +114,11 @@ __device__ __forceinline__ void cp_async_wait_one() {
 
 // stage window pairs [first, first + kChunk) into raw[buf]; 128 outside
 // [0, T)
-template <int kTPL>
 __device__ __forceinline__ void stage(LaneSmem& sm, int buf,
                                       const float2* __restrict__ soft,
                                       int T, long long first, int j) {
 #pragma unroll
-  for (int k = j; k < kChunk; k += kTPL) {
+  for (int k = j; k < kChunk; k += kLaneThreads) {
     const long long idx = first + k;
     if (idx >= 0 && idx < T) {
       cp_async8(&sm.raw[buf][k], soft + idx);
@@ -130,10 +131,9 @@ __device__ __forceinline__ void stage(LaneSmem& sm, int buf,
 
 // the four distinct branch metrics of each staged step, in the four
 // butterfly-type orders
-template <int kTPL>
 __device__ __forceinline__ void make_metrics(LaneSmem& sm, int buf, int j) {
 #pragma unroll
-  for (int k = j; k < kChunk; k += kTPL) {
+  for (int k = j; k < kChunk; k += kLaneThreads) {
     const float2 v = sm.raw[buf][k];
     const float base = __fadd_rn(v.x, v.y);
     const float u0 = __fsub_rn(255.f, __fmul_rn(2.f, v.x));
@@ -171,49 +171,18 @@ __device__ __forceinline__ unsigned top_bit(u64 r) {
   return static_cast<unsigned>(r >> 63);
 }
 
-// kTPL = 32: radix-2 steps, shuffle exchange every step
-struct Radix2 {
-  float pm0 = 0.f, pm1 = 0.f;     // states 2t, 2t+1
-  u64 r0 = 0ull, r1 = 0ull;
-  int tau, srcA, srcB;
-  bool odd;
-  __device__ explicit Radix2(int t)
-      : tau(bfly_type(t)), srcA(t >> 1), srcB(16 + (t >> 1)),
-        odd((t & 1) != 0) {}
-
-  __device__ __forceinline__ unsigned chunk(const LaneSmem& sm) {
-    unsigned mask = 0;
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const float a0 = __shfl_sync(kFull, pm0, srcA);
-      const float a1 = __shfl_sync(kFull, pm1, srcA);
-      const float b0 = __shfl_sync(kFull, pm0, srcB);
-      const float b1 = __shfl_sync(kFull, pm1, srcB);
-      const u64 ra0 = __shfl_sync(kFull, r0, srcA);
-      const u64 ra1 = __shfl_sync(kFull, r1, srcA);
-      const u64 rb0 = __shfl_sync(kFull, r0, srcB);
-      const u64 rb1 = __shfl_sync(kFull, r1, srcB);
-      const float2 q = *reinterpret_cast<const float2*>(&sm.q[k][tau]);
-      bfly(odd ? a1 : a0, odd ? ra1 : ra0, odd ? b1 : b0, odd ? rb1 : rb0,
-           q.x, q.y, pm0, r0, pm1, r1);
-      mask |= top_bit(r0) << k;
-    }
-    return mask;
-  }
-
-  __device__ __forceinline__ unsigned chunk_at(LaneSmem& sm, int) {
-    return chunk(sm);
-  }
-};
-
-// kTPL = 16: radix-4 pairs of steps, shared-memory exchange every two
+// a lane's 64 states over 16 threads, two trellis steps per exchange
 struct Radix4 {
   float pm[4] = {0.f, 0.f, 0.f, 0.f};   // states j, j+16, j+32, j+48
   u64 rg[4] = {0ull, 0ull, 0ull, 0ull};
-  int j, tau, sig;
+  int j, tau, sig, rd;
+  // rd: xreg slot of state j (= 4a+m, a = j/4, m = j%4); state j + 16i
+  // sits 8i further on
   __device__ explicit Radix4(int j_)
-      : j(j_), tau(bfly_type(j_)), sig(bfly_type(2 * j_)) {}
+      : j(j_), tau(bfly_type(j_)), sig(bfly_type(2 * j_)),
+        rd(((j_ & 2) ? kRegHi : 0) + 2 * (j_ >> 2) + (j_ & 1)) {}
 
+  // one chunk of steps; returns the chunk's emitted bits (thread 0's)
   __device__ __forceinline__ unsigned chunk(LaneSmem& sm) {
     unsigned mask = 0;
 #pragma unroll
@@ -236,200 +205,29 @@ struct Radix4 {
       const int xb = (k >> 1) & 1;
       reinterpret_cast<float4*>(sm.xpm[xb])[j] = make_float4(n0, n1, n2, n3);
       ulonglong2* xr = reinterpret_cast<ulonglong2*>(sm.xreg[xb]);
-      xr[2 * j] = make_ulonglong2(nr0, nr1);
-      xr[2 * j + 1] = make_ulonglong2(nr2, nr3);
+      xr[j] = make_ulonglong2(nr0, nr1);
+      xr[kRegHi / 2 + j] = make_ulonglong2(nr2, nr3);
       __syncwarp();
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         pm[i] = sm.xpm[xb][j + 16 * i];
-        rg[i] = sm.xreg[xb][j + 16 * i];
+        rg[i] = sm.xreg[xb][rd + 8 * i];
       }
     }
     return mask;
   }
-
-  __device__ __forceinline__ unsigned chunk_at(LaneSmem& sm, int) {
-    return chunk(sm);
-  }
 };
 
-// kTPL = 16, rotated registers: as Radix4, but each survivor is a (lo, hi)
-// pair with the bit of window step s at position s & 63 (the shifted
-// register's 64 bits, rotated), and the bits are not appended step by step:
-// the low bit of a path's state one and two steps back is bit 1 and bit 0
-// of the state after a pair whatever the decisions (both predecessors of
-// 2m+b share m's low bit), so after each pair state 4j+m writes its two
-// positions at once from m. A step then costs each state two selects.
-struct Radix4R {
-  float pm[4] = {0.f, 0.f, 0.f, 0.f};   // states j, j+16, j+32, j+48
-  unsigned lo[4] = {0u, 0u, 0u, 0u};
-  unsigned hi[4] = {0u, 0u, 0u, 0u};
-  int j, tau, sig;
-  __device__ explicit Radix4R(int j_)
-      : j(j_), tau(bfly_type(j_)), sig(bfly_type(2 * j_)) {}
-
-  __device__ __forceinline__ static void acs(float pa, float pb, float X,
-                                             float Y, float& p0, bool& d0,
-                                             float& p1, bool& d1) {
-    const float c0a = __fadd_rn(pa, X);
-    const float c0b = __fadd_rn(pb, Y);
-    d0 = c0b < c0a;
-    p0 = d0 ? c0b : c0a;
-    const float c1a = __fadd_rn(pa, Y);
-    const float c1b = __fadd_rn(pb, X);
-    d1 = c1b < c1a;
-    p1 = d1 ? c1b : c1a;
-  }
-
-  // kH = chunk index & 1: the half that holds this chunk's positions
-  template <int kH>
-  __device__ __forceinline__ unsigned run(LaneSmem& sm) {
-    unsigned mask = 0;
-#pragma unroll
-    for (int k = 0; k < kChunk; k += 2) {
-      float i0, i1, i2, i3, n0, n1, n2, n3;
-      bool d0, d1, d2, d3, e0, e1, e2, e3;
-      unsigned il[4], ih[4], nl[4], nh[4];
-      float4 q = sm.q[k][tau];
-      acs(pm[0], pm[2], q.x, q.y, i0, d0, i1, d1);
-      acs(pm[1], pm[3], q.z, q.w, i2, d2, i3, d3);
-      il[0] = d0 ? lo[2] : lo[0];
-      ih[0] = d0 ? hi[2] : hi[0];
-      il[1] = d1 ? lo[2] : lo[0];
-      ih[1] = d1 ? hi[2] : hi[0];
-      il[2] = d2 ? lo[3] : lo[1];
-      ih[2] = d2 ? hi[3] : hi[1];
-      il[3] = d3 ? lo[3] : lo[1];
-      ih[3] = d3 ? hi[3] : hi[1];
-      // the bit of window step s sits at (s + 1) & 63
-      mask |= (((kH ? ih[0] : il[0]) >> (k + 1)) & 1u) << k;
-      q = sm.q[k + 1][sig];
-      acs(i0, i2, q.x, q.y, n0, e0, n1, e1);
-      acs(i1, i3, q.w, q.z, n2, e2, n3, e3);
-      nl[0] = e0 ? il[2] : il[0];
-      nh[0] = e0 ? ih[2] : ih[0];
-      nl[1] = e1 ? il[2] : il[0];
-      nh[1] = e1 ? ih[2] : ih[0];
-      nl[2] = e2 ? il[3] : il[1];
-      nh[2] = e2 ? ih[3] : ih[1];
-      nl[3] = e3 ? il[3] : il[1];
-      nh[3] = e3 ? ih[3] : ih[1];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        unsigned& w = kH ? nh[m] : nl[m];
-        const unsigned bits = ((m >> 1) << k) | ((m & 1) << (k + 1));
-        w = (w & ~(3u << k)) | bits;
-      }
-      // after the chunk's last step that is the next half's bit 0
-      const unsigned e = k + 2 < kChunk ? ((kH ? nh[0] : nl[0]) >> (k + 2))
-                                        : (kH ? nl[0] : nh[0]);
-      mask |= (e & 1u) << (k + 1);
-      const int xb = (k >> 1) & 1;
-      reinterpret_cast<float4*>(sm.xpm[xb])[j] = make_float4(n0, n1, n2, n3);
-      uint4* xr = reinterpret_cast<uint4*>(sm.xreg[xb]);
-      xr[2 * j] = make_uint4(nl[0], nh[0], nl[1], nh[1]);
-      xr[2 * j + 1] = make_uint4(nl[2], nh[2], nl[3], nh[3]);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pm[i] = sm.xpm[xb][j + 16 * i];
-        const uint2 r =
-            reinterpret_cast<const uint2*>(sm.xreg[xb])[j + 16 * i];
-        lo[i] = r.x;
-        hi[i] = r.y;
-      }
-    }
-    return mask;
-  }
-
-  __device__ __forceinline__ unsigned chunk_at(LaneSmem& sm, int c) {
-    return (c & 1) ? run<1>(sm) : run<0>(sm);
-  }
-};
-
-// kTPL = 32, split registers: the radix-4 grouping of Radix4R with each
-// group held by two threads, h = 0 and h = 1, one lane a warp. Both compute
-// the group's metrics and decisions; thread h holds one 32-bit half of
-// each survivor, thread 0 the half that the current chunk's positions fall
-// in (the halves change hands at each chunk boundary by one shuffle), so a
-// step costs each state one select.
-struct Radix4H {
-  float pm[4] = {0.f, 0.f, 0.f, 0.f};   // states j, j+16, j+32, j+48
-  unsigned w[4] = {0u, 0u, 0u, 0u};     // this thread's half of each
-  int j, h, tau, sig;
-  __device__ explicit Radix4H(int t)
-      : j(t & 15), h(t >> 4), tau(bfly_type(t & 15)),
-        sig(bfly_type(2 * (t & 15))) {}
-
-  __device__ __forceinline__ unsigned chunk_at(LaneSmem& sm, int c) {
-    if (c > 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = __shfl_xor_sync(kFull, w[i], 16);
-    }
-    unsigned mask = 0;
-#pragma unroll
-    for (int k = 0; k < kChunk; k += 2) {
-      float i0, i1, i2, i3, n0, n1, n2, n3;
-      bool d0, d1, d2, d3, e0, e1, e2, e3;
-      unsigned iw[4], nw[4];
-      float4 q = sm.q[k][tau];
-      Radix4R::acs(pm[0], pm[2], q.x, q.y, i0, d0, i1, d1);
-      Radix4R::acs(pm[1], pm[3], q.z, q.w, i2, d2, i3, d3);
-      iw[0] = d0 ? w[2] : w[0];
-      iw[1] = d1 ? w[2] : w[0];
-      iw[2] = d2 ? w[3] : w[1];
-      iw[3] = d3 ? w[3] : w[1];
-      // the bit of window step s sits at (s + 1) & 63
-      mask |= ((iw[0] >> (k + 1)) & 1u) << k;
-      q = sm.q[k + 1][sig];
-      Radix4R::acs(i0, i2, q.x, q.y, n0, e0, n1, e1);
-      Radix4R::acs(i1, i3, q.w, q.z, n2, e2, n3, e3);
-      nw[0] = e0 ? iw[2] : iw[0];
-      nw[1] = e1 ? iw[2] : iw[0];
-      nw[2] = e2 ? iw[3] : iw[1];
-      nw[3] = e3 ? iw[3] : iw[1];
-      if (h == 0) {
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const unsigned bits = ((m >> 1) << k) | ((m & 1) << (k + 1));
-          nw[m] = (nw[m] & ~(3u << k)) | bits;
-        }
-      }
-      // after the chunk's last step that is bit 0 of the other half
-      mask |= ((nw[0] >> ((k + 2) % kChunk)) & 1u) << (k + 1);
-      const int xb = (k >> 1) & 1;
-      if (h == 0) {
-        reinterpret_cast<float4*>(sm.xpm[xb])[j] =
-            make_float4(n0, n1, n2, n3);
-      }
-      unsigned* xw = sm.xw[xb] + h * 80;
-      reinterpret_cast<uint4*>(xw)[j] = make_uint4(nw[0], nw[1], nw[2], nw[3]);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pm[i] = sm.xpm[xb][j + 16 * i];
-        w[i] = xw[j + 16 * i];
-      }
-    }
-    // bit 31 is the other half's (thread 16's); the rest thread 0's
-    const unsigned top = __shfl_sync(kFull, mask, 16);
-    return (mask & 0x7fffffffu) | (top & 0x80000000u);
-  }
-};
-
-template <int kTPL, class Acs>
 __global__ void __launch_bounds__(kThreads)
     viterbi_re_kernel(const float2* __restrict__ soft, int T, int L,
                       int seg, int ovl, uint8_t* __restrict__ out) {
-  static_assert(kTPL == 16 || kTPL == 32, "16 or 32 threads a lane");
-  constexpr int kLanesPerBlock = kThreads / kTPL;
   __shared__ LaneSmem smem[kLanesPerBlock];
 
-  const int slot = threadIdx.x / kTPL;
-  const int j = threadIdx.x % kTPL;
+  const int slot = threadIdx.x / kLaneThreads;
+  const int j = threadIdx.x % kLaneThreads;
   const int lane = blockIdx.x * kLanesPerBlock + slot;
   const int warp_first = blockIdx.x * kLanesPerBlock +
-                         (threadIdx.x / 32) * (32 / kTPL);
+                         (threadIdx.x / 32) * (32 / kLaneThreads);
   if (warp_first >= L) return;    // uniform across the warp
   const bool live = lane < L;
   LaneSmem& sm = smem[slot];
@@ -441,25 +239,25 @@ __global__ void __launch_bounds__(kThreads)
       static_cast<long long>(live ? lane : L - 1) * seg - ovl;
   uint8_t* out_lane = out + static_cast<long long>(lane) * seg;
   // thread 0 of this lane, as a lane index within the warp
-  const int leader = (threadIdx.x & 31) & ~(kTPL - 1);
+  const int leader = (threadIdx.x & 31) & ~(kLaneThreads - 1);
 
-  Acs acs(j);
-  stage<kTPL>(sm, 0, soft, T, first, j);
+  Radix4 acs(j);
+  stage(sm, 0, soft, T, first, j);
   for (int c = 0; c < nch; ++c) {
     if (c + 1 < nch) {
-      stage<kTPL>(sm, (c + 1) & 1, soft, T, first + (c + 1) * kChunk, j);
+      stage(sm, (c + 1) & 1, soft, T, first + (c + 1) * kChunk, j);
     } else {
       cp_async_commit();          // an empty group keeps the wait uniform
     }
     cp_async_wait_one();          // chunk c has landed
     __syncwarp();
-    make_metrics<kTPL>(sm, c & 1, j);
+    make_metrics(sm, c & 1, j);
     __syncwarp();
-    const unsigned mask = __shfl_sync(kFull, acs.chunk_at(sm, c), leader);
+    const unsigned mask = __shfl_sync(kFull, acs.chunk(sm), leader);
     const int o0 = c * kChunk - emit_from;
     if (live) {
 #pragma unroll
-      for (int k = j; k < kChunk; k += kTPL) {
+      for (int k = j; k < kChunk; k += kLaneThreads) {
         const int o = o0 + k;
         if (o >= 0 && o < seg) {
           out_lane[o] = static_cast<uint8_t>((mask >> k) & 1u);
@@ -469,235 +267,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Warp-specialised radix-4 (layout 2): a lane's 16 metric threads (one
-// warp holds two lanes' worth) run the path metrics and publish each
-// step's decisions as warp ballots; the lane's 16 survivor threads, in the
-// partner warp, replay those decisions on the survivor registers one chunk
-// behind. Registers are kept as (lo, hi) halves with the bit of window step
-// s written at position s & 63 instead of shifting (the same 64 bits,
-// rotated), so the emitted bit is position (s + 1) & 63.
-constexpr int kWsLanesPerBlock = kThreads / 32;    // 4: two warp pairs
-
-struct MetricR4 {
-  float pm[4] = {0.f, 0.f, 0.f, 0.f};   // states j, j+16, j+32, j+48
-  int j, tau, sig;
-  __device__ explicit MetricR4(int j_)
-      : j(j_), tau(bfly_type(j_)), sig(bfly_type(2 * j_)) {}
-
-  __device__ __forceinline__ static void acs(float pa, float pb, float X,
-                                             float Y, float& p0, bool& d0,
-                                             float& p1, bool& d1) {
-    const float c0a = __fadd_rn(pa, X);
-    const float c0b = __fadd_rn(pb, Y);
-    d0 = c0b < c0a;
-    p0 = d0 ? c0b : c0a;
-    const float c1a = __fadd_rn(pa, Y);
-    const float c1b = __fadd_rn(pb, X);
-    d1 = c1b < c1a;
-    p1 = d1 ? c1b : c1a;
-  }
-
-  // dec[p][0..7]: ballots of pair p's decisions for new states
-  // (2j, 2j+1, 2j+32, 2j+33) then (4j, 4j+1, 4j+2, 4j+3)
-  __device__ __forceinline__ void chunk(LaneSmem& sm, unsigned (*dec)[8],
-                                        int lid) {
-#pragma unroll
-    for (int k = 0; k < kChunk; k += 2) {
-      float i0, i1, i2, i3, n0, n1, n2, n3;
-      bool d0, d1, d2, d3, e0, e1, e2, e3;
-      float4 q = sm.q[k][tau];
-      acs(pm[0], pm[2], q.x, q.y, i0, d0, i1, d1);
-      acs(pm[1], pm[3], q.z, q.w, i2, d2, i3, d3);
-      q = sm.q[k + 1][sig];
-      acs(i0, i2, q.x, q.y, n0, e0, n1, e1);
-      acs(i1, i3, q.w, q.z, n2, e2, n3, e3);
-      const uint4 wa = make_uint4(
-          __ballot_sync(kFull, d0), __ballot_sync(kFull, d1),
-          __ballot_sync(kFull, d2), __ballot_sync(kFull, d3));
-      const uint4 wb = make_uint4(
-          __ballot_sync(kFull, e0), __ballot_sync(kFull, e1),
-          __ballot_sync(kFull, e2), __ballot_sync(kFull, e3));
-      if (lid == 0) {
-        reinterpret_cast<uint4*>(dec[k >> 1])[0] = wa;
-        reinterpret_cast<uint4*>(dec[k >> 1])[1] = wb;
-      }
-      const int xb = (k >> 1) & 1;
-      reinterpret_cast<float4*>(sm.xpm[xb])[j] = make_float4(n0, n1, n2, n3);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pm[i] = sm.xpm[xb][j + 16 * i];
-    }
-  }
-};
-
-struct SurvivorR4 {
-  unsigned lo[4] = {0u, 0u, 0u, 0u};    // states j, j+16, j+32, j+48
-  unsigned hi[4] = {0u, 0u, 0u, 0u};
-  int j;
-  unsigned me;                          // this thread's bit in a ballot
-  __device__ SurvivorR4(int j_, int lid) : j(j_), me(1u << lid) {}
-
-  // new register = (d ? b : a) with bit `pos` of half kH set to kB (pos is
-  // a constant once the chunk loop is unrolled)
-  template <int kH, int kB>
-  __device__ __forceinline__ static void pick(unsigned alo, unsigned ahi,
-                                              unsigned blo, unsigned bhi,
-                                              bool d, int pos, unsigned& lo,
-                                              unsigned& hi) {
-    lo = d ? blo : alo;
-    hi = d ? bhi : ahi;
-    unsigned& w = kH ? hi : lo;
-    w = kB ? (w | (1u << pos)) : (w & ~(1u << pos));
-  }
-
-  // replay one chunk of decisions; kH = chunk index & 1 (which half holds
-  // this chunk's positions); returns the chunk's emitted bits (thread 0)
-  template <int kH>
-  __device__ __forceinline__ unsigned chunk(LaneSmem& sm,
-                                            const unsigned (*dec)[8]) {
-    unsigned mask = 0;
-#pragma unroll
-    for (int k = 0; k < kChunk; k += 2) {
-      const uint4 wa = reinterpret_cast<const uint4*>(dec[k >> 1])[0];
-      const uint4 wb = reinterpret_cast<const uint4*>(dec[k >> 1])[1];
-      unsigned il[4], ih[4], nl[4], nh[4];
-      pick<kH, 0>(lo[0], hi[0], lo[2], hi[2], wa.x & me, k, il[0], ih[0]);
-      pick<kH, 1>(lo[0], hi[0], lo[2], hi[2], wa.y & me, k, il[1], ih[1]);
-      pick<kH, 0>(lo[1], hi[1], lo[3], hi[3], wa.z & me, k, il[2], ih[2]);
-      pick<kH, 1>(lo[1], hi[1], lo[3], hi[3], wa.w & me, k, il[3], ih[3]);
-      // the bit of window step s sits at (s + 1) & 63
-      mask |= (((kH ? ih[0] : il[0]) >> (k + 1)) & 1u) << k;
-      pick<kH, 0>(il[0], ih[0], il[2], ih[2], wb.x & me, k + 1, nl[0], nh[0]);
-      pick<kH, 1>(il[0], ih[0], il[2], ih[2], wb.y & me, k + 1, nl[1], nh[1]);
-      pick<kH, 0>(il[1], ih[1], il[3], ih[3], wb.z & me, k + 1, nl[2], nh[2]);
-      pick<kH, 1>(il[1], ih[1], il[3], ih[3], wb.w & me, k + 1, nl[3], nh[3]);
-      // after the chunk's last step that is the next half's bit 0
-      const unsigned e = k + 2 < kChunk ? ((kH ? nh[0] : nl[0]) >> (k + 2))
-                                        : (kH ? nl[0] : nh[0]);
-      mask |= (e & 1u) << (k + 1);
-      const int xb = (k >> 1) & 1;
-      uint4* xr = reinterpret_cast<uint4*>(sm.xreg[xb]);
-      xr[2 * j] = make_uint4(nl[0], nh[0], nl[1], nh[1]);
-      xr[2 * j + 1] = make_uint4(nl[2], nh[2], nl[3], nh[3]);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint2 r = reinterpret_cast<const uint2*>(sm.xreg[xb])[j + 16 * i];
-        lo[i] = r.x;
-        hi[i] = r.y;
-      }
-    }
-    return mask;
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-    viterbi_re_kernel_ws(const float2* __restrict__ soft, int T, int L,
-                         int seg, int ovl, uint8_t* __restrict__ out) {
-  static_assert(kChunk == 32, "survivor positions assume 32-step chunks");
-  __shared__ LaneSmem smem[kWsLanesPerBlock];
-  __shared__ __align__(16) unsigned dec[kWsLanesPerBlock / 2][2]
-                                       [kChunk / 2][8];
-  const int warp = threadIdx.x >> 5;
-  const int lid = threadIdx.x & 31;
-  const bool metric = (warp & 1) == 0;
-  const int wpair = warp >> 1;
-  const int slot = 2 * wpair + (lid >> 4);
-  const int j = lid & 15;
-  const int lane = blockIdx.x * kWsLanesPerBlock + slot;
-  // every warp reaches each __syncthreads; a lane past L decodes a copy of
-  // lane L-1 and stores nothing
-  const bool live = lane < L;
-  LaneSmem& sm = smem[slot];
-
-  const int emit_from = ovl + kReDelay;
-  const int steps = emit_from + seg;
-  const int nch = (steps + kChunk - 1) / kChunk;
-  const long long first =
-      static_cast<long long>(live ? lane : L - 1) * seg - ovl;
-  uint8_t* out_lane = out + static_cast<long long>(lane) * seg;
-  const int leader = lid & ~15;
-
-  MetricR4 mt(j);
-  SurvivorR4 sv(j, lid);
-  if (metric) stage<16>(sm, 0, soft, T, first, j);
-  for (int c = 0; c <= nch; ++c) {
-    if (metric) {
-      if (c < nch) {
-        if (c + 1 < nch) {
-          stage<16>(sm, (c + 1) & 1, soft, T, first + (c + 1) * kChunk, j);
-        } else {
-          cp_async_commit();
-        }
-        cp_async_wait_one();
-        __syncwarp();
-        make_metrics<16>(sm, c & 1, j);
-        __syncwarp();
-        mt.chunk(sm, dec[wpair][c & 1], lid);
-      }
-    } else if (c > 0) {
-      const int cc = c - 1;
-      const unsigned m = (cc & 1) ? sv.chunk<1>(sm, dec[wpair][cc & 1])
-                                  : sv.chunk<0>(sm, dec[wpair][cc & 1]);
-      const unsigned mask = __shfl_sync(kFull, m, leader);
-      const int o0 = cc * kChunk - emit_from;
-      if (live) {
-#pragma unroll
-        for (int k = j; k < kChunk; k += 16) {
-          const int o = o0 + k;
-          if (o >= 0 && o < seg) {
-            out_lane[o] = static_cast<uint8_t>((mask >> k) & 1u);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int kTPL, class Acs>
-int launch(const void* soft, int T, int L, int seg, int ovl, void* out,
-           void* stream) {
-  constexpr int kLanesPerBlock = kThreads / kTPL;
-  const int blocks = (L + kLanesPerBlock - 1) / kLanesPerBlock;
-  viterbi_re_kernel<kTPL, Acs><<<blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(soft), T, L, seg, ovl,
-      static_cast<uint8_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
-
-extern "C" int viterbi_re_launch_layout(const void* soft, int T, int L,
-                                        int seg, int ovl, void* out,
-                                        int threads_per_lane, void* stream) {
-  switch (threads_per_lane) {
-    case 16:
-      return launch<16, Radix4>(soft, T, L, seg, ovl, out, stream);
-    case 32:
-      return launch<32, Radix2>(soft, T, L, seg, ovl, out, stream);
-    case 4:
-      return launch<16, Radix4R>(soft, T, L, seg, ovl, out, stream);
-    case 5:
-      return launch<32, Radix4H>(soft, T, L, seg, ovl, out, stream);
-    case 2: {
-      const int blocks = (L + kWsLanesPerBlock - 1) / kWsLanesPerBlock;
-      viterbi_re_kernel_ws<<<blocks, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float2*>(soft), T, L, seg, ovl,
-          static_cast<uint8_t*>(out));
-      return static_cast<int>(cudaGetLastError());
-    }
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 extern "C" int viterbi_re_launch(const void* soft, int T, int L, int seg,
                                  int ovl, void* out, void* stream) {
-  return viterbi_re_launch_layout(soft, T, L, seg, ovl, out,
-                                  kDefaultThreadsPerLane, stream);
+  const int blocks = (L + kLanesPerBlock - 1) / kLanesPerBlock;
+  viterbi_re_kernel<<<blocks, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(soft), T, L, seg, ovl,
+      static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* viterbi_re_error_string(int err) {

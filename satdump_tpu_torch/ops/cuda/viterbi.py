@@ -4,10 +4,6 @@ Counterpart of satdump_tpu/ops/pallas/viterbi.py::viterbi_re_pallas. On a
 CUDA tensor it launches the hand kernel; on a CPU tensor it runs the plain
 version, ops/fec/convolutional.py::viterbi_decode_tiled_re. The two are
 bit-identical (chip_smoke.py holds them to that on the card).
-
-The kernel has two thread layouts of a lane's 64 states, 16 threads a lane
-(radix-4, the one `viterbi_re` launches) and 32 (radix-2);
-`viterbi_re_layout` launches either, for chip_smoke.py's comparison.
 """
 
 from __future__ import annotations
@@ -20,55 +16,17 @@ from satdump_tpu_torch.ops.cuda import _build
 from satdump_tpu_torch.ops.fec import convolutional as cc
 
 _NAME = "viterbi_re"
-LAYOUTS = (16, 32, 2, 4, 5)  # 16, 32 threads a lane; 2: warp-specialised; 4, 5: rotated
 
 
-def _lib():
+def _launcher():
     lib = _build.load(_NAME)
-    if lib.viterbi_re_launch.argtypes is None:
-        args = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p]
-        lib.viterbi_re_launch.argtypes = args + [ctypes.c_void_p]
-        lib.viterbi_re_launch_layout.argtypes = args + [ctypes.c_int,
-                                                        ctypes.c_void_p]
-        lib.viterbi_re_launch.restype = ctypes.c_int
-        lib.viterbi_re_launch_layout.restype = ctypes.c_int
-    return lib
-
-
-def _launch(soft: torch.Tensor, seg: int, ovl: int,
-            threads_per_lane: int | None) -> torch.Tensor:
-    if soft.device.type != "cuda":
-        raise ValueError(f"viterbi_re: unsupported device {soft.device}")
-    if soft.dtype != torch.float32 or soft.ndim != 2 or soft.shape[1] != 2:
-        raise ValueError(f"viterbi_re: need (T, 2) float32, got "
-                         f"{tuple(soft.shape)} {soft.dtype}")
-    if not soft.is_contiguous() or soft.data_ptr() % 8:
-        raise ValueError("viterbi_re: soft must be contiguous, its pairs "
-                         "8-byte aligned")
-    T = soft.shape[0]
-    if T % seg or ovl < cc.RE_DELAY or T + ovl + seg >= 2 ** 31:
-        raise ValueError(f"viterbi_re: need T % seg == 0, ovl >= "
-                         f"{cc.RE_DELAY}, T + ovl + seg < 2^31 (T={T}, "
-                         f"seg={seg}, ovl={ovl})")
-    if threads_per_lane is not None and threads_per_lane not in LAYOUTS:
-        raise ValueError(f"viterbi_re: threads_per_lane must be one of "
-                         f"{LAYOUTS}, got {threads_per_lane}")
-    out = torch.empty(T, dtype=torch.uint8, device=soft.device)
-    if T == 0:
-        return out
-    lib = _lib()
-    args = (soft.data_ptr(), T, T // seg, seg, ovl, out.data_ptr())
-    with torch.cuda.device(soft.device):
-        stream = torch.cuda.current_stream(soft.device).cuda_stream
-        if threads_per_lane is None:
-            err = lib.viterbi_re_launch(*args, stream)
-        else:
-            err = lib.viterbi_re_launch_layout(*args, threads_per_lane,
-                                               stream)
-    _build.check(_NAME, lib, err)
-    viterbi_re.launches += 1
-    return out
+    fn = lib.viterbi_re_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def viterbi_re(soft: torch.Tensor, seg: int = 1024, ovl: int = 128
@@ -77,14 +35,31 @@ def viterbi_re(soft: torch.Tensor, seg: int = 1024, ovl: int = 128
     erasure) -> (T,) uint8 decoded bits."""
     if soft.device.type == "cpu":
         return cc.viterbi_decode_tiled_re(soft, seg=seg, ovl=ovl)
-    return _launch(soft, seg, ovl, None)
-
-
-def viterbi_re_layout(soft: torch.Tensor, threads_per_lane: int,
-                      seg: int = 1024, ovl: int = 128) -> torch.Tensor:
-    """The kernel with a chosen layout (one of LAYOUTS); CUDA tensors
-    only. Same result as `viterbi_re`."""
-    return _launch(soft, seg, ovl, threads_per_lane)
+    if soft.device.type != "cuda":
+        raise ValueError(f"viterbi_re: unsupported device {soft.device}")
+    if soft.dtype != torch.float32 or soft.ndim != 2 or soft.shape[1] != 2:
+        raise ValueError(f"viterbi_re: need (T, 2) float32, got "
+                         f"{tuple(soft.shape)} {soft.dtype}")
+    # the kernel stages each pair by an 8-byte cp.async
+    if not soft.is_contiguous() or soft.data_ptr() % 8:
+        raise ValueError("viterbi_re: soft must be contiguous, its pairs "
+                         "8-byte aligned")
+    T = soft.shape[0]
+    if T % seg or ovl < cc.RE_DELAY or T + ovl + seg >= 2 ** 31:
+        raise ValueError(f"viterbi_re: need T % seg == 0, ovl >= "
+                         f"{cc.RE_DELAY}, T + ovl + seg < 2^31 (T={T}, "
+                         f"seg={seg}, ovl={ovl})")
+    out = torch.empty(T, dtype=torch.uint8, device=soft.device)
+    if T == 0:
+        return out
+    lib, fn = _launcher()
+    with torch.cuda.device(soft.device):
+        stream = torch.cuda.current_stream(soft.device).cuda_stream
+        err = fn(soft.data_ptr(), T, T // seg, seg, ovl, out.data_ptr(),
+                 stream)
+    _build.check(_NAME, lib, err)
+    viterbi_re.launches += 1
+    return out
 
 
 viterbi_re.launches = 0
