@@ -254,8 +254,8 @@ def _k1_case_softs(rng, kind: str, T: int, seg: int) -> np.ndarray:
     return soft
 
 
-def _k1_check(x, seg: int, ovl: int, label: str) -> None:
-    """K1 bit-identical to its plain version."""
+def _k1_check(x, seg: int, ovl: int, label: str):
+    """K1 bit-identical to its plain version; returns K1's bits."""
     import torch
     from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
     from satdump_tpu_torch.ops.fec import convolutional as cc
@@ -268,6 +268,7 @@ def _k1_check(x, seg: int, ovl: int, label: str) -> None:
     if ndiff:
         raise AssertionError(f"K1 {label} differs from its plain version "
                              f"in {ndiff} bits")
+    return got
 
 
 def phase_k1(rng):
@@ -284,9 +285,8 @@ def phase_k1(rng):
         bits, soft = _viterbi_inputs(rng, T, integer)
         x = torch.from_numpy(soft).cuda()
         kind = "integer" if integer else "non-integer"
-        _k1_check(x, seg, ovl, f"{kind} softs")
-        ber = float((viterbi_re(x, seg=seg, ovl=ovl).cpu().numpy()
-                     != bits).mean())
+        got = _k1_check(x, seg, ovl, f"{kind} softs")
+        ber = float((got.cpu().numpy() != bits).mean())
         log(f"K1 {kind} softs: decoded BER vs sent {ber:.2e}")
         if integer:
             kern = lambda: viterbi_re(x, seg=seg, ovl=ovl)  # noqa: E731

@@ -42,9 +42,8 @@
 // is a chain of dependent steps and there are only L lanes (1025 on the
 // main path, one warp per scheduler), and each pair of steps moves every
 // state's metric and survivor (12 bytes) through shared memory and back.
-// Layouts with 32 threads a lane (shuffles, or split survivor halves),
-// warp-specialised metric and survivor warps, and rotated registers with
-// fewer integer operations all ran within 6 % of this one.
+// The other layouts PERF.md lists (32 threads a lane, warp-specialised,
+// fewer integer operations) share that exchange and were no faster.
 //
 // Exactness: the ACS is only adds and compares, bm = ((s0 + s1) + e0*u0) +
 // e1*u1 with u = 255 - 2s, then pm + bm, written with explicit _rn

@@ -25,6 +25,7 @@ SLICE_MODULES = [
     "satdump_tpu_torch.ops.ffsync",
     "satdump_tpu_torch.ops.cuda.viterbi",
     "satdump_tpu_torch.ops.cuda.resample",
+    "satdump_tpu_torch.ops.cuda.probe",
     "satdump_tpu_torch.ops.fec.convolutional",
     "satdump_tpu_torch.ops.fec.rs_device",
     "satdump_tpu_torch.ops.fec.cadu_chain",

@@ -72,6 +72,20 @@ def test_tiled_re_non_integer_and_integer_softs(rng):
         np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("seg,ovl", [(512, 64), (1024, 200)])
+def test_tiled_re_other_seg_ovl_matches_jax(rng, seg, ovl):
+    """Shapes the card's K1 chunking touches (ovl+63+seg not a multiple of
+    the kernel's 32-step chunk, odd step counts): the plain decoder, the
+    card's oracle, equals JAX's bit for bit."""
+    bits = rng.integers(0, 2, 3 * seg).astype(np.uint8)
+    soft = _soft_from_bits(bits, rng, 40.0)
+    ref = np.asarray(jcc.viterbi_decode_tiled_re(
+        jnp.asarray(soft), seg=seg, ovl=ovl, unroll=1))
+    got = tcc.viterbi_decode_tiled_re(torch.from_numpy(soft), seg=seg,
+                                      ovl=ovl).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
 def test_tiled_re_matches_pallas_interpret(rng):
     """Second oracle: the TPU kernel itself, in interpret mode."""
     bits = rng.integers(0, 2, 2048).astype(np.uint8)
