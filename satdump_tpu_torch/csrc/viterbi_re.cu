@@ -72,7 +72,8 @@ constexpr int kLaneThreads = 16;  // threads a lane
 constexpr int kLanesPerBlock = kThreads / kLaneThreads;
 constexpr int kRegHi = 40;        // survivor slot of states 4j+2, 4j+3
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kChunk == 32, "a chunk's positions fill one 32-bit half");
+
+using u64 = unsigned long long;
 
 struct LaneSmem {
   // q[k][t]: chunk step k's metrics for a butterfly of type t,
@@ -83,7 +84,7 @@ struct LaneSmem {
   // state 4a+m's survivor at 2a+m (m < 2) or kRegHi+2a+m-2 (m >= 2): each
   // thread stores two neighbouring 16-byte pairs, and the 8-slot gap keeps
   // the loads of states j + 16i off each other's banks
-  unsigned long long xreg[2][kRegHi + 32];
+  u64 xreg[2][kRegHi + 32];
   float pad[16];                  // the warp's two lanes' xpm 64 B apart
 };
 
@@ -148,34 +149,31 @@ __device__ __forceinline__ void make_metrics(LaneSmem& sm, int buf, int j) {
   }
 }
 
-// one butterfly's metrics: old states a = m, b = m+32 -> new 2m, 2m+1; X is
-// the metric of a -> 2m and b -> 2m+1, Y of b -> 2m and a -> 2m+1; d0, d1
-// say the survivor of 2m, 2m+1 comes from b
-__device__ __forceinline__ void bfly(float pa, float pb, float X, float Y,
-                                     float& p0, bool& d0, float& p1,
-                                     bool& d1) {
+// one butterfly: old states a = m, b = m+32 -> new 2m (bit 0), 2m+1 (bit 1);
+// X is the metric of a -> 2m and b -> 2m+1, Y of b -> 2m and a -> 2m+1
+__device__ __forceinline__ void bfly(float pa, u64 ra, float pb, u64 rb,
+                                     float X, float Y, float& p0, u64& r0,
+                                     float& p1, u64& r1) {
   const float c0a = __fadd_rn(pa, X);
   const float c0b = __fadd_rn(pb, Y);
-  d0 = c0b < c0a;
+  const bool d0 = c0b < c0a;
   p0 = d0 ? c0b : c0a;
+  r0 = (d0 ? rb : ra) << 1;
   const float c1a = __fadd_rn(pa, Y);
   const float c1b = __fadd_rn(pb, X);
-  d1 = c1b < c1a;
+  const bool d1 = c1b < c1a;
   p1 = d1 ? c1b : c1a;
+  r1 = ((d1 ? rb : ra) << 1) | 1ull;
 }
 
-// a lane's 64 states over 16 threads, two trellis steps per exchange.
-// A survivor is a (lo, hi) pair holding the bit of window step s at
-// position s & 63: the shifted register's 64 bits, rotated, so a step only
-// selects. The bits are not appended step by step either: both
-// predecessors of 2m+b share m's low bit, so the path's states one and two
-// steps back have the low bits that are bits 1 and 0 of the state after
-// a pair, whatever the decisions; after each pair state 4j+m writes both
-// positions at once from m.
+__device__ __forceinline__ unsigned top_bit(u64 r) {
+  return static_cast<unsigned>(r >> 63);
+}
+
+// a lane's 64 states over 16 threads, two trellis steps per exchange
 struct Radix4 {
   float pm[4] = {0.f, 0.f, 0.f, 0.f};   // states j, j+16, j+32, j+48
-  unsigned lo[4] = {0u, 0u, 0u, 0u};
-  unsigned hi[4] = {0u, 0u, 0u, 0u};
+  u64 rg[4] = {0ull, 0ull, 0ull, 0ull};
   int j, tau, sig, rd;
   // rd: xreg slot of state j (= 4a+m, a = j/4, m = j%4); state j + 16i
   // sits 8i further on
@@ -183,72 +181,39 @@ struct Radix4 {
       : j(j_), tau(bfly_type(j_)), sig(bfly_type(2 * j_)),
         rd(((j_ & 2) ? kRegHi : 0) + 2 * (j_ >> 2) + (j_ & 1)) {}
 
-  // one chunk of steps; kH = chunk index & 1, the half that holds this
-  // chunk's positions; returns the chunk's emitted bits (thread 0's)
-  template <int kH>
-  __device__ __forceinline__ unsigned run(LaneSmem& sm) {
+  // one chunk of steps; returns the chunk's emitted bits (thread 0's)
+  __device__ __forceinline__ unsigned chunk(LaneSmem& sm) {
     unsigned mask = 0;
 #pragma unroll
     for (int k = 0; k < kChunk; k += 2) {
-      float i0, i1, i2, i3, n0, n1, n2, n3;
-      bool d0, d1, d2, d3, e0, e1, e2, e3;
-      unsigned il[4], ih[4], nl[4], nh[4];
       // step 1: butterflies m = j (type tau) and m = j+16 (type tau^1)
+      float ip0, ip1, ip2, ip3;
+      u64 ir0, ir1, ir2, ir3;
       float4 q = sm.q[k][tau];
-      bfly(pm[0], pm[2], q.x, q.y, i0, d0, i1, d1);
-      bfly(pm[1], pm[3], q.z, q.w, i2, d2, i3, d3);
-      il[0] = d0 ? lo[2] : lo[0];
-      ih[0] = d0 ? hi[2] : hi[0];
-      il[1] = d1 ? lo[2] : lo[0];
-      ih[1] = d1 ? hi[2] : hi[0];
-      il[2] = d2 ? lo[3] : lo[1];
-      ih[2] = d2 ? hi[3] : hi[1];
-      il[3] = d3 ? lo[3] : lo[1];
-      ih[3] = d3 ? hi[3] : hi[1];
-      // the bit of window step s sits at (s + 1) & 63
-      mask |= (((kH ? ih[0] : il[0]) >> (k + 1)) & 1u) << k;
+      bfly(pm[0], rg[0], pm[2], rg[2], q.x, q.y, ip0, ir0, ip1, ir1);
+      bfly(pm[1], rg[1], pm[3], rg[3], q.z, q.w, ip2, ir2, ip3, ir3);
+      mask |= top_bit(ir0) << k;
       // step 2: butterflies m = 2j (type sig) and m = 2j+1 (type sig^2)
+      float n0, n1, n2, n3;
+      u64 nr0, nr1, nr2, nr3;
       q = sm.q[k + 1][sig];
-      bfly(i0, i2, q.x, q.y, n0, e0, n1, e1);
-      bfly(i1, i3, q.w, q.z, n2, e2, n3, e3);
-      nl[0] = e0 ? il[2] : il[0];
-      nh[0] = e0 ? ih[2] : ih[0];
-      nl[1] = e1 ? il[2] : il[0];
-      nh[1] = e1 ? ih[2] : ih[0];
-      nl[2] = e2 ? il[3] : il[1];
-      nh[2] = e2 ? ih[3] : ih[1];
-      nl[3] = e3 ? il[3] : il[1];
-      nh[3] = e3 ? ih[3] : ih[1];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        unsigned& w = kH ? nh[m] : nl[m];
-        w = (w & ~(3u << k)) | ((m >> 1) << k) | ((m & 1) << (k + 1));
-      }
-      // after the chunk's last step that is the other half's bit 0
-      const unsigned e = k + 2 < kChunk ? ((kH ? nh[0] : nl[0]) >> (k + 2))
-                                        : (kH ? nl[0] : nh[0]);
-      mask |= (e & 1u) << (k + 1);
+      bfly(ip0, ir0, ip2, ir2, q.x, q.y, n0, nr0, n1, nr1);
+      bfly(ip1, ir1, ip3, ir3, q.w, q.z, n2, nr2, n3, nr3);
+      mask |= top_bit(nr0) << (k + 1);
       // states 4j .. 4j+3 out, states j + 16i in
       const int xb = (k >> 1) & 1;
       reinterpret_cast<float4*>(sm.xpm[xb])[j] = make_float4(n0, n1, n2, n3);
-      uint4* xr = reinterpret_cast<uint4*>(sm.xreg[xb]);
-      xr[j] = make_uint4(nl[0], nh[0], nl[1], nh[1]);
-      xr[kRegHi / 2 + j] = make_uint4(nl[2], nh[2], nl[3], nh[3]);
+      ulonglong2* xr = reinterpret_cast<ulonglong2*>(sm.xreg[xb]);
+      xr[j] = make_ulonglong2(nr0, nr1);
+      xr[kRegHi / 2 + j] = make_ulonglong2(nr2, nr3);
       __syncwarp();
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         pm[i] = sm.xpm[xb][j + 16 * i];
-        const uint2 r =
-            reinterpret_cast<const uint2*>(sm.xreg[xb])[rd + 8 * i];
-        lo[i] = r.x;
-        hi[i] = r.y;
+        rg[i] = sm.xreg[xb][rd + 8 * i];
       }
     }
     return mask;
-  }
-
-  __device__ __forceinline__ unsigned chunk(LaneSmem& sm, int c) {
-    return (c & 1) ? run<1>(sm) : run<0>(sm);
   }
 };
 
@@ -287,7 +252,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
     make_metrics(sm, c & 1, j);
     __syncwarp();
-    const unsigned mask = __shfl_sync(kFull, acs.chunk(sm, c), leader);
+    const unsigned mask = __shfl_sync(kFull, acs.chunk(sm), leader);
     const int o0 = c * kChunk - emit_from;
     if (live) {
 #pragma unroll
