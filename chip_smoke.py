@@ -10,9 +10,10 @@ Phases (any failure raises and the script exits non-zero):
  2. build: every CUDA source under satdump_tpu_torch/csrc, one nvcc each,
     all started together;
  2b. the toolchain probe (y = 2x + 1, the counterpart of
-    tools/pallas_smoke.py) on its (8, 128) arange input: must equal its
-    plain version exactly; its device time, the plain version's and one
-    PyTorch call's (torch.add) and the bound;
+    tools/pallas_smoke.py) on its (8, 128) arange input, at odd sizes
+    (1, 1023, 4097), on a view offset by 4 bytes and at 2^24 elements: must
+    equal x * 2 + 1 exactly; its device time, the plain version's and one
+    PyTorch call's (torch.add) and the bound, at (8, 128) and at 2^24;
  3. K1 (register-exchange Viterbi): its SASS must hold no FFMA; against
     its plain torch version on the card, bit-identical, at the main-path
     shape (integer and non-integer softs) and at the shapes its chunking
@@ -22,15 +23,19 @@ Phases (any failure raises and the script exits non-zero):
     wrapper call (median of CUDA events around single calls), the plain
     version's time and the bound;
  4. K2 (arithmetic-grid resampler) against its plain version at 2^18- and
-    2^21-sample blocks, sps 18/7, skew 0 and 0.005; same numbers;
+    2^21-sample blocks, sps 18/7, skew 0 and 0.005, at METEOR's sps 35/9,
+    at n_ext 8 / out_cap 1, all with no CTA reading from global memory, and
+    at skew 0.03 against sps_max = sps * 1.02, where CTAs must read from
+    global memory; the same numbers, the device time both with ext warm in
+    L2 and after a 64 MB write;
  5. 12-CADU passes of MetOp AHRPT (6 Msps, sps 18/7) and METEOR-M2 LRPT
     (280 ksps, sps 35/9) through the port on the card and on the CPU: the
     .cadu files must be byte-identical and equal to the sent CADUs;
  6. the main path: ~2^23 samples (~1.4 s) of MetOp AHRPT at 6 Msps through
     the port's run_pipeline on the card with MetOp.json's psk_demod and
     metop_ahrpt_decoder steps; every CADU must be one that was sent, at
-    most 2 may be missing, and every kernel of the path must have
-    launched;
+    most 2 may be missing, every kernel of the path must have launched,
+    and no CTA of K2 may have read its taps from global memory;
  7. where the main path's time goes: each of its two steps run again on
     the same input, once timed and once under torch.profiler, giving the
     device busy time, idle share, launches, copies and the top device
@@ -163,7 +168,10 @@ def device_ms(fn, reps: int) -> float:
     return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3
 
 
-def phase_probe():
+PROBE_SIZES = (1, 1023, 4097, 1 << 24)
+
+
+def phase_probe(rng):
     """The toolchain probe against its plain version, tolerance 0."""
     import torch
     from satdump_tpu_torch.ops.cuda.probe import affine_probe
@@ -179,6 +187,20 @@ def phase_probe():
         f"{bool(np.array_equal(got.cpu().numpy(), expect))}")
     if ndiff or not np.array_equal(got.cpu().numpy(), expect):
         raise AssertionError("probe differs from its plain version")
+    cases = [(f"n={n}", torch.from_numpy(
+        rng.standard_normal(n).astype(np.float32) * 1e3).cuda())
+        for n in PROBE_SIZES]
+    base = torch.from_numpy(rng.standard_normal(4098).astype(np.float32)
+                            ).cuda()
+    cases.append(("n=4097 at 4 bytes past 16-byte alignment", base[1:]))
+    for label, xs in cases:
+        got = affine_probe(xs)
+        torch.cuda.synchronize()
+        ndiff = int((got != xs * 2 + 1).sum())
+        log(f"probe {label} (data_ptr % 16 = {xs.data_ptr() % 16}): {ndiff} "
+            f"values differ from x * 2 + 1 (tolerance: 0)")
+        if ndiff:
+            raise AssertionError(f"probe {label} differs from x * 2 + 1")
     ones = torch.ones_like(x)
     res = {"max_abs_err": 0.0,
            "ms": kernel_ms(lambda: affine_probe(x), "probe_affine_kernel",
@@ -196,6 +218,15 @@ def phase_probe():
         f"{res['call_ms']:.4f} ms per wrapper call (events), plain "
         f"{res['plain_ms']:.4f} ms, torch.add {res['library_ms']:.4f} ms "
         f"(profiler), bound {res['bound_ms']:.6f} ms ({res['bound_by']})")
+    xl = cases[len(PROBE_SIZES) - 1][1]
+    onesl = torch.ones_like(xl)
+    big_ms = kernel_ms(lambda: affine_probe(xl), "probe_affine_kernel", 20)
+    big_add = device_ms(lambda: torch.add(onesl, xl, alpha=2.0), 20)
+    big_bound, _ = bound_ms(2 * xl.numel() * 4, 2 * xl.numel(),
+                            H100_F32_FLOPS)
+    log(f"probe times at n=2^24: kernel {big_ms:.4f} ms "
+        f"({2 * xl.numel() * 4 / big_ms / 1e9:.3f} TB/s), torch.add "
+        f"{big_add:.4f} ms, bound {big_bound:.4f} ms (bytes)")
     return res
 
 
@@ -316,55 +347,92 @@ def phase_k1(rng):
 
 
 K2_ATOL = 1e-4   # same branch picks; only the 8-term sum order differs
+METOP_SPS = 6e6 / 2333333
+METEOR_SPS = 35 / 9
+# (label, n_ext, sps, skew, out_cap or None for psk_demod's, whether CTAs
+# must read their taps from global memory); sps_max is sps * 1.02, as
+# ff_clock_recovery passes it
+K2_CASES = (
+    ("n=2^18 skew 0", (1 << 18) + 7, METOP_SPS, 0.0, None, False),
+    ("n=2^18 skew 0.005", (1 << 18) + 7, METOP_SPS, 0.005, None, False),
+    ("n=2^21 skew 0", (1 << 21) + 7, METOP_SPS, 0.0, None, False),
+    ("n=2^21 skew 0.005", (1 << 21) + 7, METOP_SPS, 0.005, None, False),
+    ("METEOR sps 35/9 n=2^18 skew 0.005", (1 << 18) + 7, METEOR_SPS, 0.005,
+     None, False),
+    ("n_ext 8, out_cap 1", 8, METOP_SPS, 0.0, 1, False),
+    ("n=2^18 skew 0.03 > sps_max", (1 << 18) + 7, METOP_SPS, 0.03, None,
+     True),
+)
+
+
+def kernel_ms_cold(fn, kernel: str, reps: int) -> float:
+    """As kernel_ms, with 64 MB written between launches, more than the
+    card's 50 MB L2, so that each launch finds its inputs in device
+    memory."""
+    import torch
+    flush = torch.empty(16 << 20, dtype=torch.float32, device="cuda")
+
+    def cold():
+        flush.fill_(1.0)
+        fn()
+    return kernel_ms(cold, kernel, reps)
 
 
 def phase_k2(rng):
     """K2 against its plain version on the card."""
     import torch
     from satdump_tpu_torch.ops.cuda.resample import (
-        resample_arith_grid, resample_arith_grid_plain)
+        global_read_ctas, resample_arith_grid, resample_arith_grid_plain)
     from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
     bank = torch.as_tensor(mm_interpolator_bank()).cuda()
-    sps = 6e6 / 2333333
+    dev = bank.device
     res = {"max_abs_err": 0.0}
-    for n in (1 << 18, 1 << 21):
-        for skew in (0.0, 0.005):
-            ext_np = (rng.standard_normal(n + 7)
-                      + 1j * rng.standard_normal(n + 7)).astype(np.complex64)
-            ext = torch.from_numpy(ext_np).cuda()
-            start = torch.tensor(0.37, dtype=torch.float32, device="cuda")
-            omega = torch.tensor(sps * (1 + skew), dtype=torch.float32,
-                                 device="cuda")
-            cap = int(np.ceil(n / (sps * 0.99))) + 2   # psk_demod's out_cap
-            got = resample_arith_grid(ext, start, omega, bank, out_cap=cap)
-            ref = resample_arith_grid_plain(ext, start, omega, bank,
-                                            out_cap=cap)
-            err = float((got - ref).abs().max())
-            n_bad = int(((got - ref).abs() > K2_ATOL).sum())
-            log(f"K2 n=2^{n.bit_length() - 1} skew {skew}: max |err| "
-                f"{err:.3e} over {cap} symbols, {n_bad} above {K2_ATOL}")
-            if not np.isfinite(err) or err > K2_ATOL:
-                raise AssertionError(f"K2 differs from its plain version: "
-                                     f"max |err| {err}")
-            res["max_abs_err"] = max(res["max_abs_err"], err)
-            if n == 1 << 18 and skew == 0.0:      # the main path's block
-                kern = lambda: resample_arith_grid(  # noqa: E731
-                    ext, start, omega, bank, out_cap=cap)
-                res["ms"] = kernel_ms(kern, "resample_arith_kernel", 50)
-                res["call_ms"] = call_ms(kern, 50)
-                res["plain_ms"] = call_ms(lambda: resample_arith_grid_plain(
-                    ext, start, omega, bank, out_cap=cap), 20)
-                nbytes = (n + 7) * 8 + bank.numel() * 4 + 8 + cap * 8
-                # flops: 8 complex-by-real FMAs (2 each, 2 flops each) and
-                # the position
-                ops = cap * (8 * 4 + 6)
-                res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops,
-                                                            H100_F32_FLOPS)
-                log(f"K2 times at n=2^18 (out_cap {cap}): kernel "
-                    f"{res['ms']:.4f} ms on the card (profiler), "
-                    f"{res['call_ms']:.4f} ms per wrapper call (events), "
-                    f"plain {res['plain_ms']:.4f} ms, bound "
-                    f"{res['bound_ms']:.5f} ms ({res['bound_by']})")
+    for label, n_ext, sps, skew, cap, must_read_global in K2_CASES:
+        ext_np = (rng.standard_normal(n_ext)
+                  + 1j * rng.standard_normal(n_ext)).astype(np.complex64)
+        ext = torch.from_numpy(ext_np).cuda()
+        start = torch.tensor(0.37, dtype=torch.float32, device="cuda")
+        omega = torch.tensor(sps * (1 + skew), dtype=torch.float32,
+                             device="cuda")
+        if cap is None:
+            cap = int(np.ceil((n_ext - 7) / (sps * 0.99))) + 2  # psk_demod's
+        before = global_read_ctas(dev)
+        got = resample_arith_grid(ext, start, omega, bank, out_cap=cap,
+                                  sps_max=sps * 1.02)
+        n_global = global_read_ctas(dev) - before
+        ref = resample_arith_grid_plain(ext, start, omega, bank, out_cap=cap)
+        err = float((got - ref).abs().max())
+        n_bad = int(((got - ref).abs() > K2_ATOL).sum())
+        log(f"K2 {label}: max |err| {err:.3e} over {cap} symbols, {n_bad} "
+            f"above {K2_ATOL}; {n_global} CTAs read from global memory")
+        if not np.isfinite(err) or err > K2_ATOL:
+            raise AssertionError(f"K2 {label} differs from its plain "
+                                 f"version: max |err| {err}")
+        if (n_global > 0) != must_read_global:
+            raise AssertionError(f"K2 {label}: {n_global} CTAs read from "
+                                 "global memory")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if label == "n=2^18 skew 0":          # the main path's block
+            kern = lambda: resample_arith_grid(  # noqa: E731
+                ext, start, omega, bank, out_cap=cap, sps_max=sps * 1.02)
+            res["ms"] = kernel_ms(kern, "resample_arith_kernel", 50)
+            res["cold_ms"] = kernel_ms_cold(kern, "resample_arith_kernel",
+                                            50)
+            res["call_ms"] = call_ms(kern, 50)
+            res["plain_ms"] = call_ms(lambda: resample_arith_grid_plain(
+                ext, start, omega, bank, out_cap=cap), 20)
+            nbytes = n_ext * 8 + bank.numel() * 4 + 8 + cap * 8
+            # flops: 8 complex-by-real FMAs (2 each, 2 flops each) and
+            # the position
+            ops = cap * (8 * 4 + 6)
+            res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops,
+                                                        H100_F32_FLOPS)
+            log(f"K2 times at n=2^18 (out_cap {cap}): kernel "
+                f"{res['ms']:.4f} ms warm in L2, {res['cold_ms']:.4f} ms "
+                f"after a 64 MB write (profiler), "
+                f"{res['call_ms']:.4f} ms per wrapper call (events), "
+                f"plain {res['plain_ms']:.4f} ms, bound "
+                f"{res['bound_ms']:.5f} ms ({res['bound_by']})")
     return res
 
 
@@ -439,7 +507,8 @@ def phase_main(rng, work: Path):
     """The main path; returns the kernels' launches and the input file."""
     import torch
     from satdump_tpu_torch.ops.cuda.probe import affine_probe
-    from satdump_tpu_torch.ops.cuda.resample import resample_arith_grid
+    from satdump_tpu_torch.ops.cuda.resample import (global_read_ctas,
+                                                     resample_arith_grid)
     from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
     from satdump_tpu_torch.pipeline.runner import run_pipeline
     fname, pipe_id, (up, down), _ = METOP
@@ -449,6 +518,8 @@ def phase_main(rng, work: Path):
     path_kernels = (viterbi_re, resample_arith_grid)
     kernels = path_kernels + (affine_probe,)      # the probe is on no path
     torch.cuda.synchronize()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    global_before = global_read_ctas(dev)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -456,13 +527,18 @@ def phase_main(rng, work: Path):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    n_global = global_read_ctas(dev) - global_before
     _check_cadus(out, cadus, f"main path ({n} samples)")
     log(f"main path: wall {wall:.3f} s, baseband->CADU "
         f"{n / wall / 1e6:.3f} Msamp/s on {torch.cuda.get_device_name(0)}; "
-        f"launches {launches}")
+        f"launches {launches}; K2 CTAs that read from global memory "
+        f"{n_global}")
     for k in path_kernels:
         if launches[k.__name__] <= 0:
             raise AssertionError(f"main path never launched {k.__name__}")
+    if n_global:
+        raise AssertionError(f"main path: {n_global} K2 CTAs read their "
+                             "taps from global memory")
     return launches, path
 
 
@@ -549,8 +625,8 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_env()
     phase_build()
-    probe = phase_probe()
     rng = np.random.default_rng(SEED)
+    probe = phase_probe(rng)
     k1 = phase_k1(rng)
     k2 = phase_k2(rng)
     work = ROOT / "satdump_tpu_torch" / "_build" / "smoke"
@@ -575,6 +651,7 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
                      "call_ms": r["call_ms"]})
+    rows[1]["cold_ms"] = k2["cold_ms"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

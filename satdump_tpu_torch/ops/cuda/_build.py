@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``_build/lib<name>-<hash>.so`` (the hash covers the source and the flags, so
 an edited source is rebuilt). The build runs at first use, from the repo's
 sources only; `build()` starts one nvcc per source, all at once. A missing
-nvcc or a failed compile raises: there is no fallback.
+nvcc or a failed compile raises: there is no fallback. `Kernel` is the launch
+path the wrappers share.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 from satdump_tpu_torch.core.exceptions import SatdumpError
 
@@ -90,8 +93,37 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(name: str, lib: ctypes.CDLL, err: int) -> None:
-    """Raise on a nonzero cudaError_t returned by a launch."""
-    if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+class Kernel:
+    """The entry `<name>_launch(..., stream)` of csrc/<name>.cu, which
+    returns a cudaError_t, loaded (and built if needed) at its first call.
+
+    `kernel(device_index, *args)` launches it on that device's current
+    stream: the stream's raw handle is read once, the device is made current
+    only when it is not already, and a nonzero error raises.
+    """
+
+    def __init__(self, name: str, argtypes: Sequence):
+        self.name = name
+        self._argtypes = [*argtypes, ctypes.c_void_p]       # the stream
+        self._fn = None
+
+    def _load(self):
+        lib = load(self.name)
+        fn = getattr(lib, f"{self.name}_launch")
+        fn.argtypes = self._argtypes
+        fn.restype = ctypes.c_int
+        self._lib, self._fn = lib, fn
+        return fn
+
+    def __call__(self, device_index: int, *args) -> None:
+        fn = self._fn or self._load()
+        if device_index == torch._C._cuda_getDevice():
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+        else:
+            with torch.cuda.device(device_index):
+                err = fn(*args,
+                         torch._C._cuda_getCurrentRawStream(device_index))
+        if err:
+            msg = getattr(self._lib, f"{self.name}_error_string")(err)
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {err} "
+                               f"({msg.decode()})")

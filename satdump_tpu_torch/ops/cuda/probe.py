@@ -16,17 +16,8 @@ import torch
 
 from satdump_tpu_torch.ops.cuda import _build
 
-_NAME = "probe_affine"
-
-
-def _launcher():
-    lib = _build.load(_NAME)
-    fn = lib.probe_affine_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib, fn
+_KERNEL = _build.Kernel("probe_affine", [ctypes.c_void_p, ctypes.c_void_p,
+                                         ctypes.c_longlong])
 
 
 def affine_probe(x: torch.Tensor) -> torch.Tensor:
@@ -34,18 +25,16 @@ def affine_probe(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"affine_probe: need contiguous float32, got "
                          f"{x.dtype}, contiguous={x.is_contiguous()}")
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return x * 2 + 1
-    if x.device.type != "cuda":
-        raise ValueError(f"affine_probe: unsupported device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"affine_probe: unsupported device {dev}")
     y = torch.empty_like(x)
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return y
-    lib, fn = _launcher()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), x.numel(), stream)
-    _build.check(_NAME, lib, err)
+    _KERNEL(dev.index, x.data_ptr(), y.data_ptr(), n)
     affine_probe.launches += 1
     return y
 

@@ -15,18 +15,9 @@ import torch
 from satdump_tpu_torch.ops.cuda import _build
 from satdump_tpu_torch.ops.fec import convolutional as cc
 
-_NAME = "viterbi_re"
-
-
-def _launcher():
-    lib = _build.load(_NAME)
-    fn = lib.viterbi_re_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib, fn
+_KERNEL = _build.Kernel("viterbi_re", [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p])
 
 
 def viterbi_re(soft: torch.Tensor, seg: int = 1024, ovl: int = 128
@@ -52,12 +43,8 @@ def viterbi_re(soft: torch.Tensor, seg: int = 1024, ovl: int = 128
     out = torch.empty(T, dtype=torch.uint8, device=soft.device)
     if T == 0:
         return out
-    lib, fn = _launcher()
-    with torch.cuda.device(soft.device):
-        stream = torch.cuda.current_stream(soft.device).cuda_stream
-        err = fn(soft.data_ptr(), T, T // seg, seg, ovl, out.data_ptr(),
-                 stream)
-    _build.check(_NAME, lib, err)
+    _KERNEL(soft.device.index, soft.data_ptr(), T, T // seg, seg, ovl,
+            out.data_ptr())
     viterbi_re.launches += 1
     return out
 

@@ -9,7 +9,11 @@ Tolerances:
   input), the valid masks equal;
 * against the Pallas kernel: the contract of tests/test_pallas_resample.py
   (> 90% of symbols within 1e-5, max error < 0.1), since that kernel may
-  pick a neighbouring branch on rounding boundaries.
+  pick a neighbouring branch on rounding boundaries;
+* the Python mirror of the CUDA kernel's tiling (`_k2_tiled`) against the
+  plain version and ff_resample_at: every symbol within 1e-5 of the plain
+  version, every valid one within 1e-5 of ff_resample_at, masks equal (the
+  same branch picks; only the sum order differs).
 """
 
 import jax.numpy as jnp
@@ -21,7 +25,9 @@ from satdump_tpu.ops import ffsync as jff
 from satdump_tpu.ops.firdes import mm_interpolator_bank
 from satdump_tpu.ops.pallas.resample import resample_arith_grid as jgrid
 from satdump_tpu_torch.ops import ffsync as tff
-from satdump_tpu_torch.ops.cuda.resample import resample_arith_grid
+from satdump_tpu_torch.ops.cuda import resample
+from satdump_tpu_torch.ops.cuda.resample import (resample_arith_grid,
+                                                 resample_arith_grid_plain)
 
 CASES = {
     "zero_skew": (np.float32(0.37), np.float32(2.0004), 2.04),
@@ -44,7 +50,8 @@ def _inputs(rng, n, omega):
 def _port(ext, start, omega, cap, n):
     bank = torch.as_tensor(mm_interpolator_bank())
     y = resample_arith_grid(torch.from_numpy(ext), torch.tensor(start),
-                            torch.tensor(omega), bank, out_cap=cap)
+                            torch.tensor(omega), bank, out_cap=cap,
+                            sps_max=float(omega) * 1.02)
     k = torch.arange(cap, dtype=torch.float32)
     valid = tff._valid_mask(torch.tensor(start) + k * torch.tensor(omega),
                             8, n)
@@ -96,3 +103,124 @@ def test_ff_resample_at_masks_like_jax(rng):
     assert (~valid.numpy()).sum() > 0
     np.testing.assert_array_equal(got.numpy()[~valid.numpy()], 0)
     assert np.abs(got.numpy() - np.asarray(ref)).max() < 1e-5
+
+
+def _k2_tiled(ext, start, omega, bank, out_cap, sps_max, a0=0):
+    """Python mirror of the tiling of csrc/resample_arith.cu. Each tile of
+    TILE symbols takes its window from its first and last symbol's src,
+    staged in 16-byte pairs of samples from `base`, whose parity a0 is that
+    of ext's address in 8-byte units, and reads its taps at src - base; a
+    tile whose pairs do not fit window_samples(sps_max) reads them from ext
+    itself. Window slots the kernel does not copy hold NaN, so reading one
+    shows. Returns (symbols, tiles that read from global memory)."""
+    f32 = np.float32
+    n_ext = ext.shape[0]
+    n_in = n_ext - (resample.NTAPS - 1)
+    half_taps = f32(resample.NTAPS / 2)
+    window = resample.window_samples(sps_max)
+    taps_idx = np.arange(resample.NTAPS)
+    out = np.empty(out_cap, np.complex64)
+    n_global = 0
+    for k0 in range(0, out_cap, resample.TILE):
+        k = np.arange(k0, min(k0 + resample.TILE, out_cap))
+        p = (f32(start) + k.astype(f32) * f32(omega)) + half_taps
+        ip = np.floor(p)
+        src = np.clip(ip.astype(np.int64), 0, n_in - 1)
+        branch = np.clip(np.rint((p - ip) * f32(resample.NFILT)), 0,
+                         resample.NFILT - 1).astype(np.int64)
+        lo, hi = min(src[0], src[-1]), max(src[0], src[-1])
+        q0 = (lo + a0) >> 1
+        npairs = ((hi + resample.NTAPS - 1 + a0) >> 1) - q0 + 1
+        base = 2 * q0 - a0
+        if npairs <= window // 2:
+            idx = base + np.arange(2 * npairs)
+            inside = (idx >= 0) & (idx < n_ext)
+            sext = np.full(2 * npairs, np.nan, np.complex64)
+            sext[inside] = ext[idx[inside]]
+            off = src - base
+            assert off.min() >= 0 and off.max() + resample.NTAPS <= 2 * npairs
+            windows = sext[off[:, None] + taps_idx]
+        else:
+            n_global += 1
+            windows = ext[src[:, None] + taps_idx]
+        out[k] = (windows * bank[branch]).sum(axis=1)
+    return out, n_global
+
+
+METOP_SPS, METEOR_SPS = 18 / 7, 35 / 9
+# (sps, skew, start, a0): omega = sps * (1 + skew), sps_max = sps * 1.02 as
+# ff_clock_recovery passes it
+TILING = {
+    "metop_skew0": (METOP_SPS, 0.0, 0.61, 0),
+    "metop_skew+0.008": (METOP_SPS, 0.008, 1.8, 0),
+    "metop_skew-0.008": (METOP_SPS, -0.008, 0.37, 0),
+    "meteor_skew0": (METEOR_SPS, 0.0, 0.61, 0),
+    "meteor_skew+0.008": (METEOR_SPS, 0.008, 2.9, 0),
+    "meteor_skew-0.008": (METEOR_SPS, -0.008, 0.05, 0),
+    "omega_above_sps_max": (METOP_SPS, 0.03, 0.61, 0),
+    "clipped_at_both_ends": (METOP_SPS, 0.0, -21.3, 0),
+    "clipped_ext_at_odd_8_bytes": (METOP_SPS, 0.008, -21.3, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(TILING))
+def test_k2_tiling_mirror_matches_plain_and_jax(rng, case):
+    sps, skew, start, a0 = TILING[case]
+    start, omega = np.float32(start), np.float32(sps * (1 + skew))
+    n = 1 << 13
+    x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
+         ).astype(np.complex64)
+    ext = np.concatenate([np.zeros(7, np.complex64), x])
+    if start < 0:            # clipped: the last symbols lie past ext too
+        cap = int((n + 40 - start) / omega)
+    else:
+        cap = int(n / (sps * 1.01)) - 8
+    assert cap % resample.TILE, "out_cap must not be a multiple of the tile"
+    bank = mm_interpolator_bank()
+    got, n_global = _k2_tiled(ext, start, omega, bank, cap, sps * 1.02, a0)
+    if case == "omega_above_sps_max":     # every full tile; the last is short
+        assert n_global >= cap // resample.TILE, n_global
+    else:
+        assert n_global == 0, n_global
+
+    plain = resample_arith_grid_plain(
+        torch.from_numpy(ext), torch.tensor(start), torch.tensor(omega),
+        torch.as_tensor(bank), out_cap=cap).numpy()
+    assert np.abs(got - plain).max() < 1e-5
+
+    pos = (start + np.arange(cap, dtype=np.float32) * omega).astype(np.float32)
+    ref, rvalid = jff.ff_resample_at(jnp.asarray(ext), jnp.asarray(pos),
+                                     bank, n)
+    valid = tff._valid_mask(torch.from_numpy(pos), 8, n).numpy()
+    np.testing.assert_array_equal(valid, np.asarray(rvalid))
+    if start < 0:
+        assert not valid[0] and not valid[-1]
+    assert valid.sum() > 0.9 * cap
+    assert np.abs(got[valid] - np.asarray(ref)[valid]).max() < 1e-5
+
+
+@pytest.mark.parametrize("sps_max", [0.5, METOP_SPS * 1.02, 1e9])
+def test_k2_cpu_accepts_and_ignores_sps_max(rng, sps_max):
+    ext = (rng.standard_normal(1031) + 1j * rng.standard_normal(1031)
+           ).astype(np.complex64)
+    args = (torch.from_numpy(ext), torch.tensor(np.float32(0.4)),
+            torch.tensor(np.float32(METOP_SPS)),
+            torch.as_tensor(mm_interpolator_bank()))
+    before = resample_arith_grid.launches
+    got = resample_arith_grid(*args, out_cap=390, sps_max=sps_max)
+    assert torch.equal(got, resample_arith_grid_plain(*args, out_cap=390))
+    assert resample_arith_grid.launches == before    # the CPU runs no kernel
+
+
+@pytest.mark.parametrize("sps_max", [METOP_SPS * 1.02, METEOR_SPS * 1.02,
+                                     float("inf")])
+def test_k2_window_holds_a_tile_within_shared_memory(sps_max):
+    w = resample.window_samples(sps_max)
+    assert w % 2 == 0 and w <= resample.MAX_WINDOW
+    assert resample.NFILT * resample.NTAPS * 4 + 8 * w <= 48 * 1024
+    if np.isfinite(sps_max):
+        # a tile's span at omega = sps_max, its taps, and the pair alignment
+        need = (resample.TILE - 1) * sps_max + resample.NTAPS + 2
+        assert need <= w < need + 8
+    else:
+        assert w == resample.MAX_WINDOW

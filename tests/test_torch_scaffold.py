@@ -119,7 +119,7 @@ def test_wrappers_raise_on_cuda_without_fallback(monkeypatch):
         resample.resample_arith_grid(
             _CudaLike((4096,), torch.complex64),
             _CudaLike((), torch.float32), _CudaLike((), torch.float32),
-            _CudaLike((128, 8), torch.float32), out_cap=100)
+            _CudaLike((128, 8), torch.float32), out_cap=100, sps_max=2.6)
     for e in (e1, e2):
         assert not isinstance(e.value, FellBack), e.value
     assert viterbi.viterbi_re.launches == 0
