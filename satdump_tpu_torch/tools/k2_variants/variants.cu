@@ -219,6 +219,66 @@ __global__ void __launch_bounds__(kThreads) k2v_direct(Args a) {
   }
 }
 
+// One symbol a thread, no window staging. kBank: the bank staged in shared
+// memory by cp.async (else read through L1). kVec: the 8 samples read as five
+// 16-byte loads from the aligned pair at or before src, then shifted by a
+// select (else eight 8-byte loads); a thread whose ten samples would leave
+// ext reads eight.
+template <int kThreads, bool kBank, bool kVec>
+__global__ void __launch_bounds__(kThreads) k2v_direct1(Args a) {
+  __shared__ __align__(16) float sbank[kBank ? kBankFloats : 4];
+  if (kBank) {
+    for (int i = threadIdx.x; i < kBankFloats / 4; i += kThreads) {
+      cp_async16(sbank + 4 * i, a.bank + 4 * i);
+    }
+  }
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  const float start = __ldg(a.start_p);
+  const float omega = __ldg(a.omega_p);
+  const int n_in = a.n_ext - (kNTaps - 1);
+  const float p = position(start, omega, k);
+  const float ip = floorf(p);
+  const int src = source(ip, n_in);
+  const int b = branch_of(p, ip);
+  float4 ta, tb;
+  if (kBank) {
+    cp_async_wait_all();
+    __syncthreads();
+    ta = reinterpret_cast<const float4*>(sbank)[2 * b];
+    tb = reinterpret_cast<const float4*>(sbank)[2 * b + 1];
+  } else {
+    ta = __ldg(reinterpret_cast<const float4*>(a.bank) + 2 * b);
+    tb = __ldg(reinterpret_cast<const float4*>(a.bank) + 2 * b + 1);
+  }
+  if (k >= a.out_cap) return;
+  const float tap[kNTaps] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
+  float2 v[kNTaps];
+  const int a0 = static_cast<int>((reinterpret_cast<uintptr_t>(a.ext) >> 3) & 1);
+  const int e = src - ((src + a0) & 1);
+  if (kVec && e >= 0 && e + 10 <= a.n_ext) {
+    float2 w[10];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(a.ext + e) + i);
+      w[2 * i] = make_float2(q.x, q.y);
+      w[2 * i + 1] = make_float2(q.z, q.w);
+    }
+    const bool odd = src != e;
+#pragma unroll
+    for (int j = 0; j < kNTaps; ++j) v[j] = odd ? w[j + 1] : w[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kNTaps; ++j) v[j] = __ldg(a.ext + src + j);
+  }
+  float re = 0.f, im = 0.f;
+#pragma unroll
+  for (int j = 0; j < kNTaps; ++j) {
+    re = fmaf(v[j].x, tap[j], re);
+    im = fmaf(v[j].y, tap[j], im);
+  }
+  a.out[k] = make_float2(re, im);
+}
+
 template <int kThreads, int kPairs, int kMode>
 void tiled(const Args& a, cudaStream_t s) {
   constexpr int kTile = kThreads * 2 * kPairs;
@@ -233,7 +293,8 @@ void tiled(const Args& a, cudaStream_t s) {
 // variant: 0 empty (202 x 128), 1 stores only (tile 512), 2 positions only,
 // 3 staging only, 4 tiled 128 x 4 (the kernel of csrc), 5 tiled 64 x 4,
 // 6 tiled 256 x 4, 7 tiled 128 x 2, 8 direct 2 symbols a thread,
-// 9 direct 1 symbol a thread
+// 9 direct 1 symbol a thread, 10-15 k2v_direct1 (bank staged, vector
+// samples, threads)
 extern "C" int k2v_launch(int variant, const void* ext, int n_ext,
                           const void* start, const void* omega,
                           const void* bank, int window, void* global_ctas,
@@ -256,6 +317,12 @@ extern "C" int k2v_launch(int variant, const void* ext, int n_ext,
     case 7: tiled<128, 1, 0>(a, s); break;
     case 8: k2v_direct<128, 2><<<(out_cap + 255) / 256, 128, 0, s>>>(a); break;
     case 9: k2v_direct<256, 1><<<(out_cap + 255) / 256, 256, 0, s>>>(a); break;
+    case 10: k2v_direct1<256, true, false><<<(out_cap + 255) / 256, 256, 0, s>>>(a); break;
+    case 11: k2v_direct1<256, false, true><<<(out_cap + 255) / 256, 256, 0, s>>>(a); break;
+    case 12: k2v_direct1<256, true, true><<<(out_cap + 255) / 256, 256, 0, s>>>(a); break;
+    case 13: k2v_direct1<128, true, true><<<(out_cap + 127) / 128, 128, 0, s>>>(a); break;
+    case 14: k2v_direct1<512, true, true><<<(out_cap + 511) / 512, 512, 0, s>>>(a); break;
+    case 15: k2v_direct1<256, false, false><<<(out_cap + 255) / 256, 256, 0, s>>>(a); break;
     default: return -1;
   }
   return static_cast<int>(cudaGetLastError());

@@ -41,7 +41,15 @@ VARIANTS = {
     7: ("tiled 128 x 2", 256, True),
     8: ("direct, 2 symbols a thread", 256, True),
     9: ("direct, 1 symbol a thread", 256, True),
+    10: ("direct1 256, bank in smem", 256, True),
+    11: ("direct1 256, 16-byte sample loads", 256, True),
+    12: ("direct1 256, bank in smem, 16-byte samples", 256, True),
+    13: ("direct1 128, bank in smem, 16-byte samples", 128, True),
+    14: ("direct1 512, bank in smem, 16-byte samples", 512, True),
+    15: ("direct1 256 (as 9, in the direct1 template)", 256, True),
 }
+# the layouts run 2 measured; the rest of VARIANTS runs with PR 1's kernel
+SKIP = {0, 1, 2, 3, 5, 6, 7, 8}
 
 
 def dev_ms(fn, reps: int, cold: bool, skip: str = "elementwise") -> float:
@@ -143,6 +151,8 @@ def main() -> int:
 
     fns = {"PR 1 kernel": lambda: old(ext, start, omega, bank, out_cap=cap)}
     for v, (label, _, compared) in VARIANTS.items():
+        if v in SKIP:
+            continue
         fns[f"{v}: {label}"] = variant(v)
         if compared:
             err = float((fns[f"{v}: {label}"]() - ref).abs().max())
