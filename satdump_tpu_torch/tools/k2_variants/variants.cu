@@ -279,6 +279,103 @@ __global__ void __launch_bounds__(kThreads) k2v_direct1(Args a) {
   a.out[k] = make_float2(re, im);
 }
 
+// The staged window with one symbol a thread: a tile of kThreads symbols,
+// its window staged by 16-byte cp.async, the taps read through L1 before
+// the barrier (kBankSmem: staged with the window instead), the samples read
+// from shared memory as eight 8-byte loads or (kVec) five 16-byte loads of
+// the aligned pairs and a select.
+template <int kThreads, bool kVec, bool kBankSmem>
+__global__ void __launch_bounds__(kThreads) k2v_tiled1(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  float* sbank = smem;
+  float2* sext = reinterpret_cast<float2*>(smem + kBankFloats);
+  const int t = threadIdx.x;
+  if (kBankSmem) {
+    for (int i = t; i < kBankFloats / 4; i += kThreads) {
+      cp_async16(sbank + 4 * i, a.bank + 4 * i);
+    }
+  }
+  const float start = *a.start_p;
+  const float omega = *a.omega_p;
+  const int n_in = a.n_ext - (kNTaps - 1);
+  const int k0 = blockIdx.x * kThreads;
+  const int s_a = source(floorf(position(start, omega, k0)), n_in);
+  const int s_b = source(
+      floorf(position(start, omega, min(k0 + kThreads, a.out_cap) - 1)), n_in);
+  const int lo = min(s_a, s_b);
+  const int hi = max(s_a, s_b);
+  const int a0 = static_cast<int>((reinterpret_cast<uintptr_t>(a.ext) >> 3) & 1);
+  const int q0 = (lo + a0) >> 1;
+  const int npairs = ((hi + kNTaps - 1 + a0) >> 1) - q0 + 1;
+  const int base = 2 * q0 - a0;
+  const bool staged = npairs <= a.window / 2;
+  if (staged) {
+    for (int i = t; i < npairs; i += kThreads) {
+      const int s = base + 2 * i;
+      if (s >= 0 && s + 1 < a.n_ext) {
+        cp_async16(sext + 2 * i, a.ext + s);
+      } else {
+        if (s >= 0) cp_async8(sext + 2 * i, a.ext + s);
+        if (s + 1 < a.n_ext) cp_async8(sext + 2 * i + 1, a.ext + s + 1);
+      }
+    }
+  }
+  const int k = k0 + t;
+  const float p = position(start, omega, k);
+  const float ip = floorf(p);
+  const int src = source(ip, n_in);
+  const int b = branch_of(p, ip);
+  float4 ta, tb;
+  if (!kBankSmem) {
+    ta = __ldg(reinterpret_cast<const float4*>(a.bank) + 2 * b);
+    tb = __ldg(reinterpret_cast<const float4*>(a.bank) + 2 * b + 1);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (kBankSmem) {
+    ta = reinterpret_cast<const float4*>(sbank)[2 * b];
+    tb = reinterpret_cast<const float4*>(sbank)[2 * b + 1];
+  }
+  if (k >= a.out_cap) return;
+  const float tap[kNTaps] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
+  float2 v[kNTaps];
+  if (!staged) {
+    if (t == 0) atomicAdd(a.global_ctas, 1ull);
+#pragma unroll
+    for (int j = 0; j < kNTaps; ++j) v[j] = a.ext[src + j];
+  } else if (kVec) {
+    const int off = src - base;               // sext + (off & ~1) is aligned
+    const float4* q4 = reinterpret_cast<const float4*>(sext + (off & ~1));
+    float2 w[10];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const float4 q = q4[i];
+      w[2 * i] = make_float2(q.x, q.y);
+      w[2 * i + 1] = make_float2(q.z, q.w);
+    }
+#pragma unroll
+    for (int j = 0; j < kNTaps; ++j) v[j] = (off & 1) ? w[j + 1] : w[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kNTaps; ++j) v[j] = sext[src - base + j];
+  }
+  float re = 0.f, im = 0.f;
+#pragma unroll
+  for (int j = 0; j < kNTaps; ++j) {
+    re = fmaf(v[j].x, tap[j], re);
+    im = fmaf(v[j].y, tap[j], im);
+  }
+  a.out[k] = make_float2(re, im);
+}
+
+template <int kThreads, bool kVec, bool kBankSmem>
+void tiled1(const Args& a, cudaStream_t s) {
+  const size_t smem = (kBankFloats + 2 * static_cast<size_t>(a.window) + 4) *
+                      sizeof(float);
+  k2v_tiled1<kThreads, kVec, kBankSmem>
+      <<<(a.out_cap + kThreads - 1) / kThreads, kThreads, smem, s>>>(a);
+}
+
 template <int kThreads, int kPairs, int kMode>
 void tiled(const Args& a, cudaStream_t s) {
   constexpr int kTile = kThreads * 2 * kPairs;
@@ -294,7 +391,7 @@ void tiled(const Args& a, cudaStream_t s) {
 // 3 staging only, 4 tiled 128 x 4 (the kernel of csrc), 5 tiled 64 x 4,
 // 6 tiled 256 x 4, 7 tiled 128 x 2, 8 direct 2 symbols a thread,
 // 9 direct 1 symbol a thread, 10-15 k2v_direct1 (bank staged, vector
-// samples, threads)
+// samples, threads), 16-20 k2v_tiled1 (staged window, one symbol a thread)
 extern "C" int k2v_launch(int variant, const void* ext, int n_ext,
                           const void* start, const void* omega,
                           const void* bank, int window, void* global_ctas,
@@ -323,6 +420,11 @@ extern "C" int k2v_launch(int variant, const void* ext, int n_ext,
     case 13: k2v_direct1<128, true, true><<<(out_cap + 127) / 128, 128, 0, s>>>(a); break;
     case 14: k2v_direct1<512, true, true><<<(out_cap + 511) / 512, 512, 0, s>>>(a); break;
     case 15: k2v_direct1<256, false, false><<<(out_cap + 255) / 256, 256, 0, s>>>(a); break;
+    case 16: tiled1<512, false, false>(a, s); break;
+    case 17: tiled1<512, true, false>(a, s); break;
+    case 18: tiled1<256, true, false>(a, s); break;
+    case 19: tiled1<512, true, true>(a, s); break;
+    case 20: tiled1<256, false, false>(a, s); break;
     default: return -1;
   }
   return static_cast<int>(cudaGetLastError());

@@ -47,9 +47,14 @@ VARIANTS = {
     13: ("direct1 128, bank in smem, 16-byte samples", 128, True),
     14: ("direct1 512, bank in smem, 16-byte samples", 512, True),
     15: ("direct1 256 (as 9, in the direct1 template)", 256, True),
+    16: ("staged window, 512 threads x 1, 8-byte reads", 512, True),
+    17: ("staged window, 512 x 1, 16-byte reads", 512, True),
+    18: ("staged window, 256 x 1, 16-byte reads", 256, True),
+    19: ("staged window, 512 x 1, 16-byte reads, bank in smem", 512, True),
+    20: ("staged window, 256 x 1, 8-byte reads", 256, True),
 }
-# the layouts run 2 measured; the rest of VARIANTS runs with PR 1's kernel
-SKIP = {0, 1, 2, 3, 5, 6, 7, 8}
+# the layouts runs 2 and 3 measured; the rest runs with PR 1's kernel
+SKIP = {0, 1, 2, 3, 5, 6, 7, 8, 10, 12, 13, 14, 15}
 
 
 def dev_ms(fn, reps: int, cold: bool, skip: str = "elementwise") -> float:
