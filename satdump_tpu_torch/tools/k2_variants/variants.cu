@@ -376,6 +376,55 @@ void tiled1(const Args& a, cudaStream_t s) {
       <<<(a.out_cap + kThreads - 1) / kThreads, kThreads, smem, s>>>(a);
 }
 
+// As k2v_direct1<kThreads, false, true>, with the fifth 16-byte load made
+// only by threads whose src is odd in the pair layout (the others need
+// four).
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads) k2v_direct1p(Args a) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= a.out_cap) return;
+  const float start = __ldg(a.start_p);
+  const float omega = __ldg(a.omega_p);
+  const int n_in = a.n_ext - (kNTaps - 1);
+  const float p = position(start, omega, k);
+  const float ip = floorf(p);
+  const int src = source(ip, n_in);
+  const int b = branch_of(p, ip);
+  const float4 ta = __ldg(reinterpret_cast<const float4*>(a.bank) + 2 * b);
+  const float4 tb = __ldg(reinterpret_cast<const float4*>(a.bank) + 2 * b + 1);
+  const float tap[kNTaps] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
+  float2 v[kNTaps];
+  const int a0 = static_cast<int>((reinterpret_cast<uintptr_t>(a.ext) >> 3) & 1);
+  const bool odd = ((src + a0) & 1) != 0;
+  const int e = src - odd;
+  if (e >= 0 && e + (odd ? 10 : 8) <= a.n_ext) {
+    float2 w[10];
+    const float4* q4 = reinterpret_cast<const float4*>(a.ext + e);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 q = __ldg(q4 + i);
+      w[2 * i] = make_float2(q.x, q.y);
+      w[2 * i + 1] = make_float2(q.z, q.w);
+    }
+    float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (odd) q = __ldg(q4 + 4);
+    w[8] = make_float2(q.x, q.y);
+    w[9] = make_float2(q.z, q.w);
+#pragma unroll
+    for (int j = 0; j < kNTaps; ++j) v[j] = odd ? w[j + 1] : w[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < kNTaps; ++j) v[j] = __ldg(a.ext + src + j);
+  }
+  float re = 0.f, im = 0.f;
+#pragma unroll
+  for (int j = 0; j < kNTaps; ++j) {
+    re = fmaf(v[j].x, tap[j], re);
+    im = fmaf(v[j].y, tap[j], im);
+  }
+  a.out[k] = make_float2(re, im);
+}
+
 template <int kThreads, int kPairs, int kMode>
 void tiled(const Args& a, cudaStream_t s) {
   constexpr int kTile = kThreads * 2 * kPairs;
@@ -391,7 +440,8 @@ void tiled(const Args& a, cudaStream_t s) {
 // 3 staging only, 4 tiled 128 x 4 (the kernel of csrc), 5 tiled 64 x 4,
 // 6 tiled 256 x 4, 7 tiled 128 x 2, 8 direct 2 symbols a thread,
 // 9 direct 1 symbol a thread, 10-15 k2v_direct1 (bank staged, vector
-// samples, threads), 16-20 k2v_tiled1 (staged window, one symbol a thread)
+// samples, threads), 16-20 k2v_tiled1 (staged window, one symbol a thread),
+// 21-24 direct1 with 16-byte samples: the fifth load predicated, threads
 extern "C" int k2v_launch(int variant, const void* ext, int n_ext,
                           const void* start, const void* omega,
                           const void* bank, int window, void* global_ctas,
@@ -425,6 +475,10 @@ extern "C" int k2v_launch(int variant, const void* ext, int n_ext,
     case 18: tiled1<256, true, false>(a, s); break;
     case 19: tiled1<512, true, true>(a, s); break;
     case 20: tiled1<256, false, false>(a, s); break;
+    case 21: k2v_direct1p<256><<<(out_cap + 255) / 256, 256, 0, s>>>(a); break;
+    case 22: k2v_direct1<128, false, true><<<(out_cap + 127) / 128, 128, 0, s>>>(a); break;
+    case 23: k2v_direct1<512, false, true><<<(out_cap + 511) / 512, 512, 0, s>>>(a); break;
+    case 24: k2v_direct1p<128><<<(out_cap + 127) / 128, 128, 0, s>>>(a); break;
     default: return -1;
   }
   return static_cast<int>(cudaGetLastError());

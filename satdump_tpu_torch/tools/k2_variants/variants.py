@@ -52,9 +52,13 @@ VARIANTS = {
     18: ("staged window, 256 x 1, 16-byte reads", 256, True),
     19: ("staged window, 512 x 1, 16-byte reads, bank in smem", 512, True),
     20: ("staged window, 256 x 1, 8-byte reads", 256, True),
+    21: ("direct1 256, 16-byte samples, fifth load predicated", 256, True),
+    22: ("direct1 128, 16-byte samples", 128, True),
+    23: ("direct1 512, 16-byte samples", 512, True),
+    24: ("direct1 128, 16-byte samples, fifth load predicated", 128, True),
 }
-# the layouts runs 2 and 3 measured; the rest runs with PR 1's kernel
-SKIP = {0, 1, 2, 3, 5, 6, 7, 8, 10, 12, 13, 14, 15}
+# the layouts runs 2-4 measured; the rest runs with PR 1's kernel
+SKIP = {0, 1, 2, 3, 5, 6, 7, 8, 10, 12, 13, 14, 15, 16, 17, 18, 19, 20}
 
 
 def dev_ms(fn, reps: int, cold: bool, skip: str = "elementwise") -> float:
