@@ -24,18 +24,17 @@ Phases (any failure raises and the script exits non-zero):
     version's time and the bound;
  4. K2 (arithmetic-grid resampler) against its plain version at 2^18- and
     2^21-sample blocks, sps 18/7, skew 0 and 0.005, at METEOR's sps 35/9,
-    at n_ext 8 / out_cap 1, all with no CTA reading from global memory, and
-    at skew 0.03 against sps_max = sps * 1.02, where CTAs must read from
-    global memory; the same numbers, the device time both with ext warm in
-    L2 and after a 64 MB write;
+    at n_ext 8 / out_cap 1 and at skew 0.03 (beyond the 2 % the TPU
+    kernel's window allows); the same numbers, the device time both with
+    ext warm in L2 and after a 64 MB write;
  5. 12-CADU passes of MetOp AHRPT (6 Msps, sps 18/7) and METEOR-M2 LRPT
     (280 ksps, sps 35/9) through the port on the card and on the CPU: the
     .cadu files must be byte-identical and equal to the sent CADUs;
  6. the main path: ~2^23 samples (~1.4 s) of MetOp AHRPT at 6 Msps through
     the port's run_pipeline on the card with MetOp.json's psk_demod and
     metop_ahrpt_decoder steps; every CADU must be one that was sent, at
-    most 2 may be missing, every kernel of the path must have launched,
-    and no CTA of K2 may have read its taps from global memory;
+    most 2 may be missing, and every kernel of the path must have
+    launched;
  7. where the main path's time goes: each of its two steps run again on
     the same input, once timed and once under torch.profiler, giving the
     device busy time, idle share, launches, copies and the top device
@@ -350,19 +349,16 @@ def phase_k1(rng):
 K2_ATOL = 1e-4   # same branch picks; only the 8-term sum order differs
 METOP_SPS = 6e6 / 2333333
 METEOR_SPS = 35 / 9
-# (label, n_ext, sps, skew, out_cap or None for psk_demod's, whether CTAs
-# must read their taps from global memory); sps_max is sps * 1.02, as
-# ff_clock_recovery passes it
+# (label, n_ext, sps, skew, out_cap or None for psk_demod's)
 K2_CASES = (
-    ("n=2^18 skew 0", (1 << 18) + 7, METOP_SPS, 0.0, None, False),
-    ("n=2^18 skew 0.005", (1 << 18) + 7, METOP_SPS, 0.005, None, False),
-    ("n=2^21 skew 0", (1 << 21) + 7, METOP_SPS, 0.0, None, False),
-    ("n=2^21 skew 0.005", (1 << 21) + 7, METOP_SPS, 0.005, None, False),
+    ("n=2^18 skew 0", (1 << 18) + 7, METOP_SPS, 0.0, None),
+    ("n=2^18 skew 0.005", (1 << 18) + 7, METOP_SPS, 0.005, None),
+    ("n=2^21 skew 0", (1 << 21) + 7, METOP_SPS, 0.0, None),
+    ("n=2^21 skew 0.005", (1 << 21) + 7, METOP_SPS, 0.005, None),
     ("METEOR sps 35/9 n=2^18 skew 0.005", (1 << 18) + 7, METEOR_SPS, 0.005,
-     None, False),
-    ("n_ext 8, out_cap 1", 8, METOP_SPS, 0.0, 1, False),
-    ("n=2^18 skew 0.03 > sps_max", (1 << 18) + 7, METOP_SPS, 0.03, None,
-     True),
+     None),
+    ("n_ext 8, out_cap 1", 8, METOP_SPS, 0.0, 1),
+    ("n=2^18 skew 0.03", (1 << 18) + 7, METOP_SPS, 0.03, None),
 )
 
 
@@ -383,12 +379,11 @@ def phase_k2(rng):
     """K2 against its plain version on the card."""
     import torch
     from satdump_tpu_torch.ops.cuda.resample import (
-        global_read_ctas, resample_arith_grid, resample_arith_grid_plain)
+        resample_arith_grid, resample_arith_grid_plain)
     from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
     bank = torch.as_tensor(mm_interpolator_bank()).cuda()
-    dev = bank.device
     res = {"max_abs_err": 0.0}
-    for label, n_ext, sps, skew, cap, must_read_global in K2_CASES:
+    for label, n_ext, sps, skew, cap in K2_CASES:
         ext_np = (rng.standard_normal(n_ext)
                   + 1j * rng.standard_normal(n_ext)).astype(np.complex64)
         ext = torch.from_numpy(ext_np).cuda()
@@ -397,25 +392,19 @@ def phase_k2(rng):
                              device="cuda")
         if cap is None:
             cap = int(np.ceil((n_ext - 7) / (sps * 0.99))) + 2  # psk_demod's
-        before = global_read_ctas(dev)
-        got = resample_arith_grid(ext, start, omega, bank, out_cap=cap,
-                                  sps_max=sps * 1.02)
-        n_global = global_read_ctas(dev) - before
+        got = resample_arith_grid(ext, start, omega, bank, out_cap=cap)
         ref = resample_arith_grid_plain(ext, start, omega, bank, out_cap=cap)
         err = float((got - ref).abs().max())
         n_bad = int(((got - ref).abs() > K2_ATOL).sum())
         log(f"K2 {label}: max |err| {err:.3e} over {cap} symbols, {n_bad} "
-            f"above {K2_ATOL}; {n_global} CTAs read from global memory")
+            f"above {K2_ATOL}")
         if not np.isfinite(err) or err > K2_ATOL:
             raise AssertionError(f"K2 {label} differs from its plain "
                                  f"version: max |err| {err}")
-        if (n_global > 0) != must_read_global:
-            raise AssertionError(f"K2 {label}: {n_global} CTAs read from "
-                                 "global memory")
         res["max_abs_err"] = max(res["max_abs_err"], err)
         if label == "n=2^18 skew 0":          # the main path's block
             kern = lambda: resample_arith_grid(  # noqa: E731
-                ext, start, omega, bank, out_cap=cap, sps_max=sps * 1.02)
+                ext, start, omega, bank, out_cap=cap)
             res["ms"] = kernel_ms(kern, "resample_arith_kernel", 50)
             res["cold_ms"] = kernel_ms_cold(kern, "resample_arith_kernel",
                                             50)
@@ -508,8 +497,7 @@ def phase_main(rng, work: Path):
     """The main path; returns the kernels' launches and the input file."""
     import torch
     from satdump_tpu_torch.ops.cuda.probe import affine_probe
-    from satdump_tpu_torch.ops.cuda.resample import (global_read_ctas,
-                                                     resample_arith_grid)
+    from satdump_tpu_torch.ops.cuda.resample import resample_arith_grid
     from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
     from satdump_tpu_torch.pipeline.runner import run_pipeline
     fname, pipe_id, (up, down), _ = METOP
@@ -519,8 +507,6 @@ def phase_main(rng, work: Path):
     path_kernels = (viterbi_re, resample_arith_grid)
     kernels = path_kernels + (affine_probe,)      # the probe is on no path
     torch.cuda.synchronize()
-    dev = torch.device("cuda", torch.cuda.current_device())
-    global_before = global_read_ctas(dev)
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -528,18 +514,13 @@ def phase_main(rng, work: Path):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
-    n_global = global_read_ctas(dev) - global_before
     _check_cadus(out, cadus, f"main path ({n} samples)")
     log(f"main path: wall {wall:.3f} s, baseband->CADU "
         f"{n / wall / 1e6:.3f} Msamp/s on {torch.cuda.get_device_name(0)}; "
-        f"launches {launches}; K2 CTAs that read from global memory "
-        f"{n_global}")
+        f"launches {launches}")
     for k in path_kernels:
         if launches[k.__name__] <= 0:
             raise AssertionError(f"main path never launched {k.__name__}")
-    if n_global:
-        raise AssertionError(f"main path: {n_global} K2 CTAs read their "
-                             "taps from global memory")
     return launches, path
 
 

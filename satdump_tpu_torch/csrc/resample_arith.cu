@@ -12,24 +12,25 @@
 //
 // What bounds it on an H100: bytes. At the main path's 2^18-sample block
 // (out_cap 102,977) it reads ext (2.1 MB) and writes the symbols (0.8 MB):
-// ~2.9 MB at 3.35 TB/s is 0.87 us, below the ~1.1 us the card takes for
-// any kernel at all. So the design cuts the chain of dependent memory
-// round trips a CTA waits on, and moves its bytes in wide accesses:
-//  * A CTA takes a tile of 512 symbols, 4 a thread: ~200 CTAs for the main
-//    block, one wave on 132 SMs. Because the grid is arithmetic and the
-//    clipped floor is monotone in k, the tile's sources lie in one window,
-//    [src of the first symbol, src of the last + 8).
-//  * The 4 KB bank and the window (~10.6 KB at sps 18/7) are staged into
-//    shared memory by 16-byte cp.async. The bank's copy is issued before
-//    the loads of start and omega, the window's as soon as they arrive, and
-//    each thread forms its positions and branches while both fly. The taps
-//    are then read from shared memory: one wait on memory for the data.
-//  * A thread stores two neighbouring symbols as one float4, so a warp's
-//    store is 512 contiguous bytes.
-//  * The host sizes the window from a bound on omega (sps_max). A CTA whose
-//    span is longer reads its taps from global memory instead, with the
-//    same arithmetic and the same results, and counts itself in
-//    *global_ctas: the kernel is right for any omega.
+// ~2.9 MB at 3.35 TB/s is 0.87 us, below the 0.93 us an empty kernel takes
+// on this grid. What the card spends beyond that goes to a chain each
+// thread waits through (the loads of start and omega, then the taps, then
+// the store) and to the L1 wavefronts of the taps' gathers: a warp's 32
+// symbols read overlapping 8-sample windows, ~90 samples in all. So:
+//  * One symbol a thread, 256 threads a CTA, no shared memory and no
+//    barrier: each warp goes from its positions to its loads to its store
+//    on its own, 24 warps an SM hiding each other's waits. (Staging each
+//    tile's window into shared memory by cp.async, with 128-512 threads a
+//    CTA and 1-4 symbols a thread, measured 0.3-0.7 us slower: L1 already
+//    serves the overlapping windows, and the copy adds a barrier.)
+//  * The 8 samples are read as five 16-byte loads from the 16-byte-aligned
+//    pair at or before src, then shifted by a select: a warp touches about
+//    30 L1 wavefronts for them instead of 48. A thread whose ten samples
+//    would leave ext reads its eight one by one.
+//  * The taps (one 32-byte bank row) come through the read-only path as two
+//    16-byte loads; a warp's symbols use only a handful of rows.
+//  * start and omega are read through device pointers, so the host never
+//    synchronizes to fetch them.
 //
 // Exactness: the position is formed with __fmul_rn / __fadd_rn in the
 // reference's order, so nvcc cannot contract it into an FMA; rintf rounds
@@ -43,166 +44,73 @@ namespace {
 
 constexpr int kNFilt = 128;
 constexpr int kNTaps = 8;
-constexpr int kBankFloats = kNFilt * kNTaps;
-constexpr int kThreads = 128;
-constexpr int kTile = 512;             // symbols a CTA, 4 a thread
-constexpr int kHalf = kTile / 2;       // thread t stores at 2t and kHalf + 2t
+constexpr int kThreads = 256;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// p = (start + k*omega) + NTAPS/2, rounded as the reference rounds it
-__device__ __forceinline__ float position(float start, float omega, int k) {
-  const float pos = __fadd_rn(start, __fmul_rn(static_cast<float>(k), omega));
-  return __fadd_rn(pos, 0.5f * kNTaps);
-}
-
-__device__ __forceinline__ int source(float ip, int n_in) {
-  return min(max(static_cast<int>(ip), 0), n_in - 1);
-}
-
-// the 8-term sum of window v under the taps w, in tap order
-__device__ __forceinline__ float2 interp(const float2* v, const float* w) {
-  const float4 ta = reinterpret_cast<const float4*>(w)[0];
-  const float4 tb = reinterpret_cast<const float4*>(w)[1];
-  const float tap[kNTaps] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
-  float re = 0.f, im = 0.f;
-#pragma unroll
-  for (int j = 0; j < kNTaps; ++j) {
-    const float2 s = v[j];
-    re = fmaf(s.x, tap[j], re);
-    im = fmaf(s.y, tap[j], im);
-  }
-  return make_float2(re, im);
-}
-
-// dynamic shared memory: the bank (4 KB), then `window` float2 samples
+// bank: 16-byte aligned (the wrapper checks)
 __global__ void __launch_bounds__(kThreads) resample_arith_kernel(
     const float2* __restrict__ ext, int n_ext,
     const float* __restrict__ start_p, const float* __restrict__ omega_p,
-    const float* __restrict__ bank, int window,
-    unsigned long long* __restrict__ global_ctas, float2* __restrict__ out,
-    int out_cap) {
-  extern __shared__ __align__(16) float smem[];
-  float* sbank = smem;
-  float2* sext = reinterpret_cast<float2*>(smem + kBankFloats);
-  const int t = threadIdx.x;
+    const float* __restrict__ bank, float2* __restrict__ out, int out_cap) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= out_cap) return;
 
-  if ((reinterpret_cast<uintptr_t>(bank) & 15) == 0) {
-    for (int i = t; i < kBankFloats / 4; i += kThreads) {
-      cp_async16(sbank + 4 * i, bank + 4 * i);
-    }
-  } else {
-    for (int i = t; i < kBankFloats; i += kThreads) sbank[i] = bank[i];
-  }
+  const float start = __ldg(start_p);
+  const float omega = __ldg(omega_p);
+  const float pos = __fadd_rn(start, __fmul_rn(static_cast<float>(k), omega));
+  const float p = __fadd_rn(pos, 0.5f * kNTaps);
+  const float ip = floorf(p);
+  const int src = min(max(static_cast<int>(ip), 0), n_ext - kNTaps);
+  int branch = static_cast<int>(
+      rintf(__fmul_rn(__fsub_rn(p, ip), static_cast<float>(kNFilt))));
+  branch = min(max(branch, 0), kNFilt - 1);
 
-  const float start = *start_p;
-  const float omega = *omega_p;
-  const int n_in = n_ext - (kNTaps - 1);
-  const int k0 = blockIdx.x * kTile;
+  const float4* row = reinterpret_cast<const float4*>(bank) + 2 * branch;
+  const float4 ta = __ldg(row);
+  const float4 tb = __ldg(row + 1);
+  const float tap[kNTaps] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
 
-  // The window: src is monotone in k (each step of position() and the clip
-  // is), so the tile's first and last symbols bound every symbol's taps.
-  // It is staged in 16-byte pairs of samples aligned in global memory:
-  // sext[0] holds sample `base`, which is lo or lo - 1.
-  const int s_a = source(floorf(position(start, omega, k0)), n_in);
-  const int s_b = source(
-      floorf(position(start, omega, min(k0 + kTile, out_cap) - 1)), n_in);
-  const int lo = min(s_a, s_b);
-  const int hi = max(s_a, s_b);
+  // ext + e is 16-byte aligned: e is src, or src - 1 where src is odd in
+  // ext's pair layout (ext itself is 8-byte aligned)
   const int a0 = static_cast<int>((reinterpret_cast<uintptr_t>(ext) >> 3) & 1);
-  const int q0 = (lo + a0) >> 1;
-  const int npairs = ((hi + kNTaps - 1 + a0) >> 1) - q0 + 1;
-  const int base = 2 * q0 - a0;
-  const bool staged = npairs <= window / 2;      // uniform in the CTA
-  if (staged) {
-    for (int i = t; i < npairs; i += kThreads) {
-      const int s = base + 2 * i;
-      if (s >= 0 && s + 1 < n_ext) {
-        cp_async16(sext + 2 * i, ext + s);
-      } else {   // a pair across an end of ext: copy its one sample inside
-        if (s >= 0) cp_async8(sext + 2 * i, ext + s);
-        if (s + 1 < n_ext) cp_async8(sext + 2 * i + 1, ext + s + 1);
-      }
-    }
-  }
-
-  // positions and branches while the copies fly; symbol j of this thread is
-  // k0 + (j / 2) * kHalf + 2t + j % 2
-  int src[4], branch[4];
+  const int e = src - ((src + a0) & 1);
+  float2 v[kNTaps];
+  if (e >= 0 && e + 10 <= n_ext) {
+    const float4* q4 = reinterpret_cast<const float4*>(ext + e);
+    float2 w[10];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float p = position(start, omega, k0 + (j >> 1) * kHalf + 2 * t +
-                                               (j & 1));
-    const float ip = floorf(p);
-    src[j] = source(ip, n_in);
-    const int b = static_cast<int>(
-        rintf(__fmul_rn(__fsub_rn(p, ip), static_cast<float>(kNFilt))));
-    branch[j] = min(max(b, 0), kNFilt - 1);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
-  float2 y[4];
-  if (staged) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      y[j] = interp(sext + (src[j] - base), sbank + branch[j] * kNTaps);
+    for (int i = 0; i < 5; ++i) {
+      const float4 q = __ldg(q4 + i);
+      w[2 * i] = make_float2(q.x, q.y);
+      w[2 * i + 1] = make_float2(q.z, q.w);
     }
+    const bool shifted = e != src;
+#pragma unroll
+    for (int j = 0; j < kNTaps; ++j) v[j] = shifted ? w[j + 1] : w[j];
   } else {
-    if (t == 0) atomicAdd(global_ctas, 1ull);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      y[j] = interp(ext + src[j], sbank + branch[j] * kNTaps);
-    }
+    for (int j = 0; j < kNTaps; ++j) v[j] = __ldg(ext + src + j);
   }
 
-  // out is the wrapper's own allocation, so out + k (k even) is 16-byte
-  // aligned
+  float re = 0.f, im = 0.f;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int k = k0 + h * kHalf + 2 * t;
-    if (k + 1 < out_cap) {
-      *reinterpret_cast<float4*>(out + k) =
-          make_float4(y[2 * h].x, y[2 * h].y, y[2 * h + 1].x, y[2 * h + 1].y);
-    } else if (k < out_cap) {
-      out[k] = y[2 * h];
-    }
+  for (int j = 0; j < kNTaps; ++j) {
+    re = fmaf(v[j].x, tap[j], re);
+    im = fmaf(v[j].y, tap[j], im);
   }
+  out[k] = make_float2(re, im);
 }
 
 }  // namespace
 
-// window: samples of ext a CTA may stage (even; the wrapper keeps the shared
-// memory within the default 48 KB). global_ctas: one device counter.
 extern "C" int resample_arith_launch(const void* ext, int n_ext,
                                      const void* start, const void* omega,
-                                     const void* bank, int window,
-                                     void* global_ctas, void* out,
-                                     int out_cap, void* stream) {
-  const int blocks = (out_cap + kTile - 1) / kTile;
-  const size_t smem = (kBankFloats + 2 * static_cast<size_t>(window)) *
-                      sizeof(float);
-  resample_arith_kernel<<<blocks, kThreads, smem,
+                                     const void* bank, void* out, int out_cap,
+                                     void* stream) {
+  resample_arith_kernel<<<(out_cap + kThreads - 1) / kThreads, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(ext), n_ext,
       static_cast<const float*>(start), static_cast<const float*>(omega),
-      static_cast<const float*>(bank), window,
-      static_cast<unsigned long long*>(global_ctas),
-      static_cast<float2*>(out), out_cap);
+      static_cast<const float*>(bank), static_cast<float2*>(out), out_cap);
   return static_cast<int>(cudaGetLastError());
 }
 

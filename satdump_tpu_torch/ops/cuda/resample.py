@@ -9,8 +9,6 @@ ops/ffsync.py::ff_resample_at) on the grid p_k = start + k*omega.
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Dict
 
 import torch
 
@@ -18,35 +16,10 @@ from satdump_tpu_torch.ops.cuda import _build
 
 NFILT = 128
 NTAPS = 8
-TILE = 512          # symbols a CTA of the kernel takes
-# samples a CTA may stage: shared memory within the default 48 KB, less the
-# bank's 4 KB
-MAX_WINDOW = (48 * 1024 - NFILT * NTAPS * 4) // 8
 
 _KERNEL = _build.Kernel("resample_arith", [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int])
-_global_ctas: Dict[int, torch.Tensor] = {}     # one int64 counter a device
-
-
-def window_samples(sps_max: float) -> int:
-    """Samples of ext the kernel stages for one tile of TILE symbols: their
-    span at omega <= sps_max, the taps, and four for the span's rounding and
-    the 16-byte alignment of the copy; even, and at most MAX_WINDOW. A tile
-    whose span is longer reads its taps from global memory."""
-    w = math.ceil((TILE - 1) * min(sps_max, MAX_WINDOW)) + NTAPS + 4
-    return min(w + (w & 1), MAX_WINDOW)
-
-
-def global_read_ctas(device: torch.device) -> int:
-    """How many CTAs of the kernel on `device` have found their span longer
-    than their window and read their taps from global memory, since the
-    process started (synchronizes with the device)."""
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    counter = _global_ctas.get(index)
-    return 0 if counter is None else int(counter.item())
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
 
 
 def interp_at(ext: torch.Tensor, positions: torch.Tensor, bank: torch.Tensor,
@@ -83,15 +56,16 @@ def resample_arith_grid_plain(ext: torch.Tensor, start: torch.Tensor,
 
 def resample_arith_grid(ext: torch.Tensor, start: torch.Tensor,
                         omega: torch.Tensor, bank: torch.Tensor, *,
-                        out_cap: int, sps_max: float) -> torch.Tensor:
+                        out_cap: int) -> torch.Tensor:
     """Polyphase-interpolate complex `ext` at p_k = start + k*omega
     (+NTAPS/2 group-delay shift, as ff_resample_at) for k < out_cap.
 
     ext: (n_ext,) complex64. start, omega: float32 scalars on ext's device
     (read by the kernel through device pointers, no host sync). bank:
-    (128, 8) float32. sps_max: the most omega is expected to be; it sizes
-    the kernel's shared window (`window_samples`) and changes no result.
-    Returns (out_cap,) complex64; the caller applies the validity mask."""
+    (128, 8) float32, 16-byte aligned on the card. Returns (out_cap,)
+    complex64; the caller applies the validity mask. (The TPU kernel's
+    `sps_max` sized its DMA window; this kernel stages no window, so it
+    takes none and is right for any omega.)"""
     dev = ext.device
     if dev.type != "cuda":
         if dev.type == "cpu":
@@ -102,11 +76,13 @@ def resample_arith_grid(ext: torch.Tensor, start: torch.Tensor,
             or not ext.is_contiguous():
         raise ValueError("resample_arith_grid: ext must be contiguous 1-D "
                          f"complex64, got {tuple(ext.shape)} {ext.dtype}")
+    bank_ptr = bank.data_ptr()
+    # the kernel reads a bank row as two 16-byte loads
     if bank.shape != (NFILT, NTAPS) or bank.dtype != torch.float32 \
-            or not bank.is_contiguous():
-        raise ValueError("resample_arith_grid: bank must be contiguous "
-                         f"(128, 8) float32, got {tuple(bank.shape)} "
-                         f"{bank.dtype}")
+            or not bank.is_contiguous() or bank_ptr % 16:
+        raise ValueError("resample_arith_grid: bank must be contiguous, "
+                         "16-byte aligned (128, 8) float32, got "
+                         f"{tuple(bank.shape)} {bank.dtype}")
     # a one-element tensor is contiguous whatever its strides
     if start.dtype != torch.float32 or omega.dtype != torch.float32 \
             or start.numel() != 1 or omega.numel() != 1:
@@ -116,23 +92,16 @@ def resample_arith_grid(ext: torch.Tensor, start: torch.Tensor,
     if start.device != dev or omega.device != dev or bank.device != dev:
         raise ValueError("resample_arith_grid: all inputs on one device")
     n_ext = ext.shape[0]
-    if n_ext < NTAPS or n_ext >= 2 ** 31 or out_cap >= 2 ** 24 \
-            or not sps_max > 0:
+    if n_ext < NTAPS or n_ext >= 2 ** 31 or out_cap >= 2 ** 24:
         # k is formed in float32 inside the kernel: exact below 2^24
         raise ValueError(f"resample_arith_grid: need {NTAPS} <= n_ext < "
-                         f"2^31, out_cap < 2^24 and sps_max > 0 (n_ext="
-                         f"{n_ext}, out_cap={out_cap}, sps_max={sps_max})")
+                         f"2^31 and out_cap < 2^24 (n_ext={n_ext}, "
+                         f"out_cap={out_cap})")
     out = torch.empty(out_cap, dtype=torch.complex64, device=dev)
     if out_cap == 0:
         return out
-    index = dev.index
-    counter = _global_ctas.get(index)
-    if counter is None:
-        counter = _global_ctas[index] = torch.zeros(
-            1, dtype=torch.int64, device=dev)
-    _KERNEL(index, ext.data_ptr(), n_ext, start.data_ptr(), omega.data_ptr(),
-            bank.data_ptr(), window_samples(sps_max), counter.data_ptr(),
-            out.data_ptr(), out_cap)
+    _KERNEL(dev.index, ext.data_ptr(), n_ext, start.data_ptr(),
+            omega.data_ptr(), bank_ptr, out.data_ptr(), out_cap)
     resample_arith_grid.launches += 1
     return out
 

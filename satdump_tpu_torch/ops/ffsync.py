@@ -460,8 +460,7 @@ def ff_clock_recovery(state: FFClockState, x: torch.Tensor, *, sps: float,
     else:
         # positions in float32, as the reference: at k·omega ≈ 2^21 the ulp
         # is 0.25 sample, which quantizes frac to 32 of the 128 branches
-        y = resample_arith_grid(ext, start, omega, bank_t, out_cap=out_cap,
-                                sps_max=sps * 1.02)
+        y = resample_arith_grid(ext, start, omega, bank_t, out_cap=out_cap)
         valid = _valid_mask(positions, ntaps, n)
         syms = torch.where(valid, y, torch.zeros_like(y))
 

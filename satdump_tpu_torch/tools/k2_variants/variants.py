@@ -19,8 +19,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from satdump_tpu_torch.ops.cuda import _build, resample
@@ -61,33 +59,6 @@ VARIANTS = {
 SKIP = {0, 1, 2, 3, 5, 6, 7, 8, 10, 12, 13, 14, 15, 16, 17, 18, 19, 20}
 
 
-def dev_ms(fn, reps: int, cold: bool, skip: str = "elementwise") -> float:
-    """Median device time of the kernels fn() launches whose name does not
-    hold `skip`, over `reps` calls; with 64 MB written before each."""
-    flush = torch.empty(16 << 20, dtype=torch.float32, device="cuda")
-
-    def body():
-        if cold:
-            flush.fill_(1.0)
-        fn()
-    body()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            body()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == DeviceType.CUDA and skip not in e.name]
-    # the profiler has been seen to drop a record now and then
-    if not 0.9 * reps <= len(ev) <= reps:
-        names = sorted({e.name[:60] for e in prof.events()
-                        if e.device_type == DeviceType.CUDA})
-        raise AssertionError(f"profiler saw {len(ev)} kernels, expected "
-                             f"{reps}: {names}")
-    return float(np.median([e.time_range.elapsed_us() for e in ev])) / 1e3
-
-
 def probes(old_pr, res):
     old_p = compare.old_probe_wrapper(old_pr)
     for label, numel in (("(8, 128)", 8 * 128), ("2^24", 1 << 24)):
@@ -101,7 +72,7 @@ def probes(old_pr, res):
         reps = 100 if numel < 1 << 20 else 20
         r = {}
         for side in ("old", "new", "torch.add", "torch.add", "new", "old"):
-            r.setdefault(side, []).append(dev_ms(fns[side], reps, False,
+            r.setdefault(side, []).append(compare.dev_ms(fns[side], reps, False,
                                                  skip="Fill"))
         for side in ("old", "new", "new", "old"):
             r.setdefault(side + " call", []).append(cs.call_ms(fns[side],
@@ -175,8 +146,8 @@ def main() -> int:
     k2 = {}
     for name in order:
         r = k2.setdefault(name, {"warm": [], "cold": []})
-        r["warm"].append(dev_ms(fns[name], 100, False))
-        r["cold"].append(dev_ms(fns[name], 100, True))
+        r["warm"].append(compare.dev_ms(fns[name], 100, False))
+        r["cold"].append(compare.dev_ms(fns[name], 100, True))
         cs.log(f"K2 {name}: warm {r['warm'][-1]:.6f} ms, cold "
                f"{r['cold'][-1]:.6f} ms")
     for name, r in k2.items():

@@ -10,7 +10,7 @@ Tolerances:
 * against the Pallas kernel: the contract of tests/test_pallas_resample.py
   (> 90% of symbols within 1e-5, max error < 0.1), since that kernel may
   pick a neighbouring branch on rounding boundaries;
-* the Python mirror of the CUDA kernel's tiling (`_k2_tiled`) against the
+* the Python mirror of the CUDA kernel's loads (`_k2_layout`) against the
   plain version and ff_resample_at: every symbol within 1e-5 of the plain
   version, every valid one within 1e-5 of ff_resample_at, masks equal (the
   same branch picks; only the sum order differs).
@@ -50,8 +50,7 @@ def _inputs(rng, n, omega):
 def _port(ext, start, omega, cap, n):
     bank = torch.as_tensor(mm_interpolator_bank())
     y = resample_arith_grid(torch.from_numpy(ext), torch.tensor(start),
-                            torch.tensor(omega), bank, out_cap=cap,
-                            sps_max=float(omega) * 1.02)
+                            torch.tensor(omega), bank, out_cap=cap)
     k = torch.arange(cap, dtype=torch.float32)
     valid = tff._valid_mask(torch.tensor(start) + k * torch.tensor(omega),
                             8, n)
@@ -105,83 +104,73 @@ def test_ff_resample_at_masks_like_jax(rng):
     assert np.abs(got.numpy() - np.asarray(ref)).max() < 1e-5
 
 
-def _k2_tiled(ext, start, omega, bank, out_cap, sps_max, a0=0):
-    """Python mirror of the tiling of csrc/resample_arith.cu. Each tile of
-    TILE symbols takes its window from its first and last symbol's src,
-    staged in 16-byte pairs of samples from `base`, whose parity a0 is that
-    of ext's address in 8-byte units, and reads its taps at src - base; a
-    tile whose pairs do not fit window_samples(sps_max) reads them from ext
-    itself. Window slots the kernel does not copy hold NaN, so reading one
-    shows. Returns (symbols, tiles that read from global memory)."""
+def _k2_layout(ext, start, omega, bank, out_cap, a0=0):
+    """Python mirror of what csrc/resample_arith.cu loads for each symbol.
+    The 8 samples come from five 16-byte loads starting at the aligned pair
+    at or before src (a0: the parity of ext's address in 8-byte units),
+    shifted by one where src is odd in that layout; a symbol whose ten
+    samples would leave ext reads its eight one by one. Every load is
+    checked to lie inside ext, and every 16-byte one to be aligned. Returns (symbols, symbols read one by one)."""
     f32 = np.float32
     n_ext = ext.shape[0]
-    n_in = n_ext - (resample.NTAPS - 1)
-    half_taps = f32(resample.NTAPS / 2)
-    window = resample.window_samples(sps_max)
-    taps_idx = np.arange(resample.NTAPS)
-    out = np.empty(out_cap, np.complex64)
-    n_global = 0
-    for k0 in range(0, out_cap, resample.TILE):
-        k = np.arange(k0, min(k0 + resample.TILE, out_cap))
-        p = (f32(start) + k.astype(f32) * f32(omega)) + half_taps
-        ip = np.floor(p)
-        src = np.clip(ip.astype(np.int64), 0, n_in - 1)
-        branch = np.clip(np.rint((p - ip) * f32(resample.NFILT)), 0,
-                         resample.NFILT - 1).astype(np.int64)
-        lo, hi = min(src[0], src[-1]), max(src[0], src[-1])
-        q0 = (lo + a0) >> 1
-        npairs = ((hi + resample.NTAPS - 1 + a0) >> 1) - q0 + 1
-        base = 2 * q0 - a0
-        if npairs <= window // 2:
-            idx = base + np.arange(2 * npairs)
-            inside = (idx >= 0) & (idx < n_ext)
-            sext = np.full(2 * npairs, np.nan, np.complex64)
-            sext[inside] = ext[idx[inside]]
-            off = src - base
-            assert off.min() >= 0 and off.max() + resample.NTAPS <= 2 * npairs
-            windows = sext[off[:, None] + taps_idx]
-        else:
-            n_global += 1
-            windows = ext[src[:, None] + taps_idx]
-        out[k] = (windows * bank[branch]).sum(axis=1)
-    return out, n_global
+    p = (f32(start) + np.arange(out_cap, dtype=f32) * f32(omega)) \
+        + f32(resample.NTAPS / 2)
+    ip = np.floor(p)
+    src = np.clip(ip.astype(np.int64), 0, n_ext - resample.NTAPS)
+    branch = np.clip(np.rint((p - ip) * f32(resample.NFILT)), 0,
+                     resample.NFILT - 1).astype(np.int64)
+    e = src - ((src + a0) & 1)
+    wide = (e >= 0) & (e + 10 <= n_ext)
+    idx = np.where(wide[:, None], e[:, None] + np.arange(10),
+                   src[:, None] + np.arange(10))   # the last two unused there
+    loaded = np.where(wide[:, None], idx, idx[:, :resample.NTAPS].max(
+        axis=1, keepdims=True))
+    assert loaded.min() >= 0 and loaded.max() < n_ext
+    assert not ((e[wide] + a0) % 2).any()            # 16-byte aligned loads
+    window = ext[np.clip(idx, 0, n_ext - 1)]
+    shift = np.where(wide, src - e, 0)
+    assert set(np.unique(shift)) <= {0, 1}
+    taps = window[np.arange(out_cap)[:, None],
+                  shift[:, None] + np.arange(resample.NTAPS)]
+    return (taps * bank[branch]).sum(axis=1), int((~wide).sum())
 
 
 METOP_SPS, METEOR_SPS = 18 / 7, 35 / 9
-# (sps, skew, start, a0): omega = sps * (1 + skew), sps_max = sps * 1.02 as
-# ff_clock_recovery passes it
-TILING = {
+CTA = 256       # symbols a CTA of csrc/resample_arith.cu, one a thread
+# (sps, skew, start, a0): omega = sps * (1 + skew); a start below -4 clips
+# the first symbols' windows at ext's start, and the last symbols then lie
+# past its end
+LAYOUT = {
     "metop_skew0": (METOP_SPS, 0.0, 0.61, 0),
     "metop_skew+0.008": (METOP_SPS, 0.008, 1.8, 0),
     "metop_skew-0.008": (METOP_SPS, -0.008, 0.37, 0),
     "meteor_skew0": (METEOR_SPS, 0.0, 0.61, 0),
     "meteor_skew+0.008": (METEOR_SPS, 0.008, 2.9, 0),
     "meteor_skew-0.008": (METEOR_SPS, -0.008, 0.05, 0),
-    "omega_above_sps_max": (METOP_SPS, 0.03, 0.61, 0),
+    "skew_0.03_above_the_tpu_window": (METOP_SPS, 0.03, 0.61, 0),
     "clipped_at_both_ends": (METOP_SPS, 0.0, -21.3, 0),
     "clipped_ext_at_odd_8_bytes": (METOP_SPS, 0.008, -21.3, 1),
 }
 
 
-@pytest.mark.parametrize("case", list(TILING))
-def test_k2_tiling_mirror_matches_plain_and_jax(rng, case):
-    sps, skew, start, a0 = TILING[case]
+@pytest.mark.parametrize("case", list(LAYOUT))
+def test_k2_layout_mirror_matches_plain_and_jax(rng, case):
+    sps, skew, start, a0 = LAYOUT[case]
     start, omega = np.float32(start), np.float32(sps * (1 + skew))
     n = 1 << 13
     x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)
          ).astype(np.complex64)
     ext = np.concatenate([np.zeros(7, np.complex64), x])
-    if start < 0:            # clipped: the last symbols lie past ext too
+    clipped = start < -resample.NTAPS / 2
+    if clipped:
         cap = int((n + 40 - start) / omega)
     else:
         cap = int(n / (sps * 1.01)) - 8
-    assert cap % resample.TILE, "out_cap must not be a multiple of the tile"
+    assert cap % CTA, "out_cap must not be a multiple of the CTA"
     bank = mm_interpolator_bank()
-    got, n_global = _k2_tiled(ext, start, omega, bank, cap, sps * 1.02, a0)
-    if case == "omega_above_sps_max":     # every full tile; the last is short
-        assert n_global >= cap // resample.TILE, n_global
-    else:
-        assert n_global == 0, n_global
+    got, narrow = _k2_layout(ext, start, omega, bank, cap, a0)
+    if clipped:          # the loads one by one at both ends are exercised
+        assert narrow > 0
 
     plain = resample_arith_grid_plain(
         torch.from_numpy(ext), torch.tensor(start), torch.tensor(omega),
@@ -193,34 +182,7 @@ def test_k2_tiling_mirror_matches_plain_and_jax(rng, case):
                                      bank, n)
     valid = tff._valid_mask(torch.from_numpy(pos), 8, n).numpy()
     np.testing.assert_array_equal(valid, np.asarray(rvalid))
-    if start < 0:
+    if clipped:
         assert not valid[0] and not valid[-1]
     assert valid.sum() > 0.9 * cap
     assert np.abs(got[valid] - np.asarray(ref)[valid]).max() < 1e-5
-
-
-@pytest.mark.parametrize("sps_max", [0.5, METOP_SPS * 1.02, 1e9])
-def test_k2_cpu_accepts_and_ignores_sps_max(rng, sps_max):
-    ext = (rng.standard_normal(1031) + 1j * rng.standard_normal(1031)
-           ).astype(np.complex64)
-    args = (torch.from_numpy(ext), torch.tensor(np.float32(0.4)),
-            torch.tensor(np.float32(METOP_SPS)),
-            torch.as_tensor(mm_interpolator_bank()))
-    before = resample_arith_grid.launches
-    got = resample_arith_grid(*args, out_cap=390, sps_max=sps_max)
-    assert torch.equal(got, resample_arith_grid_plain(*args, out_cap=390))
-    assert resample_arith_grid.launches == before    # the CPU runs no kernel
-
-
-@pytest.mark.parametrize("sps_max", [METOP_SPS * 1.02, METEOR_SPS * 1.02,
-                                     float("inf")])
-def test_k2_window_holds_a_tile_within_shared_memory(sps_max):
-    w = resample.window_samples(sps_max)
-    assert w % 2 == 0 and w <= resample.MAX_WINDOW
-    assert resample.NFILT * resample.NTAPS * 4 + 8 * w <= 48 * 1024
-    if np.isfinite(sps_max):
-        # a tile's span at omega = sps_max, its taps, and the pair alignment
-        need = (resample.TILE - 1) * sps_max + resample.NTAPS + 2
-        assert need <= w < need + 8
-    else:
-        assert w == resample.MAX_WINDOW

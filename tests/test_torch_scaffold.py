@@ -119,7 +119,7 @@ def test_wrappers_raise_on_cuda_without_fallback(monkeypatch):
         resample.resample_arith_grid(
             _CudaLike((4096,), torch.complex64),
             _CudaLike((), torch.float32), _CudaLike((), torch.float32),
-            _CudaLike((128, 8), torch.float32), out_cap=100, sps_max=2.6)
+            _CudaLike((128, 8), torch.float32), out_cap=100)
     for e in (e1, e2):
         assert not isinstance(e.value, FellBack), e.value
     assert viterbi.viterbi_re.launches == 0
@@ -154,6 +154,42 @@ def test_kernel_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(_build.KernelBuildError):
         _build.load("viterbi_re")
+
+
+def test_kernel_launch_path(monkeypatch):
+    """The launch helper the wrappers share passes the device's current
+    stream last, makes the device current only when it is not, and raises
+    on a nonzero cudaError_t."""
+    from types import SimpleNamespace
+    from satdump_tpu_torch.ops.cuda import _build
+    entered = []
+
+    class Device:
+        def __init__(self, index):
+            entered.append(index)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    calls = []
+    kernel = _build.Kernel("probe_affine", [])
+    kernel._fn = lambda *args: calls.append(args) or 0
+    kernel(0, 7, 8)
+    kernel(1, 9)
+    assert calls == [(7, 8, 1000), (9, 1001)] and entered == [1]
+    kernel._fn = lambda *args: 700
+    kernel._lib = SimpleNamespace(
+        probe_affine_error_string=lambda err: b"an illegal memory access")
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        kernel(0)
 
 
 @pytest.mark.parametrize("params,what", [
