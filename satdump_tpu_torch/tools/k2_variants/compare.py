@@ -241,53 +241,60 @@ def main() -> int:
         cs.log(f"K2 {label}: max |err| vs plain {err:.3e}")
         if not err <= cs.K2_ATOL:
             raise AssertionError(f"K2 {label} differs from plain")
-    fns = {"old": lambda: old(ext, start, omega, bank, out_cap=cap),
-           "new": new}
-    k2 = {}
+    k2_fns = {"old": lambda: old(ext, start, omega, bank, out_cap=cap),
+              "new": new}
+    old_p = old_probe_wrapper(old_pr)
+    probe_fns = {}
+    for label, numel in (("(8, 128)", 8 * 128), ("2^24", 1 << 24)):
+        x = torch.arange(numel, dtype=torch.float32, device="cuda")
+        ones = torch.ones_like(x)
+        probe_fns[label] = {
+            "old": lambda x=x: old_p(x), "new": lambda x=x: affine_probe(x),
+            "torch.add": lambda x=x, ones=ones: torch.add(ones, x, alpha=2.0)}
+        for side in ("old", "new"):
+            if not torch.equal(probe_fns[label][side](), x * 2 + 1):
+                raise AssertionError(f"probe {side} differs at {label}")
+
+    # Device times first: after a burst of launches outside the profiler,
+    # the profiler has been seen to lose most of the next session's records.
+    k2 = {"old": {}, "new": {}}
     for side in ("old", "new", "new", "old"):
-        f = fns[side]
-        k2.setdefault(side, {"warm_ms": [], "cold_ms": [], "call_ms": [],
-                             "host_us": []})
         r = k2[side]
-        r["warm_ms"].append(cs.kernel_ms(f, "resample_arith_kernel", 100))
-        r["cold_ms"].append(cs.kernel_ms_cold(f, "resample_arith_kernel",
-                                              100))
-        r["call_ms"].append(cs.call_ms(f, 200))
-        r["host_us"].append(host_ns(f) / 1e3)
-        cs.log(f"K2 {side}: warm {r['warm_ms'][-1]:.5f} ms, cold "
-               f"{r['cold_ms'][-1]:.5f} ms, per call {r['call_ms'][-1]:.5f} "
-               f"ms (events), host {r['host_us'][-1]:.2f} us a call")
+        f = k2_fns[side]
+        r.setdefault("warm_ms", []).append(
+            cs.kernel_ms(f, "resample_arith_kernel", 100))
+        r.setdefault("cold_ms", []).append(
+            cs.kernel_ms_cold(f, "resample_arith_kernel", 100))
+        cs.log(f"K2 {side}: warm {r['warm_ms'][-1]:.6f} ms, cold "
+               f"{r['cold_ms'][-1]:.6f} ms")
+    probe = {}
+    for label, fns in probe_fns.items():
+        reps = 100 if label == "(8, 128)" else 20
+        r = probe[label] = {}
+        for side in ("old", "new", "torch.add", "torch.add", "new", "old"):
+            r.setdefault(side, []).append(dev_ms(fns[side], reps, False,
+                                                 skip="Fill"))
+    # then the host's side: CUDA events around single calls, host clock
+    for side in ("old", "new", "new", "old"):
+        r = k2[side]
+        r.setdefault("call_ms", []).append(cs.call_ms(k2_fns[side], 200))
+        r.setdefault("host_us", []).append(host_ns(k2_fns[side]) / 1e3)
+        cs.log(f"K2 {side}: per call {r['call_ms'][-1]:.5f} ms (events), "
+               f"host {r['host_us'][-1]:.2f} us a call")
     res["k2"] = k2
+    for label, fns in probe_fns.items():
+        r = probe[label]
+        for side in ("old", "new", "new", "old"):
+            r.setdefault(side + " call", []).append(cs.call_ms(fns[side], 100))
+        numel = 8 * 128 if label == "(8, 128)" else 1 << 24
+        r["bound_ms"] = cs.bound_ms(8 * numel, 2 * numel,
+                                    cs.H100_F32_FLOPS)[0]
+        cs.log(f"probe {label}: {json.dumps(r)}")
+    res["probe"] = probe
     parts = host_breakdown(old_k2, ext, start, omega, bank, cap)
     for k, v in parts.items():
         cs.log(f"host {k}: {v / 1e3:.3f} us a call (mean of {N_HOST})")
     res["k2_host_ns"] = parts
-
-    # the probe at (8, 128) and at 2^24, beside torch.add
-    probe = {}
-    old_p = old_probe_wrapper(old_pr)
-    for label, numel in (("(8, 128)", 8 * 128), ("2^24", 1 << 24)):
-        x = torch.arange(numel, dtype=torch.float32, device="cuda")
-        ones = torch.ones_like(x)
-        for side, f in (("old", lambda: old_p(x)),
-                        ("new", lambda: affine_probe(x))):
-            if not torch.equal(f(), x * 2 + 1):
-                raise AssertionError(f"probe {side} differs at {label}")
-        reps = 100 if numel < 1 << 20 else 20
-        fns = {"old": lambda: old_p(x), "new": lambda: affine_probe(x),
-               "torch.add": lambda: torch.add(ones, x, alpha=2.0)}
-        r = {}
-        for side in ("old", "new", "torch.add", "torch.add", "new", "old"):
-            r.setdefault(side, []).append(dev_ms(fns[side], reps, False,
-                                                 skip="Fill"))
-        for side in ("old", "new", "new", "old"):
-            r.setdefault(side + " call", []).append(cs.call_ms(fns[side],
-                                                               reps))
-        r["bound_ms"] = cs.bound_ms(8 * numel, 2 * numel,
-                                    cs.H100_F32_FLOPS)[0]
-        cs.log(f"probe {label}: {json.dumps(r)}")
-        probe[label] = r
-    res["probe"] = probe
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "k2_compare.json").write_text(json.dumps(res, indent=1))
