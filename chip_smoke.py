@@ -633,7 +633,6 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
                      "call_ms": r["call_ms"]})
-    rows[1]["cold_ms"] = k2["cold_ms"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

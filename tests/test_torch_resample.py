@@ -110,7 +110,8 @@ def _k2_layout(ext, start, omega, bank, out_cap, a0=0):
     at or before src (a0: the parity of ext's address in 8-byte units),
     shifted by one where src is odd in that layout; a symbol whose ten
     samples would leave ext reads its eight one by one. Every load is
-    checked to lie inside ext, and every 16-byte one to be aligned. Returns (symbols, symbols read one by one)."""
+    checked to lie inside ext, and every 16-byte one to be aligned.
+    Returns (symbols, symbols read one by one)."""
     f32 = np.float32
     n_ext = ext.shape[0]
     p = (f32(start) + np.arange(out_cap, dtype=f32) * f32(omega)) \
@@ -121,17 +122,12 @@ def _k2_layout(ext, start, omega, bank, out_cap, a0=0):
                      resample.NFILT - 1).astype(np.int64)
     e = src - ((src + a0) & 1)
     wide = (e >= 0) & (e + 10 <= n_ext)
-    idx = np.where(wide[:, None], e[:, None] + np.arange(10),
-                   src[:, None] + np.arange(10))   # the last two unused there
-    loaded = np.where(wide[:, None], idx, idx[:, :resample.NTAPS].max(
-        axis=1, keepdims=True))
-    assert loaded.min() >= 0 and loaded.max() < n_ext
+    first = np.where(wide, e, src)                  # first sample loaded
+    count = np.where(wide, 10, resample.NTAPS)      # samples loaded
+    assert first.min() >= 0 and (first + count).max() <= n_ext
     assert not ((e[wide] + a0) % 2).any()            # 16-byte aligned loads
-    window = ext[np.clip(idx, 0, n_ext - 1)]
-    shift = np.where(wide, src - e, 0)
-    assert set(np.unique(shift)) <= {0, 1}
-    taps = window[np.arange(out_cap)[:, None],
-                  shift[:, None] + np.arange(resample.NTAPS)]
+    idx = src[:, None] + np.arange(resample.NTAPS)  # after the select
+    taps = ext[idx]
     return (taps * bank[branch]).sum(axis=1), int((~wide).sum())
 
 
