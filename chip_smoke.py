@@ -48,6 +48,7 @@ CUDA device, or outside a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -65,10 +66,28 @@ H100_F32_FLOPS = 67e12            # float32 outside the tensor cores
 # (two flops), so operations that are not FMAs run at half the flop rate
 H100_F32_OPS = H100_F32_FLOPS / 2
 SEED = 20261016
+# host idle at each end of a profiler session: the profiler keeps only the
+# device records that fall inside its session on the host clock, and its
+# reading of the device clock jumps now and then by up to ~3 ms on an H100
+# (python3 -m satdump_tpu_torch.tools.profiler_window), so a session of a
+# few short launches could lose every record
+PROFILE_PAD_S = 0.25
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def profiled():
+    """A torch.profiler session of host and device activity, with
+    PROFILE_PAD_S of host idle at each end of the work it traces."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        time.sleep(PROFILE_PAD_S)
 
 
 def call_ms(fn, reps: int) -> float:
@@ -97,17 +116,15 @@ def kernel_ms(fn, kernel: str, reps: int) -> float:
     torch.profiler's device trace."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     ev = [e for e in prof.events()
           if e.device_type == DeviceType.CUDA and kernel in e.name]
-    # the profiler has been seen to drop a record now and then
+    # a median over most of the launches will do; fewer means a lost trace
     if not 0.9 * reps <= len(ev) <= reps:
         raise AssertionError(f"profiler saw {len(ev)} launches of {kernel}, "
                              f"expected {reps}")
@@ -154,11 +171,9 @@ def device_ms(fn, reps: int) -> float:
     PyTorch call whose kernels' names are not known in advance)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -548,7 +563,6 @@ def phase_profile(src: Path, work: Path, top: int = 8):
     profiled wall, and with it the idle share, is above the timed one."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from satdump_tpu_torch.pipeline.runner import run_pipeline
     fname, pipe_id, _, _ = METOP
     for label, start, stop in (("psk_demod", "baseband", "soft"),
@@ -564,8 +578,7 @@ def phase_profile(src: Path, work: Path, top: int = 8):
             return out, time.perf_counter() - t0
 
         out, wall = once("timed")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             _, pwall = once("profiled")
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy = _union_us((e.time_range.start, e.time_range.end)
