@@ -27,20 +27,35 @@ Phases (any failure raises and the script exits non-zero):
     at n_ext 8 / out_cap 1 and at skew 0.03 (beyond the 2 % the TPU
     kernel's window allows); the same numbers, the device time both with
     ext warm in L2 and after a 64 MB write;
- 5. 12-CADU passes of MetOp AHRPT (6 Msps, sps 18/7) and METEOR-M2 LRPT
-    (280 ksps, sps 35/9) through the port on the card and on the CPU: the
-    .cadu files must be byte-identical and equal to the sent CADUs;
- 6. the main path: ~2^23 samples (~1.4 s) of MetOp AHRPT at 6 Msps through
-    the port's run_pipeline on the card with MetOp.json's psk_demod and
-    metop_ahrpt_decoder steps; every CADU must be one that was sent, at
-    most 2 may be missing, and every kernel of the path must have
-    launched;
- 7. where the main path's time goes: each of its two steps run again on
-    the same input, once timed and once under torch.profiler, giving the
-    device busy time, idle share, launches, copies and the top device
-    kernels and host operators;
- 8. one JSON line describing each kernel, then the card's line and the
-    result line.
+ 5. a 12-CADU pass of MetOp AHRPT (6 Msps, sps 18/7) to CADU, and a
+    METEOR-M2 LRPT pass (280 ksps, sps 35/9) carrying two strips of MSU-MR
+    channels 1-3 to products, through the port on the card and on the CPU:
+    the .cadu files must be byte-identical and equal to the sent CADUs, the
+    MSU-MR channel images identical, the 321_false_color composite written
+    on both;
+ 6. the main path: ~2^23 samples (~1.4 s) of MetOp AHRPT at 6 Msps,
+    carrying AVHRR/3 and MHS packets, through the port's run_pipeline on
+    the card: baseband -> CADU (psk_demod, metop_ahrpt_decoder), timed as
+    before, then CADU -> products (metop_instruments and the products
+    processor), timed on its own. Every CADU must be one that was sent,
+    the AVHRR and MHS channels must equal the lines sent, every autogen
+    composite of avhrr_3 and mhs must be written, and every kernel of the
+    path must have launched;
+ 7. where the main path's time goes: its psk_demod and decoder steps run
+    again on the same input, once timed and once under torch.profiler,
+    giving the device busy time, idle share, launches, copies and the top
+    device kernels and host operators;
+ 8. products at full width: a 5-minute MetOp pass (1,800 AVHRR/3 lines of
+    2048 px and 112 MHS lines) from the cadu level: metop_instruments once,
+    then the products processor on the card and on the CPU, whose
+    composites must be pixel-identical, once more on the card under
+    torch.profiler, and the processor and metop_instruments once more each
+    under cProfile for their host time by function;
+ 9. METEOR MSU-MR's dequantize + IDCT at a full pass's block count
+    (1,600 lines x 1568 px x 3 channels = 117,600 blocks): the card against
+    the CPU, at most 1 LSB apart, and its device time;
+ 10. one JSON line describing each kernel, then the card's line and the
+    result line. No kernel of the port lies on the products level.
 
 Imports nothing of JAX and nothing of the satdump_tpu package. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no result.
@@ -443,16 +458,24 @@ def phase_k2(rng):
 
 # (pipeline file, pipeline id, samples/symbol as up/down, user parameters)
 METOP = ("MetOp.json", "metop_ahrpt", (18, 7), {})
-METEOR = ("Meteor-M.json", "meteor_m2_lrpt", (35, 9), {"samplerate": 280e3})
+# m2x_mode: the MSU-MR day from the packets, not from the wall clock
+METEOR = ("Meteor-M.json", "meteor_m2_lrpt", (35, 9),
+          {"samplerate": 280e3, "m2x_mode": True})
+# the main path's pass: 26 AVHRR lines and 8 MHS lines between 4 idle
+# frames make 399 CADUs, ~2^23 samples at sps 18/7 as in PRs 1-3
+MAIN_AVHRR_LINES, MAIN_MHS_LINES, MAIN_IDLE = 26, 8, 2
+# products at full width: 5 minutes of AVHRR/3 (6 lines/s) and MHS
+FULL_AVHRR_LINES, FULL_MHS_LINES = 1800, 112
+METOP_PRODUCTS = {"AVHRR": "avhrr_3", "MHS": "mhs"}
+IDCT_BLOCKS = (1600 // 8) * (1568 // 8) * 3
 
 
-def _pass(rng, n_cadus: int, work: Path, sps):
-    """`n_cadus` random CADUs as QPSK downlink baseband at sps up/down
+def _pass(rng, cadus: np.ndarray, work: Path, sps):
+    """`cadus` as QPSK downlink baseband at sps up/down
     (sim.ccsds_qpsk_baseband: SNR 18 dB, carrier offset and phase) written
     to work/pass.cf32; returns (cadus, path, samples)."""
     from satdump_tpu_torch import sim
     from satdump_tpu_torch.io import write_baseband
-    cadus = sim.make_cadus(n_cadus, rng)
     bb = sim.ccsds_qpsk_baseband(cadus, rng, sps)
     work.mkdir(parents=True, exist_ok=True)
     path = work / "pass.cf32"
@@ -482,18 +505,41 @@ def _check_cadus(out: str, cadus: np.ndarray, label: str) -> np.ndarray:
     return got
 
 
+def autogen_composites(products: dict) -> list:
+    """{product dir: instrument} -> the composite files that the
+    instrument cfgs' autogen presets must give (the processor logs and
+    skips a preset that fails, so a missing file is the sign of one)."""
+    from satdump_tpu_torch.products.processor import load_instrument_cfg
+    out = [f"{d}/{inst}_{name}.png" for d, inst in products.items()
+           for name, preset in load_instrument_cfg(inst)["presets"].items()
+           if preset.get("autogen")]
+    if not out:
+        raise AssertionError(f"no autogen preset for {products}")
+    return out
+
+
+def _same_images(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b)
+
+
 def phase_small_pass(rng, work: Path):
-    """12-CADU passes of each configuration through the port on the card
-    and on the CPU."""
+    """A 12-CADU MetOp pass to CADU and a METEOR pass of MSU-MR imagery to
+    products, each through the port on the card and on the CPU."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image.io import load_img
     from satdump_tpu_torch.pipeline.runner import run_pipeline
-    for fname, pipe_id, sps, params in (METOP, METEOR):
-        cadus, path, n = _pass(rng, 12, work / pipe_id, sps)
+    from satdump_tpu_torch.products.product import load_product
+    meteor_cadus, truth = sim.msumr_lrpt_cadus(rng, 2)
+    for (fname, pipe_id, sps, params), cadus, stop in (
+            (METOP, sim.make_cadus(12, rng), "cadu"),
+            (METEOR, meteor_cadus, "products")):
+        cadus, path, n = _pass(rng, cadus, work / pipe_id, sps)
         outs = {}
         for dev in ("cuda", "cpu"):
-            outs[dev] = run_pipeline(_pipeline(fname, pipe_id), str(path),
-                                     str(work / pipe_id / dev),
-                                     user_params=dict(params,
-                                                      torch_device=dev))
+            run_pipeline(_pipeline(fname, pipe_id, stop=stop), str(path),
+                         str(work / pipe_id / dev),
+                         user_params=dict(params, torch_device=dev))
+            outs[dev] = str(work / pipe_id / dev / f"{pipe_id}.cadu")
         got = {d: _check_cadus(o, cadus, f"{pipe_id} small pass ({d}, "
                                          f"{n} samples)")
                for d, o in outs.items()}
@@ -506,33 +552,88 @@ def phase_small_pass(rng, work: Path):
         log(f"{pipe_id} small pass: .cadu byte-identical cuda vs cpu; "
             f".soft max |diff| {int(dsoft.max())} LSB, mean "
             f"{float(dsoft.mean()):.4f}")
+    prods = {d: load_product(str(work / METEOR[1] / d / "MSU-MR"))
+             for d in ("cuda", "cpu")}
+    for ch in sorted(truth):
+        imgs = [prods[d].get_channel(str(ch)).image for d in ("cuda", "cpu")]
+        err = float(np.abs((imgs[0] >> 8).astype(int) - truth[ch]).mean())
+        log(f"MSU-MR channel {ch} {imgs[0].shape}: identical on cuda and "
+            f"cpu: {_same_images(*imgs)}; mean |error| against the image "
+            f"sent {err:.3f} LSB (JPEG at QF 80)")
+        if not _same_images(*imgs) or err > 8.0:
+            raise AssertionError(f"MSU-MR channel {ch} differs between "
+                                 f"devices or from the image sent ({err})")
+    for c in autogen_composites({"MSU-MR": "msu_mr"}):
+        comp = [load_img(work / METEOR[1] / d / c) for d in ("cuda", "cpu")]
+        log(f"{c} {comp[0].shape} written on cuda and cpu, identical: "
+            f"{_same_images(*comp)}")
+        if not _same_images(*comp):
+            raise AssertionError(f"{c} differs between devices")
+
+
+def _check_avhrr_mhs(out_dir: Path, truth: dict, label: str) -> None:
+    """The AVHRR/3 and MHS products in out_dir hold the lines sent, bit for
+    bit (AVHRR slot 3 is channel 3a on 3a lines, 3b on the others), and
+    every autogen composite of avhrr_3 and mhs is there."""
+    from satdump_tpu_torch.products.product import load_product
+    av = load_product(str(out_dir / "AVHRR"))
+    sent, ch3a = truth["avhrr"], truth["ch3a"]
+    ok = all(np.array_equal(av.get_channel(n).image >> 6, sent[:, :, s])
+             for n, s in (("1", 0), ("2", 1), ("4", 3), ("5", 4)))
+    ok &= np.array_equal(av.get_channel("3a").image[ch3a] >> 6,
+                         sent[ch3a, :, 2])
+    ok &= np.array_equal(av.get_channel("3b").image[~ch3a] >> 6,
+                         sent[~ch3a, :, 2])
+    mhs = load_product(str(out_dir / "MHS"))
+    ok &= all(np.array_equal(mhs.get_channel(str(c + 1)).image,
+                             truth["mhs"][:, :, c]) for c in range(5))
+    want = autogen_composites(METOP_PRODUCTS)
+    missing = [c for c in want if not (out_dir / c).exists()]
+    log(f"{label}: AVHRR {av.get_channel('1').image.shape} x 6 and MHS "
+        f"{mhs.get_channel('1').image.shape} x 5 equal to the lines sent: "
+        f"{ok}; autogen composites {len(want) - len(missing)} of "
+        f"{len(want)}")
+    if not ok or missing:
+        raise AssertionError(f"{label}: products differ from the lines sent "
+                             f"or composites missing {missing}")
 
 
 def phase_main(rng, work: Path):
-    """The main path; returns the kernels' launches and the input file."""
+    """The main path, baseband to products; returns the kernels' launches
+    and the input file."""
     import torch
+    from satdump_tpu_torch import sim
     from satdump_tpu_torch.ops.cuda.probe import affine_probe
     from satdump_tpu_torch.ops.cuda.resample import resample_arith_grid
     from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
     from satdump_tpu_torch.pipeline.runner import run_pipeline
     fname, pipe_id, (up, down), _ = METOP
-    n_cadus = int((1 << 23) / (8192 * up / down))
-    cadus, path, n = _pass(rng, n_cadus, work / "main", (up, down))
-    pipe = _pipeline(fname, pipe_id)
+    data, truth = sim.metop_instrument_cadus(rng, MAIN_AVHRR_LINES,
+                                             MAIN_MHS_LINES)
+    idle = sim.idle_cadus(MAIN_IDLE)
+    cadus, path, n = _pass(rng, np.concatenate([idle, data, idle]),
+                           work / "main", (up, down))
+    out_dir = work / "main" / "out"
     path_kernels = (viterbi_re, resample_arith_grid)
     kernels = path_kernels + (affine_probe,)      # the probe is on no path
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    out = run_pipeline(pipe, str(path), str(work / "main" / "out"))
+    out = run_pipeline(_pipeline(fname, pipe_id), str(path), str(out_dir))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    run_pipeline(_pipeline(fname, pipe_id, "cadu", "products"), out,
+                 str(out_dir), start_level="cadu")
+    torch.cuda.synchronize()
+    pwall = time.perf_counter() - t1
     launches = {k.__name__: k.launches for k in kernels}
     _check_cadus(out, cadus, f"main path ({n} samples)")
     log(f"main path: wall {wall:.3f} s, baseband->CADU "
         f"{n / wall / 1e6:.3f} Msamp/s on {torch.cuda.get_device_name(0)}; "
-        f"launches {launches}")
+        f"CADU->products {pwall:.3f} s; launches {launches}")
+    _check_avhrr_mhs(out_dir, truth, "main path products")
     for k in path_kernels:
         if launches[k.__name__] <= 0:
             raise AssertionError(f"main path never launched {k.__name__}")
@@ -580,32 +681,164 @@ def phase_profile(src: Path, work: Path, top: int = 8):
         out, wall = once("timed")
         with profiled() as prof:
             _, pwall = once("profiled")
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy = _union_us((e.time_range.start, e.time_range.end)
-                         for e in dev) / 1e3
-        by_name: dict = {}
-        for e in dev:
-            d = by_name.setdefault(e.name, [0, 0.0])
-            d[0] += 1
-            d[1] += e.time_range.elapsed_us() / 1e3
-        host = {a.key: a for a in prof.key_averages()}
-        launches = sum(host[k].count for k in ("cudaLaunchKernel",
-                                                 "cuLaunchKernel")
-                       if k in host)
-        copies = sum(a.count for k, a in host.items()
-                     if k.startswith("cudaMemcpy"))
-        log(f"profile {label}: wall {wall * 1e3:.1f} ms, profiled "
-            f"{pwall * 1e3:.1f} ms, device busy {busy:.2f} ms, idle share "
-            f"{1 - busy / (pwall * 1e3):.3f}, {launches} kernel launches, "
-            f"{copies} cudaMemcpy* calls")
-        for name, (c, ms) in sorted(by_name.items(),
-                                    key=lambda kv: -kv[1][1])[:top]:
-            log(f"   dev  {ms:9.3f} ms  x{c:<6d} {name[:80]}")
-        for a in sorted(host.values(),
-                        key=lambda a: -a.self_cpu_time_total)[:top]:
-            log(f"   host {a.self_cpu_time_total / 1e3:9.3f} ms  "
-                f"x{a.count:<6d} {a.key[:80]}")
+        report_profile(f"profile {label}", prof, wall, pwall, top)
         src = Path(out)
+
+
+def report_profile(label: str, prof, wall: float, pwall: float,
+                   top: int = 8) -> dict:
+    """Log the device busy time (the union of kernel and copy intervals),
+    the idle share of the profiled wall, launches, copies and the top
+    device kernels and host operators of a profiled run."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise AssertionError(f"{label}: the profiler saw no device work")
+    busy = _union_us((e.time_range.start, e.time_range.end)
+                     for e in dev) / 1e3
+    by_name: dict = {}
+    for e in dev:
+        d = by_name.setdefault(e.name, [0, 0.0])
+        d[0] += 1
+        d[1] += e.time_range.elapsed_us() / 1e3
+    host = {a.key: a for a in prof.key_averages()}
+    launches = sum(host[k].count for k in ("cudaLaunchKernel",
+                                             "cuLaunchKernel")
+                   if k in host)
+    copies = sum(a.count for k, a in host.items()
+                 if k.startswith("cudaMemcpy"))
+    idle = 1 - busy / (pwall * 1e3)
+    log(f"{label}: wall {wall * 1e3:.1f} ms, profiled "
+        f"{pwall * 1e3:.1f} ms, device busy {busy:.2f} ms, idle share "
+        f"{idle:.3f}, {launches} kernel launches, "
+        f"{copies} cudaMemcpy* calls")
+    for name, (c, ms) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:top]:
+        log(f"   dev  {ms:9.3f} ms  x{c:<6d} {name[:80]}")
+    for a in sorted(host.values(),
+                    key=lambda a: -a.self_cpu_time_total)[:top]:
+        log(f"   host {a.self_cpu_time_total / 1e3:9.3f} ms  "
+            f"x{a.count:<6d} {a.key[:80]}")
+    return {"busy_ms": busy, "idle_share": idle}
+
+
+def host_profile(label: str, fn, top: int = 6) -> None:
+    """Run fn() under cProfile and log the functions with the most time of
+    their own (a second run, apart from the timed one: cProfile slows
+    Python code)."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t = time.perf_counter()
+    prof.runcall(fn)
+    wall = time.perf_counter() - t
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:top]
+    log(f"{label}: {wall:.3f} s under cProfile; most time of their own:")
+    for (file, line, name), (_, calls, own, _, _) in rows:
+        log(f"   host {own:8.3f} s  x{calls:<6d} {name} "
+            f"({Path(file).name}:{line})")
+
+
+def phase_products(rng, work: Path) -> None:
+    """Products at full width from the cadu level: metop_instruments once,
+    then the processor on the card, on the CPU (composites must be
+    pixel-identical) and on the card under torch.profiler, each on its own
+    copy of the product directories (the processor skips presets it has
+    already rendered in a directory)."""
+    import torch
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image.io import load_img
+    from satdump_tpu_torch.models.metop import MetOpInstrumentsDecoderModule
+    from satdump_tpu_torch.products.processor import process_path
+    t0 = time.perf_counter()
+    cadus, truth = sim.metop_instrument_cadus(rng, FULL_AVHRR_LINES,
+                                              FULL_MHS_LINES)
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "full.cadu"
+    cadus.tofile(path)
+    t_sim = time.perf_counter() - t0
+    base = work / "cuda"
+    t1 = time.perf_counter()
+    mod = MetOpInstrumentsDecoderModule(str(path), str(base / "metop_ahrpt"),
+                                        {})
+    mod.process()
+    t_instr = time.perf_counter() - t1
+    nbytes = sum(f.stat().st_size for f in (base / "AVHRR").glob("*.png"))
+    log(f"products at full width: {len(cadus)} CADUs "
+        f"({path.stat().st_size / 1e6:.1f} MB, made in {t_sim:.2f} s); "
+        f"metop_instruments (host) {t_instr:.3f} s: {mod.stats['avhrr_lines']} "
+        f"AVHRR lines, {mod.stats['mhs_lines']} MHS lines, AVHRR PNGs "
+        f"{nbytes / 1e6:.1f} MB")
+    for d in ("cpu", "profiled", "hostprof"):
+        shutil.copytree(base, work / d)
+    walls = {}
+    for d in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        written = process_path(str(work / d / "dataset.json"),
+                               device=d)
+        torch.cuda.synchronize()
+        walls[d] = time.perf_counter() - t
+        log(f"products processor on {d}: {walls[d]:.3f} s, "
+            f"{len(written)} composites")
+    _check_avhrr_mhs(base, truth, "products at full width")
+    same = {c: _same_images(load_img(base / c), load_img(work / "cpu" / c))
+            for c in autogen_composites(METOP_PRODUCTS)}
+    log(f"products at full width: composites identical on cuda and cpu: "
+        f"{same}")
+    if not all(same.values()):
+        raise AssertionError(f"full-width composites differ: {same}")
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t = time.perf_counter()
+        process_path(str(work / "profiled" / "dataset.json"), device="cuda")
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t
+    report_profile("profile products processor (cuda)", prof,
+                   walls["cuda"], pwall)
+
+    def processor():
+        process_path(str(work / "hostprof" / "dataset.json"), device="cuda")
+        torch.cuda.synchronize()
+    host_profile("host profile products processor (cuda)", processor)
+    host_profile("host profile metop_instruments",
+                 MetOpInstrumentsDecoderModule(
+                     str(path), str(work / "again" / "metop_ahrpt"), {}
+                 ).process)
+    log(f"products at full width: phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_idct(rng) -> None:
+    """METEOR MSU-MR's dequantize + IDCT on 117,600 blocks: the card
+    against the CPU, at most 1 LSB apart."""
+    import torch
+    from satdump_tpu_torch.image import jpeg
+    n = IDCT_BLOCKS
+    # quantized coefficients falling off with zig-zag index, as a coded
+    # image's are, each block with its own quality factor's table
+    scale = 40.0 / (1.0 + np.arange(64))
+    zz = np.round(rng.laplace(0, 1, (n, 64)) * scale).astype(np.int32)
+    q = np.stack([jpeg.quantization_table(float(f))
+                  for f in rng.integers(50, 96, n)])
+    log(f"IDCT: TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"float32 matmul precision {torch.get_float32_matmul_precision()}")
+    got = jpeg.dequantize_idct(zz, q, device="cuda")
+    ref = jpeg.dequantize_idct(zz, q, device="cpu")
+    d = np.abs(got.astype(np.int16) - ref)
+    log(f"IDCT {n} blocks: card against CPU max |diff| {int(d.max())} LSB, "
+        f"{int((d > 0).sum())} of {d.size} pixels differ "
+        f"({(d > 0).mean():.2e}); tolerance 1 LSB")
+    if d.max() > 1:
+        raise AssertionError(f"IDCT card and CPU differ by {d.max()} LSB")
+    call = lambda: jpeg.dequantize_idct(zz, q, device="cuda")  # noqa: E731
+    dev_ms = device_ms(call, 5)
+    t = time.perf_counter()
+    for _ in range(5):
+        call()
+    log(f"IDCT {n} blocks: device {dev_ms:.3f} ms a call (profiler, copies "
+        f"included), {(time.perf_counter() - t) / 5 * 1e3:.1f} ms a call "
+        f"on the host clock")
 
 
 def main() -> int:
@@ -629,6 +862,8 @@ def main() -> int:
         phase_small_pass(rng, work)
         launches, main_input = phase_main(rng, work)
         phase_profile(main_input, work / "profile")
+        phase_products(rng, work / "full")
+        phase_idct(rng)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     rows = []

@@ -3,6 +3,7 @@
 The same data-level contract as the JAX package beside it:
 
     baseband (IQ) -> soft (int8 soft symbols) -> cadu (FEC-decoded frames)
+        -> products (instrument images, dataset.json, composites)
 
 Tensor code is plain PyTorch; the two hot kernels of the main path (the
 register-exchange Viterbi and the arithmetic-grid polyphase resampler) are
@@ -17,8 +18,12 @@ Subpackages mirror satdump_tpu's layout:
   core      config / logging / registry / events
   io        baseband file formats
   ops       DSP + FEC ops (plain torch) and the CUDA kernel wrappers
+  ccsds     Space Packet demux (host)
+  models    instrument modules: MetOp AHRPT, METEOR MSU-MR LRPT
+  products  products, calibrators, the products processor
+  image     PNG codec, composite expressions, post ops, MSU-MR's IDCT
   pipeline  JSON pipeline engine + the ported processing modules
-  utils     device selection, state conversion
+  utils     device selection, state conversion, bit repacking, CBOR
 """
 
 __version__ = "0.1.0"

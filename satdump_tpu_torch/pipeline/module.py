@@ -78,5 +78,6 @@ def register_all_modules() -> None:
         return
     _modules_registered = True
     import satdump_tpu_torch.pipeline.modules  # noqa: F401  (self-registers)
+    import satdump_tpu_torch.models  # noqa: F401
     event_bus.fire_event(RegisterModulesEvent(module_registry))
     logger.debug(f"{len(list(module_registry))} processing modules registered")

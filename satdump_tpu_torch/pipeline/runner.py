@@ -4,9 +4,9 @@ Runs a pipeline from a given data level: seeks to the level, instantiates
 each step's module, runs them file -> file (each emitted level file is a
 durable checkpoint / golden artifact), then fires the done event. The
 reference's special-cased 2-module thread fusion is unnecessary here — each
-module already processes in large batched blocks. (The reference's
-products auto-processing after a dataset.json is not in the port yet: no
-ported module writes one.)
+module already processes in large batched blocks. When the last module
+wrote a dataset.json, the products processor renders its composites on the
+pipeline's `torch_device`.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from satdump_tpu_torch.core.exceptions import PipelineError
 from satdump_tpu_torch.core.log import logger
 from satdump_tpu_torch.pipeline.module import module_registry, register_all_modules
 from satdump_tpu_torch.pipeline.pipeline import Pipeline
+from satdump_tpu_torch.utils.device import is_device_fault
 
 
 def run_pipeline(pipeline: Pipeline, input_file: str, output_dir: str,
@@ -64,6 +65,23 @@ def run_pipeline(pipeline: Pipeline, input_file: str, output_dir: str,
         if mod.d_output_file:
             cur_input = mod.d_output_file
             last_output = mod.d_output_file
+
+    # auto-process products when the last module wrote a dataset (ref
+    # pipeline_run.cpp:172-207: Pipeline::run appends the products processor
+    # whenever dataset.json appears) — composites come out of the single
+    # `pipeline` invocation, no separate `process` command needed
+    dataset = out_dir / "dataset.json"
+    if dataset.exists():
+        from satdump_tpu_torch.products.processor import process_path
+        try:
+            written = process_path(str(dataset), device=user_params.get(
+                "torch_device", "cuda"))
+            logger.info(f"[{pipeline.id}] products processor: "
+                        f"{len(written)} composites")
+        except Exception as e:  # never fail the pipeline on compositing
+            if is_device_fault(e):
+                raise
+            logger.error(f"[{pipeline.id}] products processing failed: {e}")
 
     event_bus.fire_event(PipelineDoneProcessingEvent(pipeline.id, str(out_dir)))
     return last_output

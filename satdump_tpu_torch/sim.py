@@ -168,3 +168,235 @@ class ChannelModel:
         noise = (self.rng.standard_normal(len(x))
                  + 1j * self.rng.standard_normal(len(x))) * np.sqrt(noise_pow / 2)
         return ((y + noise) * self.gain + self.dc).astype(np.complex64)
+
+
+# ---------------------------------------------------------------------------
+# Test signals that carry instrument data: CCSDS packets muxed into VCDUs,
+# RS(255,223)x4-encoded CADUs that the decoders give back byte for byte.
+# ---------------------------------------------------------------------------
+
+METOP_B_SCID = 11
+AVHRR_LINE_MS = 1000 / 6          # AVHRR/3: 6 lines a second
+MHS_LINE_MS = 8000 / 3            # MHS: one scan every 8/3 s
+
+
+def _cds_header(day: int, ms: int, us: int = 0) -> bytes:
+    """CCSDS day-segmented time: 16-bit days, 32-bit ms of day, 16-bit µs."""
+    return bytes([day >> 8, day & 0xFF, (ms >> 24) & 0xFF, (ms >> 16) & 0xFF,
+                  (ms >> 8) & 0xFF, ms & 0xFF, us >> 8, us & 0xFF])
+
+
+def vcid_frames(packets, vcid: int, scid: int) -> np.ndarray:
+    """Packets -> (n, 896) AOS transfer frames behind the ASM: VCDU header
+    (6), insert zone (2), M-PDU header (2) and an 882-byte data zone, the
+    layout of MetOp AHRPT and METEOR LRPT."""
+    from satdump_tpu_torch.ccsds.mux import mux_packets
+    zones = mux_packets(packets, mpdu_data_size=882)
+    out = np.zeros((len(zones), 896), np.uint8)
+    out[:, 0:4] = [0x1A, 0xCF, 0xFC, 0x1D]
+    out[:, 4] = (1 << 6) | ((scid >> 2) & 0b111111)
+    out[:, 5] = ((scid & 0b11) << 6) | (vcid & 0b111111)
+    i = np.arange(len(zones))
+    out[:, 6], out[:, 7], out[:, 8] = i >> 16 & 0xFF, i >> 8 & 0xFF, i & 0xFF
+    for k, (fhp, data) in enumerate(zones):
+        out[k, 12] = (fhp >> 8) & 0b111
+        out[k, 13] = fhp & 0xFF
+        out[k, 14:] = np.frombuffer(data, np.uint8)
+    return out
+
+
+def idle_cadus(n: int, scid: int = METOP_B_SCID) -> np.ndarray:
+    """n RS-encoded idle frames (VCID 63, no packet header, zero fill), as
+    a downlink sends between and around its data frames."""
+    frames = np.zeros((n, 896), np.uint8)
+    frames[:, 0:4] = [0x1A, 0xCF, 0xFC, 0x1D]
+    frames[:, 4] = (1 << 6) | ((scid >> 2) & 0b111111)
+    frames[:, 5] = ((scid & 0b11) << 6) | 63
+    frames[:, 12:14] = [0x07, 0xFE]          # first header pointer 2046
+    return rs_encode_frames(frames)
+
+
+def rs_encode_frames(frames: np.ndarray) -> np.ndarray:
+    """(n, 896) frames -> (n, 1024) CADUs: the 892 bytes after the ASM
+    become four interleaved RS(255,223) codewords (dual basis), as
+    `make_cadus` encodes them."""
+    rs = ReedSolomon(k=223)
+    payload = rs.encode_interleaved(frames[:, 4:], ccsds_dual=True, depth=4)
+    return np.concatenate([frames[:, :4], payload], axis=1)
+
+
+def _interleave(streams) -> np.ndarray:
+    """Merge per-VCID CADU streams in time order, each spread evenly."""
+    keys = np.concatenate([(np.arange(len(s)) + 0.5) / len(s)
+                           for s in streams if len(s)])
+    allc = np.concatenate([s for s in streams if len(s)])
+    return allc[np.argsort(keys, kind="stable")]
+
+
+def avhrr_scene(rng: np.random.Generator, lines: int, width: int = 2048
+                ) -> np.ndarray:
+    """(lines, width, 5) 10-bit AVHRR/3 counts: a smooth field per channel
+    plus noise."""
+    y = np.arange(lines)[:, None, None] / 97.0
+    x = np.arange(width)[None, :, None] / 211.0
+    c = np.arange(5)[None, None, :]
+    field = 0.5 + 0.25 * np.sin(x + 1.3 * c) * np.cos(y - 0.7 * c)
+    noise = rng.normal(0.0, 0.05, (lines, width, 5))
+    return np.clip((field + noise) * 1023, 0, 1023).astype(np.uint16)
+
+
+def metop_instrument_cadus(rng: np.random.Generator, avhrr_lines: int,
+                           mhs_lines: int):
+    """MetOp-B AHRPT CADUs carrying AVHRR/3 (APIDs 103/104 alternating,
+    VCID 9) and MHS (APID 34, VCID 12) packets, laid out as
+    tests/test_metop.py builds them (CDS time, the AVHRR image zone at
+    10-bit word 55, MHS FOVs at SCI byte 49) and RS-encoded. Returns
+    (cadus (n, 1024) uint8, truth) with truth = {"avhrr": (lines, 2048, 5)
+    10-bit counts, "ch3a": (lines,) bool, "mhs": (lines, 90, 5) uint16}."""
+    from satdump_tpu_torch.ccsds import CCSDSHeader, CCSDSPacket
+    from satdump_tpu_torch.utils.repack import pack_nbits_to_bytes
+    avhrr = avhrr_scene(rng, avhrr_lines)
+    ch3a = np.arange(avhrr_lines) % 2 == 0
+    packets = []
+    for lo in range(0, avhrr_lines, 256):
+        blk = avhrr[lo: lo + 256]
+        words = np.zeros((len(blk), 10355), np.uint16)
+        words[:, 55: 55 + 2048 * 5] = blk.reshape(len(blk), -1)
+        body = pack_nbits_to_bytes(words, 10)[:, :12944]
+        for j, b in enumerate(body):
+            i = lo + j
+            payload = bytearray(_cds_header(20000, int(i * AVHRR_LINE_MS))
+                                + bytes(6) + b.tobytes())
+            payload += bytes(12960 - len(payload))
+            packets.append(CCSDSPacket(
+                header=CCSDSHeader(apid=103 if ch3a[i] else 104,
+                                   packet_sequence_count=i & 0x3FFF),
+                payload=payload))
+    mhs = rng.integers(0, 65536, (mhs_lines, 90, 5)).astype(np.uint16)
+    mpk = []
+    for i, line in enumerate(mhs):
+        sci = np.zeros(1286, np.uint8)
+        fovs = np.zeros((90, 12), np.uint8)
+        fovs[:, 2:12:2] = line >> 8
+        fovs[:, 3:12:2] = line & 0xFF
+        sci[49: 49 + 90 * 12] = fovs.reshape(-1)
+        payload = bytearray(_cds_header(20000, int(i * MHS_LINE_MS))
+                            + bytes(6) + sci.tobytes() + b"\x00\x00")
+        mpk.append(CCSDSPacket(header=CCSDSHeader(
+            apid=34, packet_sequence_count=i & 0x3FFF), payload=payload))
+    frames = _interleave([vcid_frames(packets, 9, METOP_B_SCID),
+                          vcid_frames(mpk, 12, METOP_B_SCID)])
+    return rs_encode_frames(frames), {"avhrr": avhrr, "ch3a": ch3a,
+                                      "mhs": mhs}
+
+
+# -- baseline JPEG entropy encoder (T.81), for MSU-MR test segments ---------
+
+def _huffman_codes(bits, vals):
+    codes, code, i = {}, 0, 0
+    for length in range(1, len(bits) + 1):
+        for _ in range(bits[length - 1]):
+            codes[vals[i]] = (length, code)
+            i += 1
+            code += 1
+        code <<= 1
+    return codes
+
+
+def _category(v: int) -> int:
+    return 0 if v == 0 else int(abs(v)).bit_length()
+
+
+def jpeg_encode_blocks(coeffs_zz: np.ndarray) -> bytes:
+    """(N, 64) zig-zag quantized coefficients -> baseline entropy bitstream
+    with the T.81 Annex K luminance tables, padded with 1 bits."""
+    from satdump_tpu_torch.image import jpeg
+    dc = _huffman_codes(jpeg.DC_BITS, jpeg.DC_VALS)
+    ac = _huffman_codes(jpeg.AC_BITS, jpeg.AC_VALS)
+    out = []
+
+    def put(value, length):
+        out.extend((value >> i) & 1 for i in range(length - 1, -1, -1))
+
+    def put_coeff(v, length):
+        if length:
+            put(v + (1 << length) - 1 if v < 0 else v, length)
+
+    last_dc = 0
+    for blk in coeffs_zz:
+        diff = int(blk[0]) - last_dc
+        last_dc = int(blk[0])
+        cat = _category(diff)
+        put(dc[cat][1], dc[cat][0])
+        put_coeff(diff, cat)
+        k = 1
+        for idx in np.nonzero(blk[1:])[0]:
+            pos = int(idx) + 1
+            run = pos - k
+            while run >= 16:
+                put(ac[0xF0][1], ac[0xF0][0])
+                run -= 16
+            v = int(blk[pos])
+            size = _category(v)
+            put(ac[(run << 4) | size][1], ac[(run << 4) | size][0])
+            put_coeff(v, size)
+            k = pos + 1
+        if k < 64:
+            put(ac[0x00][1], ac[0x00][0])
+    out.extend([1] * ((-len(out)) % 8))
+    return np.packbits(np.array(out, np.uint8)).tobytes()
+
+
+def jpeg_quantize_forward(pixels: np.ndarray, qf: float) -> np.ndarray:
+    """(N, 8, 8) uint8 -> (N, 64) zig-zag quantized DCT coefficients."""
+    from satdump_tpu_torch.image import jpeg
+    C = jpeg._dct_basis().astype(np.float64)
+    dct = np.einsum("ik,nkl,jl->nij", C, pixels.astype(np.float64) - 128.0, C)
+    nat = np.round(dct.reshape(-1, 64) / jpeg.quantization_table(qf))
+    zz = np.zeros(nat.shape, np.int32)
+    zz[:, jpeg.ZIGZAG] = nat
+    return zz
+
+
+def msumr_lrpt_cadus(rng: np.random.Generator, strips: int,
+                     channels=(1, 2, 3), qf: int = 80):
+    """Test-signal generator: METEOR-M LRPT CADUs carrying MSU-MR imagery.
+    Each 8-line strip of each channel is 14 segments (APID 63 + channel,
+    VCID 5) of 14 JPEG-coded 8x8 blocks, sent in the 43-packet loop (14
+    segments a channel for three channels, then a telemetry packet on APID
+    70); the packet sequence count runs over the loop. Segment headers carry
+    a CDS time (as M2-x sends it), the MCU number and the quality factor
+    `qf`, as tests/test_meteor.py builds them. Returns (cadus (n, 1024)
+    uint8, truth {channel: (strips * 8, 1568) uint8 image sent})."""
+    from satdump_tpu_torch.ccsds import CCSDSHeader, CCSDSPacket
+    h, w = strips * 8, 14 * 112
+    y = np.arange(h)[:, None] / 9.0
+    x = np.arange(w)[None, :] / 37.0
+    truth = {}
+    for ch in channels:
+        field = 128 + 70 * np.sin(x + ch) * np.cos(y - ch)
+        truth[ch] = np.clip(field + rng.normal(0, 6, (h, w)), 0, 255
+                            ).astype(np.uint8)
+    packets, seq = [], 0
+    for s in range(strips):
+        for slot in range(3):
+            ch = slot + 1
+            for seg in range(14):
+                if ch in truth:
+                    strip = truth[ch][s * 8:(s + 1) * 8,
+                                      seg * 112:(seg + 1) * 112]
+                    mcus = np.ascontiguousarray(
+                        strip.reshape(8, 14, 8).transpose(1, 0, 2))
+                    hdr = _cds_header(0, s * 1600 + slot * 200) + bytes(
+                        [seg * 14, 0x00, 0x00, 0xFF, 0xF0, qf])
+                    body = jpeg_encode_blocks(jpeg_quantize_forward(mcus, qf))
+                    packets.append(CCSDSPacket(
+                        header=CCSDSHeader(apid=63 + ch,
+                                           packet_sequence_count=seq),
+                        payload=bytearray(hdr + body)))
+                seq = (seq + 1) & 0x3FFF
+        packets.append(CCSDSPacket(                       # telemetry
+            header=CCSDSHeader(apid=70, packet_sequence_count=seq),
+            payload=bytearray(_cds_header(0, s * 1600) + bytes(40))))
+        seq = (seq + 1) & 0x3FFF
+    return rs_encode_frames(vcid_frames(packets, 5, 0)), truth

@@ -28,6 +28,27 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def div(x: torch.Tensor, v: float) -> torch.Tensor:
+    """x / v, correctly rounded on every device. (PyTorch's CUDA kernel
+    multiplies by the reciprocal when the divisor is a Python number, which
+    can differ from the division in the last bit; a tensor divisor divides.)
+    """
+    return x / torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
 def to_numpy(t: torch.Tensor):
     """Tensor -> host numpy array (synchronizes with the card)."""
     return t.detach().cpu().numpy()
+
+
+def is_device_fault(e: BaseException) -> bool:
+    """Whether `e` is a fault of the card (a CUDA error, an out-of-memory,
+    an asynchronous kernel fault) rather than of the work's input. Code
+    that logs and skips a failing item, as the reference's products
+    processor does, raises these instead."""
+    if isinstance(e, torch.cuda.OutOfMemoryError):
+        return True
+    if isinstance(e, RuntimeError) and ("CUDA" in str(e)
+                                        or "cuda" in type(e).__name__.lower()):
+        return True
+    return isinstance(e, getattr(torch, "AcceleratorError", ()))

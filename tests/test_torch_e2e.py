@@ -14,6 +14,7 @@ with K1's plain version. Tolerances, and why:
   mean |difference| below 0.25 LSB.
 """
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -116,16 +117,113 @@ def test_meteor_m2x_lrpt_decoder_nrzm_matches_jax(tmp_path):
     assert all(g.tobytes() in sent for g in got)
 
 
-def test_cli_pipeline_stops_at_unported_products(metop_12, tmp_path):
+@pytest.fixture(scope="module")
+def metop_instruments_pass(tmp_path_factory):
+    """MetOp-B CADUs carrying 2 AVHRR/3 and 2 MHS lines (33 CADUs) and
+    their MetOp AHRPT baseband (.cf32), as `metop_12`."""
+    rng = np.random.default_rng(6)
+    cadus, truth = sim.metop_instrument_cadus(rng, 2, 2)
+    src = tmp_path_factory.mktemp("metop_instr") / "metop.cf32"
+    write_baseband(src, "cf32",
+                   sim.ccsds_qpsk_baseband(cadus, rng, sim.METOP_SPS))
+    return cadus, truth, src
+
+
+def test_cli_pipeline_baseband_to_products(metop_instruments_pass, tmp_path):
     """`pipeline metop_ahrpt baseband` with `--torch_device cpu` writes the
-    .soft and .cadu levels, then stops with the registry's unknown-module
-    error at the products step, whose module is not ported yet. (A 128 Ki
-    `buffer_size` keeps the CPU's plain Viterbi to 65 lanes a chunk.)"""
-    cadus, src = metop_12
+    .soft, the .cadu, the product directories, dataset.json and the
+    autogen composites in one call. The AVHRR channels are the lines sent;
+    products, dataset.json and composites equal the JAX package's from the
+    same .cadu. (A 128 Ki `buffer_size` keeps the CPU's plain Viterbi to 65
+    lanes a chunk.)"""
+    from satdump_tpu.models.metop import MetOpInstrumentsDecoderModule
+    from satdump_tpu.products.processor import process_path
+    from satdump_tpu_torch.products.product import load_product
+    cadus, truth, src = metop_instruments_pass
     out = tmp_path / "cli"
-    with pytest.raises(SatdumpError, match="unknown module 'metop_instruments'"):
-        cli.main(["pipeline", "metop_ahrpt", "baseband", str(src), str(out),
-                  "--torch_device", "cpu", "--buffer_size", "131072"])
+    assert cli.main(["pipeline", "metop_ahrpt", "baseband", str(src),
+                     str(out), "--torch_device", "cpu",
+                     "--buffer_size", "131072"]) == 0
     got = np.fromfile(out / "metop_ahrpt.cadu", np.uint8).reshape(-1, 1024)
     np.testing.assert_array_equal(got, cadus)
-    assert (out / "metop_ahrpt.soft").stat().st_size > 12 * 8192 * 2
+    assert (out / "metop_ahrpt.soft").stat().st_size > len(cadus) * 8192 * 2
+    avhrr = load_product(str(out / "AVHRR"))
+    for slot, name in enumerate(("1", "2")):
+        assert np.array_equal(avhrr.get_channel(name).image >> 6,
+                              truth["avhrr"][:, :, slot])
+
+    ref = tmp_path / "jax"
+    ref.mkdir()
+    MetOpInstrumentsDecoderModule(str(out / "metop_ahrpt.cadu"),
+                                  str(ref / "metop_ahrpt"), {}).process()
+    written = process_path(str(ref / "dataset.json"))
+    assert (out / "dataset.json").read_text() == \
+        (ref / "dataset.json").read_text()
+    _assert_products_and_composites_match(out, ref, written, {
+        "AVHRR": ("avhrr_3", ["221", "321", "ch4_thermal"]),
+        "MHS": ("mhs", ["221"])})
+
+
+def _assert_products_and_composites_match(out, ref, written, products):
+    """Each product's product.json and channel PNGs, and the composites,
+    equal the JAX package's; products = {dir: (instrument, composites)}."""
+    from PIL import Image
+    from satdump_tpu_torch.image.io import load_img
+    for prod, (inst, _) in products.items():
+        meta = json.loads((out / prod / "product.json").read_text())
+        assert meta == json.loads((ref / prod / "product.json").read_text())
+        for img in meta["contents"]["images"]:
+            assert np.array_equal(
+                load_img(out / prod / img["file"]),
+                np.asarray(Image.open(ref / prod / img["file"])))
+    names = sorted(str(Path(f).relative_to(ref)) for f in written)
+    assert names == sorted(f"{prod}/{inst}_{c}.png" for prod, (inst, cs)
+                           in products.items() for c in cs)
+    for rel in names:
+        assert np.array_equal(load_img(out / rel),
+                              np.asarray(Image.open(ref / rel))), rel
+
+
+def test_meteor_m2_lrpt_baseband_to_products(tmp_path):
+    """`meteor_m2_lrpt` at 280 ksps (sps 35/9) on CADUs carrying two
+    8-line strips of MSU-MR channels 1-3, through the port's run_pipeline
+    on the CPU to products (with `m2x_mode` true, so that no wall-clock day
+    enters the timestamps): the MSU-MR product, dataset.json and the
+    321_false_color composite equal the JAX package's from the same
+    .cadu."""
+    from satdump_tpu.models.meteor import MeteorMSUMRLRPTModule
+    from satdump_tpu.products.processor import process_path
+    rng = np.random.default_rng(9)
+    cadus, _ = sim.msumr_lrpt_cadus(rng, 2)
+    src = tmp_path / "meteor.cf32"
+    write_baseband(src, "cf32",
+                   sim.ccsds_qpsk_baseband(cadus, rng, sim.METEOR_SPS))
+    out = tmp_path / "torch"
+    trun(tparse(METEOR)["meteor_m2_lrpt"], str(src), str(out),
+         user_params={"samplerate": 280e3, "m2x_mode": True,
+                      "torch_device": "cpu"})
+    got = np.fromfile(out / "meteor_m2_lrpt.cadu", np.uint8).reshape(-1, 1024)
+    np.testing.assert_array_equal(got, cadus)
+    ref = tmp_path / "jax"
+    ref.mkdir()
+    MeteorMSUMRLRPTModule(str(out / "meteor_m2_lrpt.cadu"),
+                          str(ref / "meteor_m2_lrpt"),
+                          {"m2x_mode": True, "satellite": "METEOR-M2"}
+                          ).process()
+    written = process_path(str(ref / "dataset.json"))
+    assert (out / "dataset.json").read_text() == \
+        (ref / "dataset.json").read_text()
+    _assert_products_and_composites_match(out, ref, written, {
+        "MSU-MR": ("msu_mr", ["321_false_color"])})
+
+
+def test_cli_pipeline_stops_at_unported_products(metop_12, tmp_path):
+    """A pipeline whose products module is not ported yet (JPSS HRD's
+    `jpss_instruments`) stops there with the registry's unknown-module
+    error."""
+    cadus, src = metop_12
+    cadu = tmp_path / "in.cadu"
+    cadus.tofile(cadu)
+    with pytest.raises(SatdumpError, match="unknown module 'jpss_instruments'"):
+        cli.main(["pipeline", "npp_hrd", "cadu", str(cadu),
+                  str(tmp_path / "out"), "--torch_device", "cpu"])

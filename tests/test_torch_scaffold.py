@@ -1,6 +1,7 @@
-"""satdump_tpu_torch stands alone: it imports neither JAX nor the satdump_tpu
-package, and its CUDA kernel wrappers never fall back to the plain version
-when asked for the card."""
+"""satdump_tpu_torch stands alone: it imports neither JAX, nor the
+satdump_tpu package, nor Pillow (the machine with the card has none), and its
+CUDA kernel wrappers never fall back to the plain version when asked for the
+card."""
 
 import os
 import re
@@ -35,6 +36,24 @@ SLICE_MODULES = [
     "satdump_tpu_torch.pipeline.modules",
     "satdump_tpu_torch.utils.device",
     "satdump_tpu_torch.utils.state",
+    "satdump_tpu_torch.utils.repack",
+    "satdump_tpu_torch.utils.cbor",
+    "satdump_tpu_torch.ccsds",
+    "satdump_tpu_torch.ccsds.mux",
+    "satdump_tpu_torch.geo.raytrace",
+    "satdump_tpu_torch.image",
+    "satdump_tpu_torch.image.png",
+    "satdump_tpu_torch.image.qoi",
+    "satdump_tpu_torch.image.geometry",
+    "satdump_tpu_torch.image.expression",
+    "satdump_tpu_torch.image.processing",
+    "satdump_tpu_torch.image.jpeg",
+    "satdump_tpu_torch.products",
+    "satdump_tpu_torch.products.processor",
+    "satdump_tpu_torch.models",
+    "satdump_tpu_torch.models.metop",
+    "satdump_tpu_torch.models.meteor",
+    "satdump_tpu_torch.models.noaa_tip",
 ]
 
 
@@ -45,8 +64,8 @@ def test_import_pulls_in_no_jax():
         "    importlib.import_module(m)\n"
         "from satdump_tpu_torch.pipeline.module import register_all_modules\n"
         "register_all_modules()\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'PIL')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'PIL.'))\n"
         "             or m == 'satdump_tpu' or m.startswith('satdump_tpu.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -57,7 +76,7 @@ def test_import_pulls_in_no_jax():
 
 
 _IMPORT_RE = re.compile(
-    r"^\s*(?:from|import)\s+(jax|jaxlib|satdump_tpu)(?:\.|\s|$)", re.M)
+    r"^\s*(?:from|import)\s+(jax|jaxlib|satdump_tpu|PIL)(?:\.|\s|$)", re.M)
 
 
 def test_sources_name_no_jax_or_reference_package():
@@ -78,9 +97,10 @@ def test_port_registry_holds_only_ported_modules():
     register_all_modules()
     assert sorted(module_registry) == [
         "ccsds_conv_concat_decoder", "meteor_lrpt_decoder",
-        "metop_ahrpt_decoder", "psk_demod"]
-    with pytest.raises(SatdumpError, match="unknown module 'metop_instruments'"):
-        module_registry.get("metop_instruments")
+        "meteor_msumr_lrpt", "metop_ahrpt_decoder", "metop_instruments",
+        "psk_demod"]
+    with pytest.raises(SatdumpError, match="unknown module 'jpss_instruments'"):
+        module_registry.get("jpss_instruments")
 
 
 class _CudaLike:
@@ -144,6 +164,20 @@ def test_cuda_request_raises_here():
         PSKDemodModule("x.cf32", "out", {
             "samplerate": 6e6, "symbolrate": 2333333, "constellation": "qpsk",
             "rrc_alpha": 0.5, "pll_bw": 0.003})
+    # the products level: processor, composites, CLI `process`, MSU-MR
+    from satdump_tpu_torch import cli
+    from satdump_tpu_torch.image.expression import generate_composite
+    from satdump_tpu_torch.models.meteor import MSUMRReader
+    from satdump_tpu_torch.products.image_product import ImageProduct
+    from satdump_tpu_torch.products.processor import process_path
+    with pytest.raises(SatdumpError, match="cuda"):
+        process_path("no-such-dataset.json")
+    with pytest.raises(SatdumpError, match="cuda"):
+        cli.main(["process", "no-such-dataset.json"])
+    with pytest.raises(SatdumpError, match="cuda"):
+        generate_composite(ImageProduct(), "ch1")
+    with pytest.raises(SatdumpError, match="cuda"):
+        MSUMRReader(True)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):
