@@ -48,9 +48,8 @@ Phases (any failure raises and the script exits non-zero):
  8. products at full width: a 5-minute MetOp pass (1,800 AVHRR/3 lines of
     2048 px and 112 MHS lines) from the cadu level: metop_instruments once,
     then the products processor on the card and on the CPU, whose
-    composites must be pixel-identical, once more on the card under
-    torch.profiler, and the processor and metop_instruments once more each
-    under cProfile for their host time by function;
+    composites must be pixel-identical, and once more on the card under
+    torch.profiler;
  9. METEOR MSU-MR's dequantize + IDCT at a full pass's block count
     (1,600 lines x 1568 px x 3 channels = 117,600 blocks): the card against
     the CPU, at most 1 LSB apart, and its device time;
@@ -722,24 +721,6 @@ def report_profile(label: str, prof, wall: float, pwall: float,
     return {"busy_ms": busy, "idle_share": idle}
 
 
-def host_profile(label: str, fn, top: int = 6) -> None:
-    """Run fn() under cProfile and log the functions with the most time of
-    their own (a second run, apart from the timed one: cProfile slows
-    Python code)."""
-    import cProfile
-    import pstats
-    prof = cProfile.Profile()
-    t = time.perf_counter()
-    prof.runcall(fn)
-    wall = time.perf_counter() - t
-    rows = sorted(pstats.Stats(prof).stats.items(),
-                  key=lambda kv: -kv[1][2])[:top]
-    log(f"{label}: {wall:.3f} s under cProfile; most time of their own:")
-    for (file, line, name), (_, calls, own, _, _) in rows:
-        log(f"   host {own:8.3f} s  x{calls:<6d} {name} "
-            f"({Path(file).name}:{line})")
-
-
 def phase_products(rng, work: Path) -> None:
     """Products at full width from the cadu level: metop_instruments once,
     then the processor on the card, on the CPU (composites must be
@@ -770,7 +751,7 @@ def phase_products(rng, work: Path) -> None:
         f"metop_instruments (host) {t_instr:.3f} s: {mod.stats['avhrr_lines']} "
         f"AVHRR lines, {mod.stats['mhs_lines']} MHS lines, AVHRR PNGs "
         f"{nbytes / 1e6:.1f} MB")
-    for d in ("cpu", "profiled", "hostprof"):
+    for d in ("cpu", "profiled"):
         shutil.copytree(base, work / d)
     walls = {}
     for d in ("cuda", "cpu"):
@@ -797,15 +778,6 @@ def phase_products(rng, work: Path) -> None:
         pwall = time.perf_counter() - t
     report_profile("profile products processor (cuda)", prof,
                    walls["cuda"], pwall)
-
-    def processor():
-        process_path(str(work / "hostprof" / "dataset.json"), device="cuda")
-        torch.cuda.synchronize()
-    host_profile("host profile products processor (cuda)", processor)
-    host_profile("host profile metop_instruments",
-                 MetOpInstrumentsDecoderModule(
-                     str(path), str(work / "again" / "metop_ahrpt"), {}
-                 ).process)
     log(f"products at full width: phase {time.perf_counter() - t0:.1f} s")
 
 

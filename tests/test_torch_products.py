@@ -265,3 +265,21 @@ def test_processor_skips_cached_presets_and_raises_device_faults(
     monkeypatch.setattr(proc, "generate_composite", fault)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpip(p, str(tmp_path / "c"), device="cpu")
+
+
+@pytest.mark.parametrize("nbits", [10, 12])
+def test_repack_matches_jax(nbits):
+    """The port's byte-group repack and its inverse equal the reference's
+    bit-matrix ones on random bytes whose length is no whole group."""
+    from satdump_tpu.utils import repack as jrepack
+    from satdump_tpu_torch.utils import repack as trepack
+    rng = np.random.default_rng(nbits)
+    data = rng.integers(0, 256, (3, 4, 1237), dtype=np.uint8)
+    got = getattr(trepack, f"repack_{nbits}bit")(data)
+    want = getattr(jrepack, f"repack_{nbits}bit")(data)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    words = rng.integers(0, 1 << nbits, (5, 1001)).astype(np.uint16)
+    assert np.array_equal(trepack.pack_nbits_to_bytes(words, nbits),
+                          jrepack.pack_nbits_to_bytes(words, nbits))
+    with pytest.raises(ValueError, match="group"):
+        trepack.pack_nbits_to_bytes(words, 11)
