@@ -10,10 +10,11 @@ parent commit, unpack it with `git archive` under satdump_tpu_torch/_build/).
 CADUS is what the ~2^23-sample MetOp AHRPT pass carries: `random` (398
 random CADUs, as before the products level) or `instrument` (AVHRR/3 and
 MHS packets between idle frames, 399 CADUs, as chip_smoke.py's phase 6 now
-sends). WARM is what the process runs on the card before it: `smoke` (the
-tree's own chip_smoke.py phase 5), `cadu` (12-CADU MetOp and METEOR passes
-to CADU on the card and the CPU, the phase 5 of a tree without products)
-or `none`. Each run builds the tree's kernels, warms, then times the pass
+sends). WARM is what the process runs on the card before it: `prefix` (the
+tree's own chip_smoke.py phases 2-5, all that chip_smoke.py runs before
+phase 6), `smoke` (its phase 5 alone), `cadu` (12-CADU MetOp and METEOR
+passes to CADU on the card and the CPU, the phase 5 of a tree without
+products) or `none`. Each run builds the tree's kernels, warms, then times the pass
 `--reps` times (host clock around run_pipeline, ended by a synchronize),
 with the process's CPU time (user + system) over the same span. It prints
 a table of all runs and the card's name and power limit. Needs one GPU.
@@ -45,7 +46,11 @@ def child(tree: Path, cadus_kind: str, warm: str, reps: int) -> dict:
     c.phase_build()
     rng = np.random.default_rng(c.SEED)
     work = tree / "satdump_tpu_torch" / "_build" / "ab"
-    if warm == "smoke":
+    if warm == "prefix":
+        c.phase_probe(rng)
+        c.phase_k1(rng)
+        c.phase_k2(rng)
+    if warm in ("prefix", "smoke"):
         c.phase_small_pass(rng, work / "small")
     elif warm == "cadu":
         for fname, pipe_id, sps, params in (c.METOP, c.METEOR):
@@ -99,7 +104,7 @@ def main() -> int:
     for run in a.runs:
         tree, kind, warm = run.split(",")
         assert kind in ("random", "instrument") and \
-            warm in ("smoke", "cadu", "none"), run
+            warm in ("prefix", "smoke", "cadu", "none"), run
         t = time.perf_counter()
         p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                             "--child", "--reps", str(a.reps), run],
