@@ -24,9 +24,11 @@ Phases (any failure raises and the script exits non-zero):
     version's time and the bound;
  4. K2 (arithmetic-grid resampler) against its plain version at 2^18- and
     2^21-sample blocks, sps 18/7, skew 0 and 0.005, at METEOR's sps 35/9,
-    at n_ext 8 / out_cap 1 and at skew 0.03 (beyond the 2 % the TPU
-    kernel's window allows); the same numbers, the device time both with
-    ext warm in L2 and after a 64 MB write;
+    at n_ext 8 / out_cap 1, at skew 0.03 (beyond the 2 % the TPU kernel's
+    window allows) and at the resampled pipelines' default blocks
+    (METEOR-M2 and METEOR-M2-x at 1 Msps, GOES HRIT at 6 Msps); the same
+    numbers, the device time both with ext warm in L2 and after a 64 MB
+    write, at the main path's block and at those three;
  5. a 12-CADU pass of MetOp AHRPT (6 Msps, sps 18/7) to CADU, and a
     METEOR-M2 LRPT pass (280 ksps, sps 35/9) carrying two strips of MSU-MR
     channels 1-3 to products, through the port on the card and on the CPU:
@@ -53,8 +55,26 @@ Phases (any failure raises and the script exits non-zero):
  9. METEOR MSU-MR's dequantize + IDCT at a full pass's block count
     (1,600 lines x 1568 px x 3 channels = 117,600 blocks): the card against
     the CPU, at most 1 LSB apart, and its device time;
- 10. one JSON line describing each kernel, then the card's line and the
-    result line. No kernel of the port lies on the products level.
+ 10. the resampled pipelines at their default rates, each pass on the card
+    (timed, with the path kernels' counts set to 0 just before it and read
+    just after: K1 and K2 must have launched) and on the CPU, whose .cadu
+    must be byte-identical to the card's and hold the CADUs sent:
+    METEOR-M2-x LRPT at 1 Msps (OQPSK, NRZ-M; one default psk_demod block
+    of 125 * 2^18 samples, 36 strips of MSU-MR imagery) and METEOR-M2 LRPT
+    at 1 Msps (2 strips), each then to products on the card and on the
+    CPU from the card's .cadu (product images and the 321_false_color
+    composite identical, channels within 8 LSB of the image sent); GOES-R
+    HRIT at 6 Msps (BPSK, NRZ-M; ~2^23 samples) to CADU, its wall against
+    the 6 Msamp/s live limit; METEOR-M2 with freq_shift, dc_block and a
+    Doppler provider; NOAA APT at 1 Msps (40 lines) to products, the
+    synced image, products and composite identical on both devices and
+    the image following the lines sent. Then psk_demod's step profile on
+    the METEOR-M2-x and GOES HRIT inputs (device busy/idle; launches, copies
+    and H2D time a block) and the device time of the input resampler and
+    of dc_block at the three pipelines' default blocks;
+ 11. one JSON line describing each kernel, then the card's line and the
+    result line. No kernel of the port lies on the products level or on
+    the FM path.
 
 Imports nothing of JAX and nothing of the satdump_tpu package. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no result.
@@ -388,7 +408,18 @@ K2_CASES = (
      None),
     ("n_ext 8, out_cap 1", 8, METOP_SPS, 0.0, 1),
     ("n=2^18 skew 0.03", (1 << 18) + 7, METOP_SPS, 0.03, None),
+    # the resampled pipelines' default blocks after the input resampler
+    # (psk_demod's block * interp / decim samples + 7 of history)
+    ("METEOR-M2 1 Msps: 7/25 of 25*2^18, sps 35/9", 1835008 + 7,
+     METEOR_SPS, 0.0, None),
+    ("METEOR-M2-x 1 Msps: 21/125 of 125*2^18, sps 7/3", 5505024 + 7,
+     7 / 3, 0.0, None),
+    ("GOES HRIT 6 Msps: 3/5 of 5*2^18, sps 3.6e6/927e3", 786432 + 7,
+     3.6e6 / 927e3, 0.0, None),
 )
+# the cases above that are timed: the main path's block, then the
+# resampled pipelines' blocks
+K2_TIMED = ("n=2^18 skew 0",) + tuple(c[0] for c in K2_CASES[-3:])
 
 
 def kernel_ms_cold(fn, kernel: str, reps: int) -> float:
@@ -431,27 +462,27 @@ def phase_k2(rng):
             raise AssertionError(f"K2 {label} differs from its plain "
                                  f"version: max |err| {err}")
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        if label == "n=2^18 skew 0":          # the main path's block
-            kern = lambda: resample_arith_grid(  # noqa: E731
-                ext, start, omega, bank, out_cap=cap)
-            res["ms"] = kernel_ms(kern, "resample_arith_kernel", 50)
-            res["cold_ms"] = kernel_ms_cold(kern, "resample_arith_kernel",
-                                            50)
-            res["call_ms"] = call_ms(kern, 50)
-            res["plain_ms"] = call_ms(lambda: resample_arith_grid_plain(
-                ext, start, omega, bank, out_cap=cap), 20)
-            nbytes = n_ext * 8 + bank.numel() * 4 + 8 + cap * 8
-            # flops: 8 complex-by-real FMAs (2 each, 2 flops each) and
-            # the position
-            ops = cap * (8 * 4 + 6)
-            res["bound_ms"], res["bound_by"] = bound_ms(nbytes, ops,
-                                                        H100_F32_FLOPS)
-            log(f"K2 times at n=2^18 (out_cap {cap}): kernel "
-                f"{res['ms']:.4f} ms warm in L2, {res['cold_ms']:.4f} ms "
-                f"after a 64 MB write (profiler), "
-                f"{res['call_ms']:.4f} ms per wrapper call (events), "
-                f"plain {res['plain_ms']:.4f} ms, bound "
-                f"{res['bound_ms']:.5f} ms ({res['bound_by']})")
+        if label not in K2_TIMED:
+            continue
+        kern = lambda: resample_arith_grid(  # noqa: E731
+            ext, start, omega, bank, out_cap=cap)
+        t = {"ms": kernel_ms(kern, "resample_arith_kernel", 50),
+             "cold_ms": kernel_ms_cold(kern, "resample_arith_kernel", 50),
+             "call_ms": call_ms(kern, 50),
+             "plain_ms": call_ms(lambda: resample_arith_grid_plain(
+                 ext, start, omega, bank, out_cap=cap), 20)}
+        nbytes = n_ext * 8 + bank.numel() * 4 + 8 + cap * 8
+        # flops: 8 complex-by-real FMAs (2 each, 2 flops each) and the
+        # position
+        ops = cap * (8 * 4 + 6)
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, ops, H100_F32_FLOPS)
+        log(f"K2 times at {label} (n_ext {n_ext}, out_cap {cap}): kernel "
+            f"{t['ms']:.4f} ms warm in L2, {t['cold_ms']:.4f} ms after a "
+            f"64 MB write (profiler), {t['call_ms']:.4f} ms per wrapper "
+            f"call (events), plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
+        if label == K2_TIMED[0]:                  # the main path's block
+            res.update(t)
     return res
 
 
@@ -707,6 +738,7 @@ def report_profile(label: str, prof, wall: float, pwall: float,
     copies = sum(a.count for k, a in host.items()
                  if k.startswith("cudaMemcpy"))
     idle = 1 - busy / (pwall * 1e3)
+    h2d = [e for e in dev if "HtoD" in e.name]
     log(f"{label}: wall {wall * 1e3:.1f} ms, profiled "
         f"{pwall * 1e3:.1f} ms, device busy {busy:.2f} ms, idle share "
         f"{idle:.3f}, {launches} kernel launches, "
@@ -718,7 +750,347 @@ def report_profile(label: str, prof, wall: float, pwall: float,
                     key=lambda a: -a.self_cpu_time_total)[:top]:
         log(f"   host {a.self_cpu_time_total / 1e3:9.3f} ms  "
             f"x{a.count:<6d} {a.key[:80]}")
-    return {"busy_ms": busy, "idle_share": idle}
+    return {"busy_ms": busy, "idle_share": idle, "launches": launches,
+            "copies": copies, "h2d": len(h2d),
+            "h2d_ms": sum(e.time_range.elapsed_us() for e in h2d) / 1e3}
+
+
+# the resampled pipelines at their default rates (phase 10). METEOR-M2-x
+# at 1 Msps: one default psk_demod block (125 * 2^18 samples) of MSU-MR
+# imagery, 36 strips (~284 CADUs, ~32 s of downlink); METEOR-M2 at 1 Msps:
+# 2 strips; GOES-R HRIT at 6 Msps: 79 CADUs (~2^23 samples); NOAA APT at
+# 1 Msps: 40 lines (20 s)
+M2X_STRIPS, M2_STRIPS, GOES_CADUS, OPTION_CADUS, APT_LINES = 36, 2, 79, 8, 40
+# user parameters of every resampled pass (a rehearsal on the CPU passes a
+# small buffer_size)
+RESAMPLED_PARAMS: dict = {}
+
+
+def _path_kernels():
+    from satdump_tpu_torch.ops.cuda.resample import resample_arith_grid
+    from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
+    return (viterbi_re, resample_arith_grid)
+
+
+def _run_counted(fn, label: str, need_kernels: bool = True):
+    """fn() on the card with every path kernel's count set to 0 just
+    before and read just after; returns (result, wall s, launches)."""
+    import torch
+    kernels = _path_kernels()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    if need_kernels and not all(launches.values()):
+        raise AssertionError(f"{label}: a kernel of the path never "
+                             f"launched: {launches}")
+    return out, wall, launches
+
+
+def _cadu_card_cpu(label, fname, pipe_id, cadus, bb, work: Path,
+                   params: dict):
+    """bb baseband -> CADU through `pipe_id` on the card (timed, launches
+    counted) and on the CPU: both .cadu files must hold the CADUs sent and
+    be byte-identical. Returns the card's .cadu path and wall."""
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "pass.cf32"
+    write_baseband(src, "cf32", bb)
+    params = dict(RESAMPLED_PARAMS, **params)
+
+    def run(dev):
+        return run_pipeline(_pipeline(fname, pipe_id), str(src),
+                            str(work / dev),
+                            user_params=dict(params, torch_device=dev))
+    out, wall, launches = _run_counted(lambda: run("cuda"), label)
+    t0 = time.perf_counter()
+    cpu_out = run("cpu")
+    cpu_wall = time.perf_counter() - t0
+    got = {d: _check_cadus(o, cadus, f"{label} ({d}, {len(bb)} samples)")
+           for d, o in (("cuda", out), ("cpu", cpu_out))}
+    if not np.array_equal(got["cuda"], got["cpu"]):
+        raise AssertionError(f"{label}: .cadu differs between cuda and cpu")
+    log(f"{label}: baseband->CADU on the card {wall:.3f} s "
+        f"({len(bb) / wall / 1e6:.3f} Msamp/s), on the CPU {cpu_wall:.3f} s;"
+        f" .cadu byte-identical cuda vs cpu; launches {launches}")
+    return out, wall
+
+
+def _products_card_cpu(label, fname, pipe_id, cadu: str, work: Path,
+                       products: dict, params: dict):
+    """The card's .cadu -> products on the card (into work/cuda, beside
+    it) and on the CPU (into work/cpu-products): every product image and
+    every autogen composite of `products` ({dir: instrument}) must be
+    identical. Returns the two product directories' parent paths."""
+    import torch
+    from satdump_tpu_torch.image.io import load_img
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    from satdump_tpu_torch.products.product import load_product
+    outs, walls = {}, {}
+    for dev, d in (("cuda", work / "cuda"), ("cpu", work / "cpu-products")):
+        t0 = time.perf_counter()
+        run_pipeline(_pipeline(fname, pipe_id, "cadu", "products"), cadu,
+                     str(d), user_params=dict(params, torch_device=dev),
+                     start_level="cadu")
+        torch.cuda.synchronize()
+        walls[dev], outs[dev] = time.perf_counter() - t0, d
+    same = True
+    for prod in products:
+        p = {dev: load_product(str(d / prod)) for dev, d in outs.items()}
+        for img in p["cuda"].images:
+            same &= _same_images(img.image,
+                                 p["cpu"].get_channel(img.channel_name).image)
+    comps = autogen_composites(products)
+    same_c = {c: _same_images(load_img(outs["cuda"] / c),
+                              load_img(outs["cpu"] / c)) for c in comps}
+    log(f"{label}: CADU->products on the card {walls['cuda']:.3f} s, on the "
+        f"CPU {walls['cpu']:.3f} s; product images identical: {same}; "
+        f"composites identical: {same_c}")
+    if not same or not all(same_c.values()):
+        raise AssertionError(f"{label}: products differ between cuda and "
+                             "cpu")
+    return outs, walls["cuda"]
+
+
+def _check_msumr(product_dir: Path, truth: dict, label: str) -> None:
+    """MSU-MR channels within 8 LSB (mean) of the image sent (JPEG at QF
+    80), as phase 5 checks them."""
+    from satdump_tpu_torch.products.product import load_product
+    prod = load_product(str(product_dir))
+    for ch in sorted(truth):
+        img = prod.get_channel(str(ch)).image
+        err = float(np.abs((img >> 8).astype(int) - truth[ch]).mean())
+        log(f"{label}: MSU-MR channel {ch} {img.shape}, mean |error| "
+            f"against the image sent {err:.3f} LSB")
+        if img.shape != truth[ch].shape or err > 8.0:
+            raise AssertionError(f"{label}: MSU-MR channel {ch} differs "
+                                 f"from the image sent ({err})")
+
+
+def _option_pass(rng, work: Path):
+    """METEOR-M2 LRPT at 1 Msps with a DC term, a carrier offset of -3 kHz
+    and a Doppler ramp of 2-6 kHz: psk_demod with dc_block, freq_shift
+    3000 and a Doppler provider, then meteor_lrpt_decoder, on the card and
+    on the CPU."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.pipeline.module import (module_registry,
+                                                   register_all_modules)
+    cadus = sim.make_cadus(OPTION_CADUS, rng)
+    bb = sim.ccsds_psk_baseband(cadus, rng, sim.METEOR_1M_SPS,
+                                freq_offset=-3e-3, dc=0.05 + 0.03j)
+    dop = np.linspace(2e3, 6e3, len(bb))
+    bb = (bb * np.exp(2j * np.pi * np.cumsum(dop) / 1e6)).astype(np.complex64)
+    dop = dop.astype(np.float32)
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "pass.cf32"
+    write_baseband(src, "cf32", bb)
+
+    def provider(pos, n):
+        d = dop[pos: pos + n]
+        return np.concatenate([d, np.full(n - len(d), dop[-1], np.float32)])
+
+    register_all_modules()
+    pipe = _pipeline("Meteor-M.json", "meteor_m2_lrpt")
+    demod_p = pipe.prepare_parameters(pipe.steps[1], dict(
+        RESAMPLED_PARAMS, freq_shift=3000.0, dc_block=True))
+    dec_p = pipe.prepare_parameters(pipe.steps[2], RESAMPLED_PARAMS)
+
+    def run(dev):
+        demod = module_registry.get("psk_demod")(
+            str(src), str(work / dev / "m"), dict(demod_p, torch_device=dev))
+        demod.doppler_provider = provider
+        (work / dev).mkdir(parents=True, exist_ok=True)
+        demod.process()
+        dec = module_registry.get("meteor_lrpt_decoder")(
+            demod.d_output_file, str(work / dev / "m"),
+            dict(dec_p, torch_device=dev))
+        dec.process()
+        return dec.d_output_file
+    out, wall, launches = _run_counted(lambda: run("cuda"),
+                                       "freq_shift + dc_block + Doppler")
+    got = {d: _check_cadus(o, cadus, f"freq_shift + dc_block + Doppler "
+                                     f"({d}, {len(bb)} samples)")
+           for d, o in (("cuda", out), ("cpu", run("cpu")))}
+    if not np.array_equal(got["cuda"], got["cpu"]):
+        raise AssertionError("option pass: .cadu differs between devices")
+    log(f"freq_shift + dc_block + Doppler (METEOR-M2 1 Msps): card "
+        f"{wall:.3f} s; .cadu byte-identical cuda vs cpu; launches "
+        f"{launches}")
+    return wall
+
+
+def _apt_pass(rng, work: Path):
+    """NOAA APT at 1 Msps, APT_LINES lines, baseband -> products on the card
+    and on the CPU: the synced image, the product channels and the
+    raw_sync composite identical; the image holds sync A at every line
+    start and follows the lines sent (tests/test_torch_sim.py's test)."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image.io import load_img
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.models.noaa_apt import SYNC_A
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    audio, lines = sim.apt_audio(APT_LINES, 50e3, rng)
+    bb = sim.fm_modulate(audio, 50e3, 1e6, 12.5e3, rng=rng)
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "pass.cf32"
+    write_baseband(src, "cf32", bb)
+
+    def run(dev):
+        return run_pipeline(_pipeline("NOAA.json", "noaa_apt",
+                                      stop="products"),
+                            str(src), str(work / dev),
+                            user_params=dict(RESAMPLED_PARAMS,
+                                             torch_device=dev))
+    _, wall, launches = _run_counted(lambda: run("cuda"), "noaa_apt",
+                                     need_kernels=False)
+    t0 = time.perf_counter()
+    run("cpu")
+    cpu_wall = time.perf_counter() - t0
+    imgs = {d: load_img(work / d / "AVHRR" / "raw_sync.png")
+            for d in ("cuda", "cpu")}
+    same = _same_images(*imgs.values())
+    for f in ("raw_unsync.png", "avhrr_apt-APT.png", "avhrr_apt-A.png",
+              "avhrr_apt-B.png", "avhrr_apt_raw_sync.png"):
+        same &= _same_images(load_img(work / "cuda" / "AVHRR" / f),
+                             load_img(work / "cpu" / "AVHRR" / f))
+    img = imgs["cuda"].astype(float)
+    body = img[1:-1]
+    pat = SYNC_A - SYNC_A.mean()
+    sync = (body[:, :len(SYNC_A)] @ pat).min()
+    data = np.abs(body[:, 500:500 + len(SYNC_A)] @ pat).max()
+    corr = min(np.corrcoef(g[100:1900], t[100:1900])[0, 1]
+               for g, t in zip(body, lines[1:-1]))
+    log(f"noaa_apt ({len(bb)} samples, {APT_LINES} lines): baseband->products"
+        f" on the card {wall:.3f} s, on the CPU {cpu_wall:.3f} s; image "
+        f"{img.shape}, identical on cuda and cpu (and its products and "
+        f"composite): {same}; sync A score min {sync:.0f} against data max "
+        f"{data:.0f}; least line correlation with the lines sent "
+        f"{corr:.3f}; launches {launches}")
+    if not same or img.shape != (APT_LINES, 2080) or sync <= 2 * data \
+            or corr <= 0.5:
+        raise AssertionError("noaa_apt: image differs between devices or "
+                             "from the lines sent")
+    return wall
+
+
+def _stage_device_ms(rng):
+    """Device time of the input resampler and of dc_block at the resampled
+    pipelines' default blocks."""
+    import torch
+    from satdump_tpu_torch.ops import firdes, resamp, stages
+    for label, block, (interp, decim) in (
+            ("METEOR-M2-x 1 Msps", 125 << 18, (21, 125)),
+            ("METEOR-M2 1 Msps", 25 << 18, (7, 25)),
+            ("GOES HRIT 6 Msps", 5 << 18, (3, 5))):
+        x = torch.from_numpy((rng.standard_normal(block) + 1j
+                              * rng.standard_normal(block)
+                              ).astype(np.complex64)).cuda()
+        bank = torch.as_tensor(firdes.polyphase_bank(
+            resamp.design_resampler_taps(interp, decim), interp)).cuda()
+        rs = resamp.rational_resampler_init(interp, device="cuda")
+        out_n = block * interp // decim
+        r_ms = device_ms(lambda: resamp.rational_resampler(
+            rs, x, bank, interp, decim, out_cap=out_n), 5)
+        dc = stages.dc_block_init(device="cuda")
+        d_ms = device_ms(lambda: stages.dc_block(dc, x), 5)
+        log(f"stages at {label}'s block ({block} samples in, {out_n} out): "
+            f"rational_resampler {r_ms:.3f} ms, dc_block {d_ms:.3f} ms of "
+            f"device time a block (profiler)")
+
+
+def phase_resampled(rng, work: Path) -> dict:
+    """The resampled pipelines at their default rates on the card against
+    the CPU, each pass with the kernels' counts set to 0 just before and
+    read just after (phase 10); then psk_demod's step profile on the
+    METEOR-M2-x and GOES HRIT inputs, and the stages' device times.
+    Returns the walls."""
+    from satdump_tpu_torch import sim
+    t_phase = time.perf_counter()
+    walls = {}
+    # METEOR-M2-x LRPT at 1 Msps (OQPSK, NRZ-M), baseband -> products
+    t0 = time.perf_counter()
+    cadus, truth = sim.msumr_lrpt_cadus(rng, M2X_STRIPS)
+    bb = sim.ccsds_psk_baseband(cadus, rng, sim.METEOR_1M_SPS, "oqpsk",
+                                nrzm=True)
+    log(f"meteor_m2x_lrpt 1 Msps: {M2X_STRIPS} strips, {len(cadus)} CADUs, "
+        f"{len(bb)} samples ({len(bb) / 1e6:.1f} s), made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    m2x = ("Meteor-M.json", "meteor_m2x_lrpt")
+    cadu, walls["m2x_cadu"] = _cadu_card_cpu(
+        "meteor_m2x_lrpt 1 Msps", *m2x, cadus, bb, work / "m2x", {})
+    m2x_src = work / "m2x" / "pass.cf32"
+    outs, walls["m2x_products"] = _products_card_cpu(
+        "meteor_m2x_lrpt 1 Msps", *m2x, cadu, work / "m2x",
+        {"MSU-MR": "msu_mr"}, RESAMPLED_PARAMS)
+    _check_msumr(outs["cuda"] / "MSU-MR", truth, "meteor_m2x_lrpt 1 Msps")
+    # METEOR-M2 LRPT at 1 Msps (QPSK), a small pass to products
+    cadus, truth = sim.msumr_lrpt_cadus(rng, M2_STRIPS)
+    bb = sim.ccsds_psk_baseband(cadus, rng, sim.METEOR_1M_SPS)
+    m2 = ("Meteor-M.json", "meteor_m2_lrpt")
+    params = {"m2x_mode": True}
+    cadu, walls["m2_cadu"] = _cadu_card_cpu(
+        "meteor_m2_lrpt 1 Msps", *m2, cadus, bb, work / "m2", params)
+    outs, walls["m2_products"] = _products_card_cpu(
+        "meteor_m2_lrpt 1 Msps", *m2, cadu, work / "m2",
+        {"MSU-MR": "msu_mr"}, dict(RESAMPLED_PARAMS, **params))
+    _check_msumr(outs["cuda"] / "MSU-MR", truth, "meteor_m2_lrpt 1 Msps")
+    # GOES-R HRIT at 6 Msps (BPSK, NRZ-M), baseband -> CADU
+    cadus = sim.make_cadus(GOES_CADUS, rng)
+    bb = sim.ccsds_psk_baseband(cadus, rng, sim.GOES_HRIT_SPS, "bpsk",
+                                nrzm=True)
+    _, walls["goes_cadu"] = _cadu_card_cpu(
+        "goes_hrit 6 Msps", "GOES.json", "goes_hrit", cadus, bb,
+        work / "goes", {})
+    goes_src = work / "goes" / "pass.cf32"
+    log(f"goes_hrit 6 Msps: {len(bb)} samples baseband->CADU in "
+        f"{walls['goes_cadu']:.3f} s = {len(bb) / walls['goes_cadu'] / 1e6:.3f}"
+        f" Msamp/s on the card (live limit 6 Msamp/s)")
+    walls["options_cadu"] = _option_pass(rng, work / "options")
+    walls["apt_products"] = _apt_pass(rng, work / "apt")
+    for label, fname, pipe_id, src in (
+            ("meteor_m2x_lrpt", *m2x, m2x_src),
+            ("goes_hrit", "GOES.json", "goes_hrit", goes_src)):
+        _profile_psk(label, fname, pipe_id, src, work / "profile" / label)
+    _stage_device_ms(rng)
+    log(f"resampled passes: phase {time.perf_counter() - t_phase:.1f} s")
+    return walls
+
+
+def _profile_psk(label, fname, pipe_id, src: Path, work: Path):
+    """psk_demod alone on `src`, once timed and once under torch.profiler:
+    device busy/idle, and per block the launches, copies and H2D time."""
+    import torch
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    pipe = _pipeline(fname, pipe_id, "baseband", "soft")
+
+    def once(tag):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_pipeline(pipe, str(src), str(work / tag),
+                     user_params=dict(RESAMPLED_PARAMS))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    wall = once("timed")
+    with profiled() as prof:
+        pwall = once("profiled")
+    r = report_profile(f"profile psk_demod {label}", prof, wall, pwall)
+    step = pipe.steps[-1]
+    from satdump_tpu_torch.pipeline.module import module_registry
+    m = module_registry.get(step.module_id)(str(src), str(work / "m"), dict(
+        pipe.prepare_parameters(step, RESAMPLED_PARAMS), torch_device="cuda"))
+    m.compute_rates()
+    block = m.choose_block_size(m.block_base)
+    nblk = -(-(src.stat().st_size // 8) // block)
+    log(f"profile psk_demod {label}: {nblk} blocks of {block} samples; a "
+        f"block: {r['launches'] / nblk:.0f} launches, {r['copies'] / nblk:.1f}"
+        f" cudaMemcpy* calls, {r['h2d'] / nblk:.1f} H2D copies of "
+        f"{r['h2d_ms'] / nblk:.3f} ms device time")
 
 
 def phase_products(rng, work: Path) -> None:
@@ -836,6 +1208,7 @@ def main() -> int:
         phase_profile(main_input, work / "profile")
         phase_products(rng, work / "full")
         phase_idct(rng)
+        walls = phase_resampled(rng, work / "resampled")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     rows = []
@@ -853,6 +1226,7 @@ def main() -> int:
                      "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
                      "call_ms": r["call_ms"]})
+    log(f"resampled walls on the card, s: {json.dumps(walls)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -20,7 +20,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from satdump_tpu_torch.utils.device import resolve_device, to_numpy
+from satdump_tpu_torch.utils.device import (full_precision_matmul,
+                                            resolve_device, to_numpy)
 
 # --- ITU-T T.81 Annex K: luminance tables (public spec constants) ----------
 
@@ -233,24 +234,8 @@ def dequantize_idct(coeffs_zz: np.ndarray, qtables: np.ndarray,
     order = torch.from_numpy(ZIGZAG).to(dev)
     b = (zz[:, order].to(torch.float32) * q).reshape(-1, 8, 8)
     C = torch.from_numpy(_dct_basis()).to(dev)
-    with _no_tf32():
+    with full_precision_matmul():
         t = torch.matmul(b.transpose(1, 2), C)          # (n, l, i)
         y = torch.matmul(t.transpose(1, 2), C)          # (n, i, j)
     y = torch.clamp(torch.round(y + 128.0), 0, 255)
     return to_numpy(y.to(torch.uint8))
-
-
-class _no_tf32:
-    """float32 matmuls at full precision for the block (TF32 would move
-    pixels by several LSB)."""
-
-    def __enter__(self):
-        self._tf32 = torch.backends.cuda.matmul.allow_tf32
-        self._prec = torch.get_float32_matmul_precision()
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
-
-    def __exit__(self, *exc):
-        torch.backends.cuda.matmul.allow_tf32 = self._tf32
-        torch.set_float32_matmul_precision(self._prec)
-        return False

@@ -1,16 +1,21 @@
 """Base demodulator plumbing (ref: src-core/pipeline/modules/demod/module_demod_base.{h,cpp})
 — port of satdump_tpu/pipeline/modules/demod/base.py.
 
-Handles baseband file input, the samples-per-symbol decision and the
-device the chain runs on (`torch_device`, default ``cuda``). Blocks have a
-fixed size so every block runs the same tensor shapes.
+Handles baseband file input, the samples-per-symbol decision (with the
+input-rate resampling when samples-per-symbol is out of the demodulator's
+range) and the device the chain runs on (`torch_device`, default
+``cuda``). Blocks have a fixed size so every block runs the same tensor
+shapes.
 """
 
 from __future__ import annotations
 
+import math
+
 from satdump_tpu_torch.core.exceptions import PipelineError
 from satdump_tpu_torch.core.log import logger
 from satdump_tpu_torch.io.baseband import BasebandReader
+from satdump_tpu_torch.ops import resamp
 from satdump_tpu_torch.pipeline.module import ProcessingModule
 from satdump_tpu_torch.utils.device import resolve_device
 
@@ -61,13 +66,18 @@ class BaseDemodModule(ProcessingModule):
                      f"final_samplerate={self.final_samplerate} final_sps={self.final_sps:.3f}")
 
     def choose_block_size(self, base: int = 1 << 18) -> int:
-        """Fixed device block size. The reference aligns it for its input
-        rational resampler, which the port does not carry yet."""
-        if self.resample or self.final_samplerate != self.d_samplerate:
-            raise PipelineError(
-                f"{self.id}: input resampling ({self.d_samplerate} -> "
-                f"{self.final_samplerate} sps) is not yet ported")
-        return base
+        """Fixed device block size; aligned so the rational resampler emits
+        a constant number of samples per block (block*interp divisible by
+        decim)."""
+        if not self.resample:
+            return base
+        interp, decim = resamp.make_rational(self.d_samplerate,
+                                             self.final_samplerate)
+        self.r_interp, self.r_decim = interp, decim
+        block = base
+        if (block * interp) % decim:
+            block *= decim // math.gcd(block, decim)
+        return block
 
     def open_input(self, block_size: int) -> BasebandReader:
         return BasebandReader(self.d_input_file, self.d_format,

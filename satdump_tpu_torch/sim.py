@@ -115,6 +115,8 @@ def qpsk_modulate_rational(symbols: np.ndarray, up: int, down: int,
 
 METOP_SPS = (18, 7)   # MetOp AHRPT: 6 Msps / 2.333 Msym/s
 METEOR_SPS = (35, 9)  # METEOR-M LRPT: 72 ksym/s recorded at 280 ksps
+METEOR_1M_SPS = (125, 9)    # METEOR-M LRPT at the pipelines' 1 Msps
+GOES_HRIT_SPS = (2000, 309)  # GOES-R HRIT: 927 ksym/s at 6 Msps
 
 
 def ccsds_qpsk_baseband(cadus: np.ndarray, rng: np.random.Generator,
@@ -125,11 +127,58 @@ def ccsds_qpsk_baseband(cadus: np.ndarray, rng: np.random.Generator,
     cycles/sample and a phase of 0.4 rad. A short idle tail after the last
     frame lets the Viterbi flush it. The channel noise seed comes from
     `rng`. Returns complex64 baseband."""
-    syms = bits_to_qpsk_symbols(encode_cadu_stream(cadus))
-    tail = bits_to_qpsk_symbols(rng.integers(0, 2, 2048).astype(np.uint8))
-    tx = qpsk_modulate_rational(np.concatenate([syms, tail]), *sps)
-    return ChannelModel(snr_db=18.0, freq_offset=1e-4, phase=0.4,
-                        seed=int(rng.integers(1 << 30))).apply(tx)
+    return ccsds_psk_baseband(cadus, rng, sps)
+
+
+def ccsds_psk_baseband(cadus: np.ndarray, rng: np.random.Generator,
+                       sps: Tuple[int, int], constellation: str = "qpsk",
+                       nrzm: bool = False, snr_db: float = 18.0,
+                       freq_offset: float = 1e-4, dc: complex = 0.0
+                       ) -> np.ndarray:
+    """Downlink of `cadus` at exactly sps = up/down samples/symbol:
+    randomize, [NRZ-M], r=1/2 encode, then BPSK (GOES HRIT: one channel
+    bit a symbol), QPSK (MetOp, METEOR-M2) or OQPSK (METEOR-M2-x: the I
+    rail half a symbol late), RRC alpha 0.5, AWGN at `snr_db`, a carrier
+    offset of `freq_offset` cycles/sample, a phase of 0.4 rad and a DC term
+    `dc` added at the receiver (a direct-conversion SDR's). A short idle
+    tail after the last frame lets the Viterbi flush it. The channel noise
+    seed comes from `rng`. Returns complex64 baseband."""
+    bits = encode_cadu_stream(cadus, nrzm=nrzm)
+    tail = rng.integers(0, 2, 2048).astype(np.uint8)
+    chan = np.concatenate([bits, tail])
+    if constellation == "bpsk":
+        tx = qpsk_modulate_rational(
+            (chan.astype(np.float32) * 2 - 1).astype(np.complex64), *sps)
+    elif constellation == "qpsk":
+        tx = qpsk_modulate_rational(bits_to_qpsk_symbols(chan), *sps)
+    elif constellation == "oqpsk":
+        tx = oqpsk_modulate_rational(bits_to_qpsk_symbols(chan), *sps)
+    else:
+        raise ValueError(f"unknown constellation {constellation}")
+    return ChannelModel(snr_db=snr_db, freq_offset=freq_offset, phase=0.4,
+                        dc=dc, seed=int(rng.integers(1 << 30))).apply(tx)
+
+
+def oqpsk_modulate_rational(symbols: np.ndarray, up: int, down: int,
+                            rrc_alpha: float = 0.5, rrc_taps: int = 31
+                            ) -> np.ndarray:
+    """OQPSK at exactly sps = up/down: the rails as a sequence of two
+    elements a symbol, the I rail in the odd (half a symbol late) and the
+    Q rail in the even ones, pulse-shaped by a polyphase upfirdn at 2*up
+    samples a symbol (so that the half-symbol offset is whole samples
+    there) and decimated by 2*down; the receiver's delay of the imaginary
+    rail realigns them."""
+    from scipy.signal import upfirdn
+    n = len(symbols)
+    seq = np.zeros(2 * n, np.complex64)
+    seq[0::2] = 1j * symbols.imag
+    seq[1::2] = symbols.real
+    taps = firdes.root_raised_cosine(1.0, 2 * up, 1.0, rrc_alpha,
+                                     (rrc_taps * up) | 1) * (2 * up)
+    y = upfirdn(taps, seq, up=up, down=2 * down)
+    delay = (len(taps) - 1) // 2 // (2 * down)
+    n_out = n * up // down
+    return y[delay: delay + n_out].astype(np.complex64)
 
 
 def oqpsk_modulate(symbols: np.ndarray, sps: float = 2.0,
@@ -144,6 +193,51 @@ def oqpsk_modulate(symbols: np.ndarray, sps: float = 2.0,
     half = int(round(sps)) // 2
     re = np.concatenate([np.zeros(half, np.float32), x.real[:-half]])
     return (re + 1j * x.imag).astype(np.complex64)
+
+
+def apt_audio(lines: int, audio_rate: float = 50_000.0,
+              rng: Optional[np.random.Generator] = None
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """NOAA APT audio, as tests/test_e2e.py synthesizes it: each line is
+    2080 words at 4160 words/s, the 39-word sync A then a pattern of bands
+    that moves from line to line (plus noise of 0.02 when `rng` is given),
+    AM-modulated (index ~0.85) on a 2400 Hz subcarrier. Returns (audio
+    float32 in [-1, 1], (lines, 2080) float32 words in [0, 1] sent)."""
+    from satdump_tpu_torch.models.noaa_apt import APT_WORD_RATE, SYNC_A
+    words_per_line = 2080
+    line = np.zeros((lines, words_per_line), np.float32)
+    line[:, :len(SYNC_A)] = SYNC_A / 255.0
+    x = np.linspace(0, 1, words_per_line - 100)
+    for i in range(lines):
+        line[i, 100:] = 0.5 + 0.45 * np.sin(2 * np.pi * (x * 3 + i / 7))
+    if rng is not None:
+        line[:, 100:] = np.clip(
+            line[:, 100:] + rng.normal(0, 0.02, line[:, 100:].shape), 0, 1)
+    words = line.reshape(-1)
+    n_audio = int(len(words) / APT_WORD_RATE * audio_rate)
+    t_idx = (np.arange(n_audio) * APT_WORD_RATE / audio_rate).astype(np.int64)
+    env = words[np.minimum(t_idx, len(words) - 1)]
+    t = np.arange(n_audio) / audio_rate
+    carrier = np.cos(2 * np.pi * 2400.0 * t)
+    return ((0.15 + 0.8 * env) * carrier).astype(np.float32), line
+
+
+def fm_modulate(audio: np.ndarray, audio_rate: float, samplerate: float,
+                deviation: float, snr_db: float = 30.0,
+                rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Audio -> complex FM baseband at `samplerate`: the audio interpolated
+    to the baseband rate (polyphase, scipy.signal.resample_poly), a phase
+    that advances 2*pi*deviation*audio/samplerate a sample, then AWGN at
+    `snr_db` (seeded from `rng`). The FM demodulators' output is
+    audio * deviation / (audio_rate / 2)."""
+    from fractions import Fraction
+    from scipy.signal import resample_poly
+    r = Fraction(samplerate / audio_rate).limit_denominator(1000)
+    a = resample_poly(audio.astype(np.float64), r.numerator, r.denominator)
+    phase = 2 * np.pi * deviation * np.cumsum(a) / samplerate
+    seed = int(rng.integers(1 << 30)) if rng is not None else 1
+    return ChannelModel(snr_db=snr_db, seed=seed).apply(
+        np.exp(1j * phase).astype(np.complex64))
 
 
 class ChannelModel:

@@ -36,6 +36,22 @@ def div(x: torch.Tensor, v: float) -> torch.Tensor:
     return x / torch.tensor(v, dtype=x.dtype, device=x.device)
 
 
+class full_precision_matmul:
+    """float32 matmuls at full precision inside the block: on the card,
+    TF32 would round their inputs to 10 mantissa bits."""
+
+    def __enter__(self):
+        self._tf32 = torch.backends.cuda.matmul.allow_tf32
+        self._prec = torch.get_float32_matmul_precision()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self._tf32
+        torch.set_float32_matmul_precision(self._prec)
+        return False
+
+
 def to_numpy(t: torch.Tensor):
     """Tensor -> host numpy array (synchronizes with the card)."""
     return t.detach().cpu().numpy()

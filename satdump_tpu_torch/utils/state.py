@@ -1,7 +1,9 @@
 """Carried stream state between numpy and the port's tensors.
 
 The reference (satdump_tpu) and the port carry the same mid-stream state:
-the feedforward demod's `FFClockState` and the CADU chain's seam carries.
+the feedforward demod's `FFClockState`, the input stages' states
+(`FreqShiftState`, `DCBlockState`, `RationalResamplerState`) and the CADU
+chain's seam carries.
 These helpers turn numpy arrays (for example `np.asarray` of the
 reference's JAX arrays) into the port's state and back, so both packages
 can be started from the same point of a stream.
@@ -15,6 +17,8 @@ import numpy as np
 import torch
 
 from satdump_tpu_torch.ops.ffsync import FFClockState
+from satdump_tpu_torch.ops.resamp import RationalResamplerState
+from satdump_tpu_torch.ops.stages import DCBlockState, FreqShiftState
 from satdump_tpu_torch.utils.device import resolve_device
 
 _FF_F32_FIELDS = ("next_pos", "last_phase", "last_f", "nco_phase", "oq_imag",
@@ -74,3 +78,35 @@ def cadu_chain_state_to_numpy(state: dict) -> dict:
         abs_base=int(state["abs_base"]),
         last_emitted=int(state["last_emitted"]),
     )
+
+
+def freq_shift_state_from_numpy(phase, device: str | torch.device | None
+                                = None) -> FreqShiftState:
+    """The NCO phase (radians; freq_shift and doppler_correct) as a
+    float32 scalar on `device`."""
+    return FreqShiftState(torch.as_tensor(np.array(phase, np.float32),
+                                          device=resolve_device(device)))
+
+
+def dc_block_state_from_numpy(acc, device: str | torch.device | None = None
+                              ) -> DCBlockState:
+    """The DC blocker's accumulator as a complex64 scalar on `device`."""
+    return DCBlockState(torch.as_tensor(np.array(acc, np.complex64),
+                                        device=resolve_device(device)))
+
+
+def rational_resampler_state_from_numpy(history, pos_num,
+                                        device: str | torch.device | None
+                                        = None) -> RationalResamplerState:
+    """The resampler's (ntaps-1,) complex64 history and its position
+    numerator (the reference's int32, held as int64) on `device`."""
+    dev = resolve_device(device)
+    return RationalResamplerState(
+        history=torch.as_tensor(np.array(history, np.complex64), device=dev),
+        pos_num=torch.as_tensor(np.array(pos_num, np.int64), device=dev))
+
+
+def stage_state_to_numpy(state) -> dict:
+    """A FreqShiftState, DCBlockState or RationalResamplerState ->
+    {field: numpy array}."""
+    return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}

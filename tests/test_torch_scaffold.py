@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,6 +25,8 @@ SLICE_MODULES = [
     "satdump_tpu_torch.io.detect",
     "satdump_tpu_torch.ops.firdes",
     "satdump_tpu_torch.ops.ffsync",
+    "satdump_tpu_torch.ops.resamp",
+    "satdump_tpu_torch.ops.stages",
     "satdump_tpu_torch.ops.cuda.viterbi",
     "satdump_tpu_torch.ops.cuda.resample",
     "satdump_tpu_torch.ops.cuda.probe",
@@ -54,6 +57,8 @@ SLICE_MODULES = [
     "satdump_tpu_torch.models.metop",
     "satdump_tpu_torch.models.meteor",
     "satdump_tpu_torch.models.noaa_tip",
+    "satdump_tpu_torch.models.noaa_apt",
+    "satdump_tpu_torch.pipeline.modules.demod.fm",
 ]
 
 
@@ -96,9 +101,10 @@ def test_port_registry_holds_only_ported_modules():
                                                    register_all_modules)
     register_all_modules()
     assert sorted(module_registry) == [
-        "ccsds_conv_concat_decoder", "meteor_lrpt_decoder",
-        "meteor_msumr_lrpt", "metop_ahrpt_decoder", "metop_instruments",
-        "psk_demod"]
+        "am_demod", "ccsds_conv_concat_decoder", "fm_demod",
+        "meteor_lrpt_decoder", "meteor_msumr_lrpt", "metop_ahrpt_decoder",
+        "metop_instruments", "noaa_apt_decoder", "noaa_apt_demod",
+        "psk_demod", "ssb_demod"]
     with pytest.raises(SatdumpError, match="unknown module 'jpss_instruments'"):
         module_registry.get("jpss_instruments")
 
@@ -178,6 +184,14 @@ def test_cuda_request_raises_here():
         generate_composite(ImageProduct(), "ch1")
     with pytest.raises(SatdumpError, match="cuda"):
         MSUMRReader(True)
+    # the FM family and the APT decoder
+    from satdump_tpu_torch.models.noaa_apt import NOAAAPTDecoderModule
+    from satdump_tpu_torch.pipeline.modules.demod.fm import FMDemodModule
+    with pytest.raises(SatdumpError, match="cuda"):
+        FMDemodModule("x.cf32", "out", {"samplerate": 1e6,
+                                        "symbolrate": 50e3})
+    with pytest.raises(SatdumpError, match="cuda"):
+        NOAAAPTDecoderModule("x.wav", "out", {})
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):
@@ -226,6 +240,40 @@ def test_kernel_launch_path(monkeypatch):
         kernel(0)
 
 
+def _psk_soft_matches_jax(params, samples, provider=None, blocks=2):
+    """psk_demod's stream_work on `blocks` consecutive blocks of `samples`
+    in the port (CPU) and the JAX package: soft streams of one length,
+    within 3 LSB, mean below 0.25 LSB (tests/test_torch_e2e.py's
+    tolerance)."""
+    from satdump_tpu.pipeline.modules.demod.psk import PSKDemodModule as JPSK
+    from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
+    mods = [PSKDemodModule("x.cf32", "out", dict(params, torch_device="cpu")),
+            JPSK("x.cf32", "out", params)]
+    softs = []
+    for m in mods:
+        m.doppler_provider = provider
+        m.stream_start()
+        b = m.block_size
+        softs.append(np.concatenate([
+            m.stream_work(samples[i * b:(i + 1) * b]) for i in range(blocks)]))
+    t, j = softs
+    assert t.shape == j.shape and len(t) > 1000
+    d = np.abs(t.astype(np.int16) - j)
+    assert d.max() <= 3 and d.mean() < 0.25, (d.max(), d.mean())
+
+
+def _qpsk(rng, up, down, n, **chan):
+    from satdump_tpu_torch import sim
+    syms = sim.bits_to_qpsk_symbols(rng.integers(0, 2, 2 * (n * down // up + 64)
+                                                 ).astype(np.uint8))
+    tx = sim.qpsk_modulate_rational(syms, up, down)[:n]
+    return sim.ChannelModel(snr_db=20.0, seed=3, **chan).apply(tx)
+
+
+BASE = {"samplerate": 6e6, "symbolrate": 2333333, "constellation": "qpsk",
+        "rrc_alpha": 0.5, "pll_bw": 0.003}
+
+
 @pytest.mark.parametrize("params,what", [
     ({"fast": False}, "fast: false"),
     ({"multichip": True}, "multichip"),
@@ -233,24 +281,33 @@ def test_kernel_launch_path(monkeypatch):
     ({"dc_block": True}, "dc_block"),
 ])
 def test_unported_psk_options_raise(params, what):
+    """`fast: false` and `multichip` still raise "not yet ported";
+    `freq_shift` and `dc_block` are ported, and psk_demod with them gives
+    the JAX package's soft symbols (MetOp's 18/7 sps, a carrier offset of
+    -1 kHz and a DC term)."""
     from satdump_tpu_torch.core.exceptions import PipelineError
     from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
-    base = {"samplerate": 6e6, "symbolrate": 2333333, "constellation": "qpsk",
-            "rrc_alpha": 0.5, "pll_bw": 0.003, "torch_device": "cpu"}
-    with pytest.raises(PipelineError, match=f"{re.escape(what)}.*not yet ported"):
-        PSKDemodModule("x.cf32", "out", dict(base, **params))
+    base = dict(BASE, torch_device="cpu")
+    if what in ("fast: false", "multichip"):
+        with pytest.raises(PipelineError,
+                           match=f"{re.escape(what)}.*not yet ported"):
+            PSKDemodModule("x.cf32", "out", dict(base, **params))
+        return
+    x = _qpsk(np.random.default_rng(8), 18, 7, 2 * 8192,
+              freq_offset=-1000 / 6e6, dc=0.05 - 0.02j)
+    _psk_soft_matches_jax(dict(BASE, buffer_size=8192, **params), x)
 
 
 def test_unported_resampling_and_doppler_raise(tmp_path):
-    from satdump_tpu_torch.core.exceptions import PipelineError
-    from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
-    base = {"samplerate": 6e6, "symbolrate": 2333333, "constellation": "qpsk",
-            "rrc_alpha": 0.5, "pll_bw": 0.003, "torch_device": "cpu"}
-    m = PSKDemodModule("x.cf32", str(tmp_path / "o"),
-                       dict(base, samplerate=20e6))       # sps 8.6 > 4
-    with pytest.raises(PipelineError, match="resampling.*not yet ported"):
-        m.stream_start()
-    m = PSKDemodModule("x.cf32", str(tmp_path / "o"), base)
-    m.doppler_provider = lambda pos, n: 0.0
-    with pytest.raises(PipelineError, match="Doppler.*not yet ported"):
-        m.stream_start()
+    """Input resampling (20 Msps: sps 8.57 > 4, resampled by 2/5 to 8 Msps)
+    and a Doppler provider (one value a sample) are ported: psk_demod with
+    them gives the JAX package's soft symbols."""
+    rng = np.random.default_rng(9)
+    x = _qpsk(rng, 60, 7, 2 * 4096 * 5)
+    _psk_soft_matches_jax(dict(BASE, samplerate=20e6, buffer_size=4096), x)
+    n = 2 * 8192
+    dop = np.linspace(1e3, 4e3, n).astype(np.float32)
+    x = _qpsk(rng, 18, 7, n) * np.exp(2j * np.pi * np.cumsum(dop) / 6e6)
+    _psk_soft_matches_jax(dict(BASE, buffer_size=8192),
+                          x.astype(np.complex64),
+                          provider=lambda pos, m: dop[pos: pos + m])
