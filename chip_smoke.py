@@ -29,6 +29,14 @@ Phases (any failure raises and the script exits non-zero):
     (METEOR-M2 and METEOR-M2-x at 1 Msps, GOES HRIT at 6 Msps); the same
     numbers, the device time both with ext warm in L2 and after a 64 MB
     write, at the main path's block and at those three;
+ 4b. the classic chain's walkers (csrc/sample_walk.cu: the AGC, the PLL,
+    the Costas loop at orders 2, 4 and 8; csrc/mm_clock.cu: M&M, complex
+    and real) against their plain versions on CPU copies of the same
+    inputs, two blocks of 2^15 samples with the state carried (an M&M inc
+    carried past a block end); each kernel's device time at a 2^18 block,
+    its cycles a sample at the card's maximum SM clock, its plain version's
+    time, and its latency bound: the same loop-carried chain run alone by
+    the source's chain-only entry, with no memory traffic in the loop;
  5. a 12-CADU pass of MetOp AHRPT (6 Msps, sps 18/7) to CADU, and a
     METEOR-M2 LRPT pass (280 ksps, sps 35/9) carrying two strips of MSU-MR
     channels 1-3 to products, through the port on the card and on the CPU:
@@ -72,7 +80,17 @@ Phases (any failure raises and the script exits non-zero):
     the METEOR-M2-x and GOES HRIT inputs (device busy/idle; launches, copies
     and H2D time a block) and the device time of the input resampler and
     of dc_block at the three pipelines' default blocks;
- 11. one JSON line describing each kernel, then the card's line and the
+ 11. the classic demod chain (pm_demod, fsk_demod, the simple PSK decoder):
+    INTEGRAL S-band at 2.096 Msps (pm_demod -> ccsds_conv_concat_decoder,
+    bpsk_90, RS(255,239) x 4; ~2^21 samples) on the card, every CADU sent
+    decoded, K1 and the four walkers launched (counts set to 0 just before
+    and read just after); NOAA HRPT's pm_demod at 3 Msps and Crew Dragon's
+    fsk_demod at 6 Msps, ~2^23 samples each to .soft, each wall against its
+    live rate and its softs against the bits sent; ELEKTRO-L GGAK (pm_demod
+    -> simple PSK), SpaceTeamSat1 9k6 (fsk_demod resampled from 140 ksps ->
+    simple PSK) and Saral (psk_demod -> conv-concat at rs_i 5) on the card
+    and on the CPU, the .cadu byte-identical and holding the CADUs sent;
+ 12. one JSON line describing each kernel, then the card's line and the
     result line. No kernel of the port lies on the products level or on
     the FM path.
 
@@ -486,6 +504,245 @@ def phase_k2(rng):
     return res
 
 
+# the classic chain's walkers (phase 4b): two blocks of WALK_BLOCK samples
+# with the state carried, held to their plain versions on CPU copies of
+# the same inputs; timed at the classic demods' default block
+WALK_BLOCK, WALK_TIMED = 1 << 15, 1 << 18
+# a walker launch takes 10-120 ms at WALK_TIMED, so CUDA events around
+# single launches time it (the wrapper's host work is microseconds), and
+# no profiler session can lose its records
+WALK_REPS = 5
+# the AGC and M&M do only float32 and correctly rounded float64 operations:
+# equal. The PLL and Costas loops form e^{-j phase} and arg() with float64
+# sin / cos / atan2, where the card's and the CPU's libm may round an ulp of
+# a double apart; about one sample in 2^28 then rounds otherwise in float32
+# and the loop carries that last-bit step on: within 1e-4
+WALK_ATOL = 1e-4
+# (label, mode: "agc" | "pll" | Costas order, loop bw, limit)
+WALK_CASES = (
+    ("agc", "agc", None, None),
+    ("pll", "pll", 0.01, 0.5),
+    ("costas order 2", 2, 0.005, 1.0),
+    ("costas order 4", 4, 0.005, 1.0),
+    ("costas order 8", 8, 0.005, 1.0),
+    ("costas order 2, freq_limit 2e-4", 2, 0.02, 2e-4),
+)
+
+
+def _walk_input(rng, n: int, sps: float = 4.5) -> np.ndarray:
+    """QPSK-like symbols held for sps samples, a carrier offset of 2e-3
+    cycles a sample, a gain of 1.7 and AWGN: what the classic chain's
+    loops lock to."""
+    k = np.arange(n)
+    sym = ((rng.integers(0, 2, int(n / sps) + 2) * 2 - 1)
+           + 1j * (rng.integers(0, 2, int(n / sps) + 2) * 2 - 1))
+    x = sym[(k / sps).astype(np.int64)] * np.exp(2j * np.pi * 2e-3 * k + 0.3)
+    x = 1.7 * x / np.sqrt(2) + 0.1 * (rng.standard_normal(n)
+                                      + 1j * rng.standard_normal(n))
+    return x.astype(np.complex64)
+
+
+def _walk_params(mode, bw, limit):
+    """The walker's three parameters: the AGC's rate, reference and
+    ceiling, or the loop's alpha, beta and limit."""
+    from satdump_tpu_torch.ops import costas
+    if mode == "agc":
+        return 1e-2, 1.0, 65536.0
+    return (*costas.costas_gains(bw), limit)
+
+
+def _walk_call(mode, bw, limit):
+    """The wrapper and the plain version of one walker case, as
+    f(x, state) -> (y, state')."""
+    from satdump_tpu_torch.ops.cuda import sample_walk as sw
+    p = _walk_params(mode, bw, limit)
+    if mode == "agc":
+        return (lambda x, s: sw.agc_walk(x, s, *p),
+                lambda x, s: sw.agc_walk_plain(x, s, *p))
+    if mode == "pll":
+        return (lambda x, s: sw.pll_walk(x, s, *p),
+                lambda x, s: sw.pll_walk_plain(x, s, *p))
+    a, b, lim = p
+    return (lambda x, s: sw.costas_walk(x, s, a, b, mode, lim),
+            lambda x, s: sw.costas_walk_plain(x, s, a, b, mode, lim))
+
+
+def _chain_kernels():
+    """The sources' chain-only entries (the loop-carried chain with no
+    memory traffic in the loop), for the latency bound; on no path."""
+    import ctypes
+    from satdump_tpu_torch.ops.cuda import _build
+    f, i, p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+    return (_build.Kernel("sample_walk", [f, f, i, p, p, i, f, f, f],
+                          entry="chain_launch"),
+            _build.Kernel("mm_clock", [p, p, p, p, i, f, f, f, f, i],
+                          entry="chain_launch"))
+
+
+def _mm_call(sps: float, complex_mode: bool):
+    from satdump_tpu_torch.ops.cuda import mm_clock
+    kw = dict(omega_mid=sps, gain_omega=8.7e-3 ** 2 / 4, gain_mu=8.7e-3,
+              omega_limit=0.005 * sps, complex_mode=complex_mode)
+
+    def cap(n):
+        return int(np.ceil(n / (sps * (1 - 0.005)))) + 2
+    return (lambda e, n, s, bank: mm_clock.mm_walk(e, n, s, bank,
+                                                   out_cap=cap(n), **kw),
+            lambda e, n, s, bank: mm_clock.mm_walk_plain(
+                e, n, s, bank, out_cap=cap(n), **kw))
+
+
+def _mm_state0(sps: float):
+    from satdump_tpu_torch.ops import clock_recovery
+    return clock_recovery._pack(clock_recovery.mm_init(omega=sps,
+                                                       device="cpu"))
+
+
+def _max_err(a, b) -> float:
+    import torch
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.bool:
+        return float((a != b).sum())
+    return float((a.to(torch.complex128) - b.to(torch.complex128)).abs().max()
+                 ) if a.numel() else 0.0
+
+
+def _host_ms(fn) -> float:
+    t = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t) * 1e3
+
+
+def sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def phase_walkers(rng) -> dict:
+    """The sample walkers and the M&M walker against their plain versions:
+    two blocks of WALK_BLOCK samples with the state carried (the kernel's
+    state tensor on the card, the plain version's on the CPU); then each
+    kernel's device time at a WALK_TIMED block, in cycles a sample at the
+    card's maximum SM clock (CUDA events around single launches), the
+    plain version's time and the bounds."""
+    import torch
+    from satdump_tpu_torch.ops.cuda.sample_walk import MODES
+    from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
+    mhz = sm_clock_mhz()
+    walk_chain, mm_chain = _chain_kernels()
+    dev = torch.cuda.current_device()
+    res = {}
+    for label, mode, bw, limit in WALK_CASES:
+        kern, plain = _walk_call(mode, bw, limit)
+        n2 = 1 if mode == "agc" else 2
+        s_dev = torch.tensor([1.0] if mode == "agc" else [0.0, 0.0],
+                             dtype=torch.float32, device="cuda")
+        s_cpu = s_dev.cpu()
+        err = 0.0
+        x = _walk_input(rng, 2 * WALK_BLOCK)
+        for blk in range(2):
+            xb = torch.from_numpy(x[blk * WALK_BLOCK:(blk + 1) * WALK_BLOCK])
+            y_dev, s_dev = kern(xb.cuda(), s_dev)
+            y_cpu, s_cpu = plain(xb, s_cpu)
+            torch.cuda.synchronize()
+            e = max(_max_err(y_dev, y_cpu), _max_err(s_dev, s_cpu))
+            same = int((y_dev.cpu() == y_cpu).sum())
+            log(f"walker {label} block {blk}: max |err| {e:.3e} against "
+                f"plain, {same} of {WALK_BLOCK} outputs equal, state "
+                f"{s_dev.cpu().tolist()} (tolerance "
+                f"{0 if mode == 'agc' else WALK_ATOL})")
+            err = max(err, e)
+        if not np.isfinite(err) or err > (0 if mode == "agc" else WALK_ATOL):
+            raise AssertionError(f"walker {label} differs from its plain "
+                                 f"version: {err}")
+        if label.endswith(", freq_limit 2e-4"):
+            continue
+        xt = torch.from_numpy(_walk_input(rng, WALK_TIMED))
+        xt_dev = xt.cuda()
+        s0 = torch.zeros(n2, dtype=torch.float32, device="cuda")
+        s1 = torch.empty_like(s0)
+        t = {"max_abs_err": err,
+             "ms": call_ms(lambda: kern(xt_dev, s0), WALK_REPS),
+             "plain_ms": _host_ms(lambda: plain(xt, s0.cpu())),
+             "latency_bound_ms": call_ms(lambda: walk_chain(
+                 dev, 0.6, 0.8, WALK_TIMED, s0.data_ptr(), s1.data_ptr(),
+                 MODES[mode], *_walk_params(mode, bw, limit)), WALK_REPS)}
+        res[label] = _walk_timing(t, WALK_TIMED, WALK_TIMED,
+                                  16 * WALK_TIMED, mhz, label)
+    bank = torch.as_tensor(mm_interpolator_bank())
+    for label, sps, cm in (("mm complex, sps 4.5", 4.5, True),
+                           ("mm real, sps 7.99", 7.99, False)):
+        kern, plain = _mm_call(sps, cm)
+        x = _walk_input(rng, 2 * WALK_BLOCK, sps)
+        if not cm:
+            x = x.real.astype(np.complex64)
+        s_dev, s_cpu = _mm_state0(sps).cuda(), _mm_state0(sps)
+        h = torch.zeros(7, dtype=torch.complex64)
+        err, carried = 0.0, []
+        for blk in range(2):
+            ext = torch.cat([h, torch.from_numpy(
+                x[blk * WALK_BLOCK:(blk + 1) * WALK_BLOCK])])
+            h = ext[WALK_BLOCK:]
+            out_dev = kern(ext.cuda(), WALK_BLOCK, s_dev, bank.cuda())
+            out_cpu = plain(ext, WALK_BLOCK, s_cpu, bank)
+            torch.cuda.synchronize()
+            s_dev, s_cpu = out_dev[2], out_cpu[2]
+            e = max(_max_err(a, b) for a, b in zip(out_dev, out_cpu))
+            inc = int(s_cpu[2:3].view(torch.int32))
+            carried.append(inc)
+            log(f"walker {label} block {blk}: max |err| {e:.3e} against "
+                f"plain (valid masks and state included), "
+                f"{int(out_dev[1].sum())} symbols, inc carried {inc} "
+                f"(tolerance 0)")
+            err = max(err, e)
+        if err != 0 or not any(carried):
+            raise AssertionError(f"walker {label} differs from its plain "
+                                 f"version ({err}) or carried no inc past a "
+                                 f"block end ({carried})")
+        xt = _walk_input(rng, WALK_TIMED, sps)
+        ext = torch.from_numpy(np.concatenate([np.zeros(7, np.complex64),
+                                               xt]))
+        ext_dev, bank_dev, s0 = ext.cuda(), bank.cuda(), _mm_state0(sps)
+        s0_dev, s1_dev = s0.cuda(), torch.empty(16, device="cuda")
+        nsyms = int(kern(ext_dev, WALK_TIMED, s0_dev, bank_dev)[1].sum())
+        t = {"max_abs_err": err,
+             "ms": call_ms(lambda: kern(ext_dev, WALK_TIMED, s0_dev,
+                                        bank_dev), WALK_REPS),
+             "plain_ms": _host_ms(lambda: plain(ext, WALK_TIMED, s0, bank)),
+             "latency_bound_ms": call_ms(lambda: mm_chain(
+                 dev, ext_dev.data_ptr(), bank_dev.data_ptr(),
+                 s0_dev.data_ptr(), s1_dev.data_ptr(), nsyms, sps,
+                 8.7e-3 ** 2 / 4, 8.7e-3, 0.005 * sps, int(cm)), WALK_REPS)}
+        cap = int(np.ceil(WALK_TIMED / (sps * 0.995))) + 2
+        res[label] = _walk_timing(t, WALK_TIMED, nsyms, (WALK_TIMED + 7) * 8
+                                  + cap * 9 + 128 * 8 * 4, mhz, label)
+    return res
+
+
+def _walk_timing(t: dict, n: int, steps: int, nbytes: int, mhz: float,
+                 label: str):
+    """Cycles a sample (and a step: a sample, or an M&M symbol) at the
+    maximum SM clock; the contract's bound (the bytes in and out at the
+    memory rate; the operations take less); and the latency bound, the
+    loop-carried chain's time for the same steps, measured by the chain-only
+    kernel."""
+    cyc = mhz * 1e6 * 1e-3
+    t["cycles_per_sample"] = t["ms"] * cyc / n
+    t["cycles_per_step"] = t["ms"] * cyc / steps
+    t["chain_cycles_per_step"] = t["latency_bound_ms"] * cyc / steps
+    t["bound_ms"], t["bound_by"] = nbytes / H100_BYTES_PER_S * 1e3, "bytes"
+    log(f"walker {label} at {n} samples ({steps} steps): kernel "
+        f"{t['ms']:.4f} ms (events), {t['cycles_per_sample']:.1f} cycles "
+        f"a sample, {t['cycles_per_step']:.1f} a step at {mhz:.0f} MHz, "
+        f"{n / t['ms'] / 1e3:.2f} Msamp/s; latency bound (the chain alone) "
+        f"{t['latency_bound_ms']:.4f} ms, {t['chain_cycles_per_step']:.1f} "
+        f"cycles a step; plain {t['plain_ms']:.1f} ms; bound "
+        f"{t['bound_ms']:.5f} ms (bytes)")
+    return t
+
+
 # (pipeline file, pipeline id, samples/symbol as up/down, user parameters)
 METOP = ("MetOp.json", "metop_ahrpt", (18, 7), {})
 # m2x_mode: the MSU-MR day from the packets, not from the wall clock
@@ -761,9 +1018,9 @@ def report_profile(label: str, prof, wall: float, pwall: float,
 # 2 strips; GOES-R HRIT at 6 Msps: 79 CADUs (~2^23 samples); NOAA APT at
 # 1 Msps: 40 lines (20 s)
 M2X_STRIPS, M2_STRIPS, GOES_CADUS, OPTION_CADUS, APT_LINES = 36, 2, 79, 8, 40
-# user parameters of every resampled pass (a rehearsal on the CPU passes a
-# small buffer_size)
-RESAMPLED_PARAMS: dict = {}
+# user parameters of every pass of phases 10 and 11 (a rehearsal on the
+# CPU passes a small buffer_size)
+PASS_PARAMS: dict = {}
 
 
 def _path_kernels():
@@ -772,11 +1029,21 @@ def _path_kernels():
     return (viterbi_re, resample_arith_grid)
 
 
-def _run_counted(fn, label: str, need_kernels: bool = True):
-    """fn() on the card with every path kernel's count set to 0 just
-    before and read just after; returns (result, wall s, launches)."""
+def _classic_kernels():
+    """The classic chain's walkers: the AGC, the PLL, the Costas loop and
+    M&M."""
+    from satdump_tpu_torch.ops.cuda.mm_clock import mm_walk
+    from satdump_tpu_torch.ops.cuda.sample_walk import (agc_walk, costas_walk,
+                                                        pll_walk)
+    return (agc_walk, pll_walk, costas_walk, mm_walk)
+
+
+def _run_counted(fn, label: str, need_kernels: bool = True, kernels=None):
+    """fn() on the card with the count of each of `kernels` (default: the
+    resampled paths' K1 and K2) set to 0 just before and read just after;
+    returns (result, wall s, launches)."""
     import torch
-    kernels = _path_kernels()
+    kernels = kernels or _path_kernels()
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
@@ -792,22 +1059,24 @@ def _run_counted(fn, label: str, need_kernels: bool = True):
 
 
 def _cadu_card_cpu(label, fname, pipe_id, cadus, bb, work: Path,
-                   params: dict):
-    """bb baseband -> CADU through `pipe_id` on the card (timed, launches
-    counted) and on the CPU: both .cadu files must hold the CADUs sent and
-    be byte-identical. Returns the card's .cadu path and wall."""
+                   params: dict, kernels=None):
+    """bb baseband -> CADU through `pipe_id` on the card (timed, the
+    launches of `kernels` counted, default K1 and K2) and on the CPU: both
+    .cadu files must hold the CADUs sent and be byte-identical. Returns the
+    card's .cadu path and wall."""
     from satdump_tpu_torch.io import write_baseband
     from satdump_tpu_torch.pipeline.runner import run_pipeline
     work.mkdir(parents=True, exist_ok=True)
     src = work / "pass.cf32"
     write_baseband(src, "cf32", bb)
-    params = dict(RESAMPLED_PARAMS, **params)
+    params = dict(PASS_PARAMS, **params)
 
     def run(dev):
         return run_pipeline(_pipeline(fname, pipe_id), str(src),
                             str(work / dev),
                             user_params=dict(params, torch_device=dev))
-    out, wall, launches = _run_counted(lambda: run("cuda"), label)
+    out, wall, launches = _run_counted(lambda: run("cuda"), label,
+                                       kernels=kernels)
     t0 = time.perf_counter()
     cpu_out = run("cpu")
     cpu_wall = time.perf_counter() - t0
@@ -898,8 +1167,8 @@ def _option_pass(rng, work: Path):
     register_all_modules()
     pipe = _pipeline("Meteor-M.json", "meteor_m2_lrpt")
     demod_p = pipe.prepare_parameters(pipe.steps[1], dict(
-        RESAMPLED_PARAMS, freq_shift=3000.0, dc_block=True))
-    dec_p = pipe.prepare_parameters(pipe.steps[2], RESAMPLED_PARAMS)
+        PASS_PARAMS, freq_shift=3000.0, dc_block=True))
+    dec_p = pipe.prepare_parameters(pipe.steps[2], PASS_PARAMS)
 
     def run(dev):
         demod = module_registry.get("psk_demod")(
@@ -945,7 +1214,7 @@ def _apt_pass(rng, work: Path):
         return run_pipeline(_pipeline("NOAA.json", "noaa_apt",
                                       stop="products"),
                             str(src), str(work / dev),
-                            user_params=dict(RESAMPLED_PARAMS,
+                            user_params=dict(PASS_PARAMS,
                                              torch_device=dev))
     _, wall, launches = _run_counted(lambda: run("cuda"), "noaa_apt",
                                      need_kernels=False)
@@ -1027,7 +1296,7 @@ def phase_resampled(rng, work: Path) -> dict:
     m2x_src = work / "m2x" / "pass.cf32"
     outs, walls["m2x_products"] = _products_card_cpu(
         "meteor_m2x_lrpt 1 Msps", *m2x, cadu, work / "m2x",
-        {"MSU-MR": "msu_mr"}, RESAMPLED_PARAMS)
+        {"MSU-MR": "msu_mr"}, PASS_PARAMS)
     _check_msumr(outs["cuda"] / "MSU-MR", truth, "meteor_m2x_lrpt 1 Msps")
     # METEOR-M2 LRPT at 1 Msps (QPSK), a small pass to products
     cadus, truth = sim.msumr_lrpt_cadus(rng, M2_STRIPS)
@@ -1038,7 +1307,7 @@ def phase_resampled(rng, work: Path) -> dict:
         "meteor_m2_lrpt 1 Msps", *m2, cadus, bb, work / "m2", params)
     outs, walls["m2_products"] = _products_card_cpu(
         "meteor_m2_lrpt 1 Msps", *m2, cadu, work / "m2",
-        {"MSU-MR": "msu_mr"}, dict(RESAMPLED_PARAMS, **params))
+        {"MSU-MR": "msu_mr"}, dict(PASS_PARAMS, **params))
     _check_msumr(outs["cuda"] / "MSU-MR", truth, "meteor_m2_lrpt 1 Msps")
     # GOES-R HRIT at 6 Msps (BPSK, NRZ-M), baseband -> CADU
     cadus = sim.make_cadus(GOES_CADUS, rng)
@@ -1073,7 +1342,7 @@ def _profile_psk(label, fname, pipe_id, src: Path, work: Path):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run_pipeline(pipe, str(src), str(work / tag),
-                     user_params=dict(RESAMPLED_PARAMS))
+                     user_params=dict(PASS_PARAMS))
         torch.cuda.synchronize()
         return time.perf_counter() - t0
     wall = once("timed")
@@ -1083,7 +1352,7 @@ def _profile_psk(label, fname, pipe_id, src: Path, work: Path):
     step = pipe.steps[-1]
     from satdump_tpu_torch.pipeline.module import module_registry
     m = module_registry.get(step.module_id)(str(src), str(work / "m"), dict(
-        pipe.prepare_parameters(step, RESAMPLED_PARAMS), torch_device="cuda"))
+        pipe.prepare_parameters(step, PASS_PARAMS), torch_device="cuda"))
     m.compute_rates()
     block = m.choose_block_size(m.block_base)
     nblk = -(-(src.stat().st_size // 8) // block)
@@ -1091,6 +1360,137 @@ def _profile_psk(label, fname, pipe_id, src: Path, work: Path):
         f"block: {r['launches'] / nblk:.0f} launches, {r['copies'] / nblk:.1f}"
         f" cudaMemcpy* calls, {r['h2d'] / nblk:.1f} H2D copies of "
         f"{r['h2d_ms'] / nblk:.3f} ms device time")
+
+
+# the classic demod chain's passes (phase 11): INTEGRAL at 2.096 Msps (sps
+# 8, no resampler), 15 r=1/2 CADUs, ~2^21 samples; NOAA HRPT's pm_demod at
+# 3 Msps and Crew Dragon's fsk_demod at 6 Msps, ~2^23 samples each to
+# .soft; short ELEKTRO-L GGAK, SpaceTeamSat1 and Saral passes on the card
+# and on the CPU
+INTEGRAL_CADUS, CLASSIC_SAMPLES = 15, 1 << 23
+ELEKTRO_CADUS, STS1_CADUS, SARAL_CADUS = 6, 6, 8
+
+
+def _ber(soft: np.ndarray, bits: np.ndarray) -> tuple:
+    """(BER, lag) of hard decisions against the bits sent (polarity free:
+    the loops lock either way), over the soft stream's middle half, at the
+    best lag within 64 symbols."""
+    s = soft > 0
+    a, b = len(s) // 4, 3 * len(s) // 4
+    best = (1.0, 0)
+    for lag in range(-64, 65):
+        if a - lag < 0 or b - lag > len(bits):
+            continue
+        e = float(np.mean(s[a:b] != bits[a - lag: b - lag]))
+        best = min(best, (min(e, 1 - e), lag))
+    return best
+
+
+def _soft_pass(label, fname, pipe_id, bb, bits, samplerate, live_msps,
+               work: Path, kernels, ber_limit: float):
+    """bb -> .soft through the pipeline's demod alone on the card (timed,
+    the launches of `kernels` counted): the softs must follow `bits`, the
+    channel bits from the start of bb (BER below ber_limit); logs the wall
+    against the live rate."""
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "pass.cf32"
+    write_baseband(src, "cf32", bb)
+    pipe = _pipeline(fname, pipe_id, "baseband", "soft")
+    out, wall, launches = _run_counted(lambda: run_pipeline(
+        pipe, str(src), str(work / "cuda"), user_params=dict(
+            PASS_PARAMS, samplerate=samplerate)), label, kernels=kernels)
+    soft = np.fromfile(out, np.int8)
+    ber, lag = _ber(soft, bits)
+    rate = len(bb) / wall / 1e6
+    log(f"{label}: {len(bb)} samples -> {len(soft)} softs in {wall:.3f} s "
+        f"on the card = {rate:.3f} Msamp/s (live rate {live_msps} Msamp/s: "
+        f"{'met' if rate >= live_msps else 'not met'}); BER against the "
+        f"bits sent {ber:.2e} at lag {lag}; launches {launches}")
+    if ber > ber_limit:
+        raise AssertionError(f"{label}: BER {ber} above {ber_limit}")
+    return wall
+
+
+def phase_classic(rng, work: Path) -> tuple:
+    """The classic chain on the card (phase 11); returns the launches of
+    its main path (INTEGRAL, pm_demod -> ccsds_conv_concat_decoder) and
+    the walls."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.ops.cuda.mm_clock import mm_walk
+    from satdump_tpu_torch.ops.cuda.sample_walk import agc_walk
+    from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
+    from satdump_tpu_torch.ops.fec.reed_solomon import ReedSolomon
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    t_phase = time.perf_counter()
+    walls = {}
+    # INTEGRAL S-band at 2.096 Msps: pm_demod -> ccsds_conv_concat_decoder
+    # (bpsk_90: the second symbol of each pair sent inverted, as CCSDS
+    # sends it; RS(255,239) x 4)
+    cadus = sim.make_cadus(INTEGRAL_CADUS, rng, rs=ReedSolomon(k=239))
+    bits = sim.encode_cadu_stream(cadus)
+    bits[1::2] ^= 1
+    bb = sim.pm_bpsk_baseband(bits, 8, rng)
+    w = work / "integral"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    kernels = (viterbi_re,) + _classic_kernels()
+    out, wall, launches = _run_counted(lambda: run_pipeline(
+        _pipeline("Integral.json", "integral_s_link"), str(w / "pass.cf32"),
+        str(w / "cuda"), user_params=dict(PASS_PARAMS, samplerate=2.096e6)),
+        "integral_s_link", kernels=kernels)
+    _check_cadus(out, cadus, f"integral_s_link 2.096 Msps ({len(bb)} samples)")
+    walls["integral_cadu"] = wall
+    log(f"integral_s_link 2.096 Msps: baseband->CADU on the card {wall:.3f} s"
+        f" = {len(bb) / wall / 1e6:.3f} Msamp/s (live rate 2.096); launches "
+        f"{launches}")
+    # NOAA HRPT's pm_demod at 3 Msps (665.4 ksym/s, sps 4.51) and Crew
+    # Dragon's fsk_demod at 6 Msps (2.35 Msym/s, sps 2.55), to .soft
+    lead = 1024
+    nbits = int(CLASSIC_SAMPLES / (3e6 / 665.4e3)) - lead - 2048
+    bits = rng.integers(0, 2, nbits).astype(np.uint8)
+    bb = sim.pm_bpsk_baseband(bits, 3e6 / 665.4e3, rng, lead_bits=lead)
+    walls["noaa_hrpt_soft"] = _soft_pass(
+        "noaa_hrpt pm_demod 3 Msps", "NOAA.json", "noaa_hrpt", bb,
+        np.concatenate([np.zeros(lead, np.uint8), bits]), 3e6, 3.0,
+        work / "hrpt", _classic_kernels(), 1e-3)
+    lead = 512
+    nbits = int(CLASSIC_SAMPLES / (6e6 / 2.35e6)) - lead - 512
+    bits = rng.integers(0, 2, nbits).astype(np.uint8)
+    bb = sim.fsk_baseband(bits, 6e6, 2.35e6, rng, 2.35e6 / 4,
+                          lead_bits=lead)
+    walls["crew_dragon_soft"] = _soft_pass(
+        "crew_dragon_tlm fsk_demod 6 Msps", "SpaceX.json", "crew_dragon_tlm",
+        bb, np.concatenate([np.zeros(lead, np.uint8), bits]), 6e6, 6.0,
+        work / "dragon", (agc_walk, mm_walk), 1e-2)
+    # card against CPU: ELEKTRO-L GGAK (pm_demod -> simple PSK, 5 ksym/s at
+    # 40 ksps), SpaceTeamSat1 9k6 (fsk_demod resampled from 140 ksps ->
+    # simple PSK, rs_i 1) and Saral (psk_demod -> conv-concat, rs_i 5)
+    asm = np.tile(np.array([0x1A, 0xCF, 0xFC, 0x1D], np.uint8),
+                  (ELEKTRO_CADUS, 1))
+    cadus = np.concatenate([asm, rng.integers(0, 256, (ELEKTRO_CADUS, 220)
+                                              ).astype(np.uint8)], 1)
+    bb = sim.pm_bpsk_baseband(sim.encode_cadu_stream_uncoded(
+        cadus, randomize=False), 8, rng, tail_bits=1024)
+    _, walls["elektro_cadu"] = _cadu_card_cpu(
+        "elektro_ggak 40 ksps", "Elektro_Arktika.json", "elektro_ggak",
+        cadus, bb, work / "elektro", {"samplerate": 40e3},
+        kernels=_classic_kernels())
+    cadus = sim.make_cadus(STS1_CADUS, rng, cadu_bytes=259, rs_i=1)
+    bb = sim.fsk_baseband(sim.encode_cadu_stream_uncoded(cadus), 140e3,
+                          9600, rng, 2400.0)
+    _, walls["sts1_cadu"] = _cadu_card_cpu(
+        "sts1_9k6 140 ksps", "spaceteamsat1.json", "sts1_9k6", cadus, bb,
+        work / "sts1", {}, kernels=(agc_walk, mm_walk))
+    cadus = sim.make_cadus(SARAL_CADUS, rng, cadu_bytes=1279, rs_i=5)
+    bb = sim.ccsds_psk_baseband(cadus, rng, (5, 2))
+    _, walls["saral_cadu"] = _cadu_card_cpu(
+        "saral_dump rs_i 5, 40 Msps", "Saral.json", "saral_dump", cadus, bb,
+        work / "saral", {"samplerate": 40e6})
+    log(f"classic passes: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, walls
 
 
 def phase_products(rng, work: Path) -> None:
@@ -1201,6 +1601,7 @@ def main() -> int:
     probe = phase_probe(rng)
     k1 = phase_k1(rng)
     k2 = phase_k2(rng)
+    walkers = phase_walkers(rng)
     work = ROOT / "satdump_tpu_torch" / "_build" / "smoke"
     try:
         phase_small_pass(rng, work)
@@ -1209,8 +1610,18 @@ def main() -> int:
         phase_products(rng, work / "full")
         phase_idct(rng)
         walls = phase_resampled(rng, work / "resampled")
+        classic_launches, classic_walls = phase_classic(rng, work / "classic")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # the classic walkers' launches come from their slice's main path,
+    # INTEGRAL's pm_demod -> conv-concat pass; K1's stay MetOp's
+    for k in ("agc_walk", "pll_walk", "costas_walk", "mm_walk"):
+        launches[k] = classic_launches[k]
+    costas_err = max(r["max_abs_err"] for k, r in walkers.items()
+                     if k.startswith("costas"))
+    mm_err = max(r["max_abs_err"] for k, r in walkers.items()
+                 if k.startswith("mm"))
+    sw_src, sw_rep = "satdump_tpu_torch/csrc/sample_walk.cu", "satdump_tpu/ops"
     rows = []
     for name, src, rep, r in (
             ("viterbi_re", "satdump_tpu_torch/csrc/viterbi_re.cu",
@@ -1218,15 +1629,29 @@ def main() -> int:
             ("resample_arith_grid", "satdump_tpu_torch/csrc/resample_arith.cu",
              "satdump_tpu/ops/pallas/resample.py:103", k2),
             ("affine_probe", "satdump_tpu_torch/csrc/probe_affine.cu",
-             "tools/pallas_smoke.py:10", probe)):
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": rep, "launches": launches[name],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
-                     "library_ms": r.get("library_ms"),
-                     "call_ms": r["call_ms"]})
+             "tools/pallas_smoke.py:10", probe),
+            # the classic chain's walkers replace lax.scan loops (no Pallas);
+            # their rows are at a 2^18 block, Costas at order 2 (pm_demod's),
+            # M&M in complex mode at sps 4.5 (NOAA HRPT's)
+            ("agc_walk", sw_src, f"{sw_rep}/stages.py:98", walkers["agc"]),
+            ("pll_walk", sw_src, f"{sw_rep}/costas.py:100", walkers["pll"]),
+            ("costas_walk", sw_src, f"{sw_rep}/costas.py:71",
+             dict(walkers["costas order 2"], max_abs_err=costas_err)),
+            ("mm_walk", "satdump_tpu_torch/csrc/mm_clock.cu",
+             f"{sw_rep}/clock_recovery.py:132",
+             dict(walkers["mm complex, sps 4.5"], max_abs_err=mm_err))):
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": rep, "launches": launches[name],
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
+        for k in ("call_ms", "latency_bound_ms", "cycles_per_sample",
+                  "chain_cycles_per_step"):
+            if k in r:
+                row[k] = r[k]
+        rows.append(row)
     log(f"resampled walls on the card, s: {json.dumps(walls)}")
+    log(f"classic walls on the card, s: {json.dumps(classic_walls)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -26,7 +26,8 @@ from satdump_tpu_torch.core.exceptions import SatdumpError
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("viterbi_re", "resample_arith", "probe_affine")
+SOURCES = ("viterbi_re", "resample_arith", "probe_affine", "sample_walk",
+           "mm_clock")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -94,22 +95,24 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class Kernel:
-    """The entry `<name>_launch(..., stream)` of csrc/<name>.cu, which
-    returns a cudaError_t, loaded (and built if needed) at its first call.
+    """The entry `<name>_<entry>(..., stream)` of csrc/<name>.cu (entry
+    `launch` unless named), which returns a cudaError_t, loaded (and built
+    if needed) at its first call.
 
     `kernel(device_index, *args)` launches it on that device's current
     stream: the stream's raw handle is read once, the device is made current
     only when it is not already, and a nonzero error raises.
     """
 
-    def __init__(self, name: str, argtypes: Sequence):
+    def __init__(self, name: str, argtypes: Sequence, entry: str = "launch"):
         self.name = name
+        self.entry = entry
         self._argtypes = [*argtypes, ctypes.c_void_p]       # the stream
         self._fn = None
 
     def _load(self):
         lib = load(self.name)
-        fn = getattr(lib, f"{self.name}_launch")
+        fn = getattr(lib, f"{self.name}_{self.entry}")
         fn.argtypes = self._argtypes
         fn.restype = ctypes.c_int
         self._lib, self._fn = lib, fn

@@ -1,11 +1,13 @@
 """Per-block DSP stages, ``(state, x) -> (state, y)`` — port of the parts of
-satdump_tpu/ops/stages.py that the resampled and FM paths run.
+satdump_tpu/ops/stages.py that the resampled, FM and classic paths run.
 
 Each stage mirrors a reference dsp:: block (cited per function) and runs in
 plain torch on the device of its input, its state kept there too. The
 linear recurrences (DC blocker, the feedforward AGC's gain smoothing) run as
 blocked products (`linear_recurrence`) where the JAX package uses
-`associative_scan` or `lax.scan`, so they sum in another order.
+`associative_scan` or `lax.scan`, so they sum in another order. The
+per-sample AGC (`agc_scan`) is nonlinear: it runs on the sample walker
+(ops/cuda/sample_walk.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from satdump_tpu_torch.ops.cuda import sample_walk
 from satdump_tpu_torch.utils.device import full_precision_matmul, resolve_device
 
 F32 = torch.float32
@@ -155,6 +158,18 @@ def agc_init(gain: float = 1.0, device: str | torch.device | None = None
                                  device=resolve_device(device)))
 
 
+def agc_scan(state: AGCState, x: torch.Tensor, rate: float = 1e-2,
+             reference: float = 1.0, max_gain: float = 65536.0
+             ) -> Tuple[AGCState, torch.Tensor]:
+    """Per-sample AGC (ref agc.cpp:17-44): out = x*g; g += rate*(reference
+    - |out|); g = min(g, max_gain) (no ceiling when max_gain <= 0). A
+    nonlinear recurrence: one walk of the sample walker
+    (ops/cuda/sample_walk.py)."""
+    y, g = sample_walk.agc_walk(x, state.gain.reshape(1).to(F32), rate,
+                                reference, max_gain)
+    return AGCState(g[0]), y
+
+
 def agc_block(state: AGCState, x: torch.Tensor, rate: float = 1e-2,
               reference: float = 1.0, max_gain: float = 65536.0,
               sub: int = 4096) -> Tuple[AGCState, torch.Tensor]:
@@ -205,6 +220,39 @@ def quadrature_demod(state: QuadDemodState, x: torch.Tensor, gain: float
     pr, pi = prev.real.double(), prev.imag.double()
     ang = torch.atan2(xi * pr - xr * pi, xr * pr + xi * pi).to(F32)
     return QuadDemodState(x[-1]), gain * ang
+
+
+# ---------------------------------------------------------------------------
+# OQPSK delay-one-imag — ref common/dsp/demod/delay_one_imag.h
+# ---------------------------------------------------------------------------
+class DelayImagState(NamedTuple):
+    last_imag: torch.Tensor  # float32
+
+
+def delay_one_imag_init(device: str | torch.device | None = None
+                        ) -> DelayImagState:
+    return DelayImagState(torch.zeros((), dtype=F32,
+                                      device=resolve_device(device)))
+
+
+def delay_one_imag(state: DelayImagState, x: torch.Tensor
+                   ) -> Tuple[DelayImagState, torch.Tensor]:
+    """The imaginary rail one sample late: y[n] = re x[n] + j im x[n-1]."""
+    im_prev = torch.cat([state.last_imag[None], x.imag[:-1]])
+    return DelayImagState(x.imag[-1]), torch.complex(x.real, im_prev)
+
+
+# ---------------------------------------------------------------------------
+# M2M4 SNR estimator — ref common/dsp/utils/snr_estimator.cpp
+# ---------------------------------------------------------------------------
+def snr_m2m4(x: torch.Tensor) -> torch.Tensor:
+    """Block moment-based SNR estimate in dB (non-data-aided, M2M4)."""
+    p = x.abs() ** 2
+    m2 = p.mean()
+    m4 = (p ** 2).mean()
+    es = torch.sqrt(torch.clamp_min(2 * m2 * m2 - m4, 0.0))
+    noise = torch.clamp_min(m2 - es, 1e-20)
+    return 10.0 * torch.log10(torch.clamp_min(es / noise, 1e-20))
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,13 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
+import torch
+
 from satdump_tpu_torch.core.exceptions import PipelineError
 from satdump_tpu_torch.core.log import logger
 from satdump_tpu_torch.io.baseband import BasebandReader
-from satdump_tpu_torch.ops import resamp
+from satdump_tpu_torch.ops import clock_recovery, firdes, resamp, stages
 from satdump_tpu_torch.pipeline.module import ProcessingModule
 from satdump_tpu_torch.utils.device import resolve_device
 
@@ -82,3 +85,93 @@ class BaseDemodModule(ProcessingModule):
     def open_input(self, block_size: int) -> BasebandReader:
         return BasebandReader(self.d_input_file, self.d_format,
                               block_size=block_size, iq_swap=self.d_iq_swap)
+
+    # -- the pieces the PSK, PM and FSK chains share --------------------------
+    def read_clock_params(self) -> None:
+        """M&M clock recovery's parameters (module_psk_demod.cpp:43-47)."""
+        clock_alpha = float(self.param("clock_alpha", 8.7e-3))
+        self.clock_gain_omega = float(
+            self.param("clock_gain_omega", clock_alpha ** 2 / 4.0))
+        self.clock_mu = float(self.param("clock_mu", 0.5))
+        self.clock_gain_mu = float(self.param("clock_gain_mu", clock_alpha))
+        self.clock_omega_limit = float(
+            self.param("clock_omega_relative_limit", 0.005))
+
+    def init_input_stages(self) -> int:
+        """After compute_rates and choose_block_size: the states of
+        freq_shift, dc_block and the rational resampler on torch_device;
+        returns the samples a block gives the chain after them."""
+        dev = self.torch_device
+        self._shift_delta = 2 * np.pi * self.d_frequency_shift / self.d_samplerate
+        self._fs_state = stages.freq_shift_init(dev)
+        self._dc_state = stages.dc_block_init(device=dev)
+        self._out_n = self.block_size
+        if self.resample:      # choose_block_size set r_interp, r_decim
+            self._r_bank = torch.as_tensor(firdes.polyphase_bank(
+                resamp.design_resampler_taps(self.r_interp, self.r_decim),
+                self.r_interp), device=dev)
+            self._rs_state = resamp.rational_resampler_init(self.r_interp,
+                                                            device=dev)
+            self._out_n = self.block_size * self.r_interp // self.r_decim
+        return self._out_n
+
+    def input_stages(self, x: torch.Tensor, dc_block: bool) -> torch.Tensor:
+        """[freq_shift] -> [dc_block] -> [rational resample], each where
+        enabled (`dc_block`: the module's dc_block option, where its chain
+        has one)."""
+        if self.d_frequency_shift != 0:
+            self._fs_state, x = stages.freq_shift(self._fs_state, x,
+                                                  self._shift_delta)
+        if dc_block:
+            self._dc_state, x = stages.dc_block(self._dc_state, x,
+                                                alpha=1e-4)
+        if self.resample:
+            self._rs_state, x, _ = resamp.rational_resampler(
+                self._rs_state, x, self._r_bank, self.r_interp, self.r_decim,
+                out_cap=self._out_n)
+        return x
+
+    def init_clock(self) -> None:
+        """The M&M state, bank and output capacity for blocks of _out_n."""
+        sps = self.final_sps
+        self._bank = torch.as_tensor(firdes.mm_interpolator_bank(),
+                                     device=self.torch_device)
+        self._mm_state = clock_recovery.mm_init(
+            omega=sps, mu=self.clock_mu, device=self.torch_device)
+        self._mm_cap = int(np.ceil(
+            self._out_n / (sps * (1 - self.clock_omega_limit)))) + 2
+
+    def clock(self, x: torch.Tensor, complex_mode: bool = True):
+        """One block of M&M clock recovery: (symbols out_cap, valid)."""
+        self._mm_state, syms, valid = clock_recovery.mm_clock_recovery(
+            self._mm_state, x, omega_mid=self.final_sps,
+            gain_omega=self.clock_gain_omega, gain_mu=self.clock_gain_mu,
+            omega_relative_limit=self.clock_omega_limit, bank=self._bank,
+            out_cap=self._mm_cap, complex_mode=complex_mode)
+        return syms, valid
+
+    def keep_valid(self, syms: torch.Tensor, vmask: torch.Tensor,
+                   valid: int | None, last: bool) -> torch.Tensor:
+        """The valid symbols of a block; of a padded last block, only those
+        sourced from its `valid` samples (+2)."""
+        s = syms[vmask]
+        if last and valid is not None and valid < self.block_size:
+            keep = int(len(s) * valid / self.block_size) + 2
+            s = s[:min(keep, len(s))]
+        return s
+
+    def process(self):
+        """Every block of the input through stream_work into the .soft."""
+        self.stream_start()
+        out_path = self.d_output_file_hint + ".soft"
+        self.d_output_file = out_path
+        reader = self.open_input(self.block_size)
+        with open(out_path, "wb") as f:
+            for blk in reader.blocks():
+                f.write(self.stream_work(blk.samples, valid=blk.valid,
+                                         last=blk.last).tobytes())
+        logger.info(f"{self.id}: demodulated {self._nsyms} symbols")
+
+    def to_device(self, samples: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            samples, np.complex64)).to(self.torch_device)

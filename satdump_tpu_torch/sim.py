@@ -195,6 +195,61 @@ def oqpsk_modulate(symbols: np.ndarray, sps: float = 2.0,
     return (re + 1j * x.imag).astype(np.complex64)
 
 
+def pm_bpsk_baseband(chan_bits: np.ndarray, sps: float,
+                     rng: np.random.Generator, mod_index: float = 1.0,
+                     freq_offset: float = 1e-4, noise: float = 0.02,
+                     rrc_alpha: float = 0.5, lead_bits: int = 1024,
+                     tail_bits: int = 2048) -> np.ndarray:
+    """PM downlink of channel bits on a BPSK subcarrier at the symbol rate
+    (pm_demod's default subcarrier), as tests/test_pm_fsk.py builds it:
+    symbols 1 - 2 bit, RRC-shaped (63 taps) at an integer `sps` (held for
+    sps samples at any other), times a cosine at the symbol rate,
+    phase-modulating the carrier by `mod_index` rad, with a carrier offset
+    of `freq_offset` cycles a sample and complex AWGN of `noise` a
+    component. `lead_bits` random bits before and `tail_bits` after give
+    the loops time to lock and the decoders their flush. The noise and the
+    padding come from `rng`. Returns complex64 baseband."""
+    lead = rng.integers(0, 2, lead_bits).astype(np.uint8)
+    tail = rng.integers(0, 2, tail_bits).astype(np.uint8)
+    bits = np.concatenate([lead, np.asarray(chan_bits, np.uint8), tail])
+    sym = 1.0 - 2.0 * bits.astype(np.float32)
+    if float(sps).is_integer():
+        sps = int(sps)
+        up = np.zeros(len(bits) * sps, np.float32)
+        up[::sps] = sym
+        taps = firdes.root_raised_cosine(1.0, sps, 1.0, rrc_alpha, 63)
+        b = np.convolve(up, taps * sps, "same")
+    else:
+        b = sym[(np.arange(int(len(bits) * sps)) / sps).astype(np.int64)]
+    n = np.arange(len(b))
+    sub = b * np.cos(2 * np.pi * n / sps)
+    x = np.exp(1j * (2 * np.pi * freq_offset * n + mod_index * sub))
+    x = x + noise * (rng.standard_normal(len(x))
+                     + 1j * rng.standard_normal(len(x)))
+    return x.astype(np.complex64)
+
+
+def fsk_baseband(chan_bits: np.ndarray, samplerate: float, symbolrate: float,
+                 rng: np.random.Generator, deviation: float,
+                 snr_db: float = 20.0, lead_bits: int = 512) -> np.ndarray:
+    """2-FSK downlink of channel bits at any samplerate / symbolrate: bit 1
+    at +deviation Hz and bit 0 at -deviation (fsk_demod's soft > 0 is a
+    1), each sample taking the bit whose symbol period it falls in, the
+    phase the running sum of the frequency, then AWGN at `snr_db`.
+    `lead_bits` random bits before and 512 after; the noise and the padding
+    come from `rng`. Returns complex64 baseband."""
+    bits = np.concatenate([rng.integers(0, 2, lead_bits).astype(np.uint8),
+                           np.asarray(chan_bits, np.uint8),
+                           rng.integers(0, 2, 512).astype(np.uint8)])
+    n = int(len(bits) * samplerate / symbolrate)
+    idx = np.minimum((np.arange(n) * (symbolrate / samplerate)).astype(
+        np.int64), len(bits) - 1)
+    freq = (2.0 * bits[idx] - 1.0) * (deviation / samplerate)
+    tx = np.exp(2j * np.pi * np.cumsum(freq)).astype(np.complex64)
+    return ChannelModel(snr_db=snr_db,
+                        seed=int(rng.integers(1 << 30))).apply(tx)
+
+
 def apt_audio(lines: int, audio_rate: float = 50_000.0,
               rng: Optional[np.random.Generator] = None
               ) -> Tuple[np.ndarray, np.ndarray]:

@@ -59,6 +59,14 @@ SLICE_MODULES = [
     "satdump_tpu_torch.models.noaa_tip",
     "satdump_tpu_torch.models.noaa_apt",
     "satdump_tpu_torch.pipeline.modules.demod.fm",
+    "satdump_tpu_torch.ops.fir",
+    "satdump_tpu_torch.ops.costas",
+    "satdump_tpu_torch.ops.clock_recovery",
+    "satdump_tpu_torch.ops.cuda.sample_walk",
+    "satdump_tpu_torch.ops.cuda.mm_clock",
+    "satdump_tpu_torch.pipeline.modules.demod.pm",
+    "satdump_tpu_torch.pipeline.modules.demod.fsk",
+    "satdump_tpu_torch.pipeline.modules.ccsds.simple_psk",
 ]
 
 
@@ -90,6 +98,13 @@ def test_sources_name_no_jax_or_reference_package():
                    if "_build" not in f.relative_to(PKG).parts)
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
+    # every CUDA source is built by the one build list, and names no JAX
+    cu = sorted(f.stem for f in (PKG / "csrc").glob("*.cu"))
+    from satdump_tpu_torch.ops.cuda import _build
+    assert cu == sorted(_build.SOURCES), (cu, _build.SOURCES)
+    assert {"sample_walk", "mm_clock"} <= set(cu)
+    for f in (PKG / "csrc").glob("*.cu"):
+        assert "#include <jax" not in f.read_text(), f
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT_RE.finditer(f.read_text())]
     assert not offenders, offenders
@@ -101,10 +116,11 @@ def test_port_registry_holds_only_ported_modules():
                                                    register_all_modules)
     register_all_modules()
     assert sorted(module_registry) == [
-        "am_demod", "ccsds_conv_concat_decoder", "fm_demod",
-        "meteor_lrpt_decoder", "meteor_msumr_lrpt", "metop_ahrpt_decoder",
-        "metop_instruments", "noaa_apt_decoder", "noaa_apt_demod",
-        "psk_demod", "ssb_demod"]
+        "am_demod", "ccsds_conv_concat_decoder", "ccsds_simple_psk_decoder",
+        "fm_demod", "fsk_demod", "meteor_lrpt_decoder", "meteor_msumr_lrpt",
+        "metop_ahrpt_decoder", "metop_instruments", "noaa_apt_decoder",
+        "noaa_apt_demod", "pm_demod", "psk_demod", "sdpsk_demod",
+        "ssb_demod"]
     with pytest.raises(SatdumpError, match="unknown module 'jpss_instruments'"):
         module_registry.get("jpss_instruments")
 
@@ -150,6 +166,35 @@ def test_wrappers_raise_on_cuda_without_fallback(monkeypatch):
         assert not isinstance(e.value, FellBack), e.value
     assert viterbi.viterbi_re.launches == 0
     assert resample.resample_arith_grid.launches == 0
+    # the classic chain's walkers
+    from satdump_tpu_torch.ops.cuda import mm_clock, sample_walk
+    for name in ("_walk_plain", "agc_walk_plain", "pll_walk_plain",
+                 "costas_walk_plain"):
+        monkeypatch.setattr(sample_walk, name, no_fallback)
+    monkeypatch.setattr(mm_clock, "mm_walk_plain", no_fallback)
+    x = _CudaLike((4096,), torch.complex64)
+    s2 = _CudaLike((2,), torch.float32)
+    calls = [lambda: sample_walk.agc_walk(x, _CudaLike((1,), torch.float32),
+                                          1e-2, 1.0, 65536.0),
+             lambda: sample_walk.pll_walk(x, s2, 0.01, 1e-4, 0.5),
+             lambda: sample_walk.costas_walk(x, s2, 0.01, 1e-4, 2, 1.0),
+             lambda: mm_clock.mm_walk(
+                 _CudaLike((4096 + 7,), torch.complex64), 4096,
+                 _CudaLike((mm_clock.STATE_SLOTS,), torch.float32),
+                 _CudaLike((128, 8), torch.float32), omega_mid=4.5,
+                 gain_omega=1e-5, gain_mu=8.7e-3, omega_limit=0.02,
+                 out_cap=1000, complex_mode=True)]
+    for call in calls:
+        with pytest.raises(Exception) as e:
+            call()
+        assert not isinstance(e.value, FellBack), e.value
+    walkers = (sample_walk.agc_walk, sample_walk.pll_walk,
+               sample_walk.costas_walk, mm_clock.mm_walk)
+    assert [w.launches for w in walkers] == [0, 0, 0, 0]
+    with pytest.raises(ValueError, match="unsupported device"):
+        sample_walk.costas_walk(torch.zeros(8, dtype=torch.complex64,
+                                            device="meta"),
+                                torch.zeros(2), 0.01, 1e-4, 4, 1.0)
     # no third path: a device that is neither cuda nor cpu is refused
     with pytest.raises(ValueError, match="unsupported device"):
         viterbi.viterbi_re(torch.zeros((1024, 2), device="meta"))
@@ -192,6 +237,17 @@ def test_cuda_request_raises_here():
                                         "symbolrate": 50e3})
     with pytest.raises(SatdumpError, match="cuda"):
         NOAAAPTDecoderModule("x.wav", "out", {})
+    # the classic demods (the simple PSK decoder is host NumPy, as in the
+    # reference, and takes no device)
+    from satdump_tpu_torch.pipeline.modules.demod.fsk import (
+        FSKDemodModule, SDPSKDemodModule)
+    from satdump_tpu_torch.pipeline.modules.demod.pm import PMDemodModule
+    for cls, p in ((PMDemodModule, {"pll_bw": 0.01, "rrc_alpha": 0.5}),
+                   (FSKDemodModule, {}), (SDPSKDemodModule, {})):
+        with pytest.raises(SatdumpError, match="cuda"):
+            cls("x.cf32", "out", dict(p, samplerate=80e3, symbolrate=8e3))
+    with pytest.raises(SatdumpError, match="cuda"):
+        PSKDemodModule("x.cf32", "out", dict(BASE, fast=False))
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):
@@ -276,26 +332,47 @@ BASE = {"samplerate": 6e6, "symbolrate": 2333333, "constellation": "qpsk",
 
 @pytest.mark.parametrize("params,what", [
     ({"fast": False}, "fast: false"),
-    ({"multichip": True}, "multichip"),
+    ({"multichip": True, "constellation": "bpsk"}, "multichip"),
     ({"freq_shift": 1000.0}, "freq_shift"),
     ({"dc_block": True}, "dc_block"),
 ])
 def test_unported_psk_options_raise(params, what):
-    """`fast: false` and `multichip` still raise "not yet ported";
-    `freq_shift` and `dc_block` are ported, and psk_demod with them gives
+    """Every one of these options is ported, and psk_demod with it gives
     the JAX package's soft symbols (MetOp's 18/7 sps, a carrier offset of
-    -1 kHz and a DC term)."""
-    from satdump_tpu_torch.core.exceptions import PipelineError
-    from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
-    base = dict(BASE, torch_device="cpu")
-    if what in ("fast: false", "multichip"):
-        with pytest.raises(PipelineError,
-                           match=f"{re.escape(what)}.*not yet ported"):
-            PSKDemodModule("x.cf32", "out", dict(base, **params))
-        return
+    -1 kHz and a DC term): `fast: false` runs the classic Costas / M&M
+    chain; `multichip` runs on one device, as the reference does wherever
+    it cannot shard (here BPSK, which it never shards, so that the JAX
+    package's eight CPU test devices do not make it shard)."""
     x = _qpsk(np.random.default_rng(8), 18, 7, 2 * 8192,
               freq_offset=-1000 / 6e6, dc=0.05 - 0.02j)
     _psk_soft_matches_jax(dict(BASE, buffer_size=8192, **params), x)
+
+
+def test_multichip_warns_and_decodes_on_one_device(tmp_path):
+    """process() with multichip logs the reference's warning and writes
+    the single-device .soft."""
+    import logging
+    from satdump_tpu_torch.core.log import logger
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
+    src = tmp_path / "x.cf32"
+    write_baseband(src, "cf32", _qpsk(np.random.default_rng(9), 18, 7, 8192))
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger.addHandler(handler)
+    outs = []
+    try:
+        for mc in (True, False):
+            m = PSKDemodModule(str(src), str(tmp_path / f"mc{mc}"), dict(
+                BASE, buffer_size=8192, multichip=mc, torch_device="cpu"))
+            m.process()
+            outs.append(Path(m.d_output_file).read_bytes())
+    finally:
+        logger.removeHandler(handler)
+    assert outs[0] == outs[1] and len(outs[0]) > 1000
+    assert any("multichip requested but unavailable" in r.getMessage()
+               for r in records)
 
 
 def test_unported_resampling_and_doppler_raise(tmp_path):
