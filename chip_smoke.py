@@ -30,13 +30,15 @@ Phases (any failure raises and the script exits non-zero):
     numbers, the device time both with ext warm in L2 and after a 64 MB
     write, at the main path's block and at those three;
  4b. the classic chain's walkers (csrc/sample_walk.cu: the AGC, the PLL,
-    the Costas loop at orders 2, 4 and 8; csrc/mm_clock.cu: M&M, complex
-    and real) against their plain versions on CPU copies of the same
-    inputs, two blocks of 2^15 samples with the state carried (an M&M inc
-    carried past a block end); each kernel's device time at a 2^18 block,
-    its cycles a sample at the card's maximum SM clock, its plain version's
-    time, and its latency bound: the same loop-carried chain run alone by
-    the source's chain-only entry, with no memory traffic in the loop;
+    the Costas loop at orders 2, 4 and 8; csrc/mm_clock.cu: M&M, complex at
+    sps 4.5 and at INTEGRAL's sps 8 with its out_cap, and real): their SASS
+    must hold no FFMA that rounds; each against its plain version on CPU
+    copies of the same inputs, two blocks of 2^15 samples with the state
+    carried (an M&M inc carried past a block end), then one 2^18 block (the
+    main path's); that block's device time, cycles a sample at the card's
+    maximum SM clock, the plain version's time, and the latency bound: the
+    loop-carried chain read off the SASS (tools/sass_chain.py, with the
+    scoreboard latencies tools/op_latency.cu measures) times the steps;
  5. a 12-CADU pass of MetOp AHRPT (6 Msps, sps 18/7) to CADU, and a
     METEOR-M2 LRPT pass (280 ksps, sps 35/9) carrying two strips of MSU-MR
     channels 1-3 to products, through the port on the card and on the CPU:
@@ -206,9 +208,14 @@ def phase_env():
 
 
 def phase_build():
+    """Every CUDA source of the port, and tools/op_latency.cu's program
+    beside them (phase 4b's latencies), one nvcc each, all at once."""
     from satdump_tpu_torch.ops.cuda import _build
+    from satdump_tpu_torch.tools import sass_chain
     t0 = time.perf_counter()
+    latency = sass_chain.start_latency_build()
     secs = _build.build()
+    sass_chain.finish_latency_build(latency)
     log(f"build: {len(secs)} sources compiled in "
         f"{time.perf_counter() - t0:.1f} s {secs}")
     for name, text in _build.ptxas_log.items():
@@ -297,14 +304,17 @@ def phase_probe(rng):
     return res
 
 
+def _sass(name: str) -> str:
+    """`cuobjdump -sass` of csrc/<name>.cu's built library."""
+    from satdump_tpu_torch.ops.cuda import _build
+    from satdump_tpu_torch.tools.sass_chain import cuobjdump_sass
+    return cuobjdump_sass(_build._target(name))
+
+
 def _k1_sass():
     """Static instruction counts of each K1 kernel in its SASS; fails if
     any FFMA is there (the path-metric sums must be plain adds)."""
-    from satdump_tpu_torch.ops.cuda import _build
-    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass",
-                           str(_build._target("viterbi_re"))],
-                          capture_output=True, text=True, check=True).stdout
+    sass = _sass("viterbi_re")
     funcs = re.split(r"\n\s*Function : ", sass)[1:]
     if not funcs:
         raise AssertionError("cuobjdump showed no K1 function")
@@ -505,8 +515,9 @@ def phase_k2(rng):
 
 
 # the classic chain's walkers (phase 4b): two blocks of WALK_BLOCK samples
-# with the state carried, held to their plain versions on CPU copies of
-# the same inputs; timed at the classic demods' default block
+# with the state carried, then one block of WALK_TIMED (the classic demods'
+# default block, the one the main path gives them), each held to its plain
+# version on CPU copies of the same inputs; the WALK_TIMED block is timed
 WALK_BLOCK, WALK_TIMED = 1 << 15, 1 << 18
 # a walker launch takes 10-120 ms at WALK_TIMED, so CUDA events around
 # single launches time it (the wrapper's host work is microseconds), and
@@ -527,6 +538,11 @@ WALK_CASES = (
     ("costas order 8", 8, 0.005, 1.0),
     ("costas order 2, freq_limit 2e-4", 2, 0.02, 2e-4),
 )
+# (label, sps, complex mode): NOAA HRPT's pm_demod, INTEGRAL's (the main
+# path's: sps 8 and its out_cap) and a real-mode (fsk_demod) case
+MM_CASES = (("mm complex, sps 4.5", 4.5, True),
+            ("mm complex, sps 8", 8.0, True),
+            ("mm real, sps 7.99", 7.99, False))
 
 
 def _walk_input(rng, n: int, sps: float = 4.5) -> np.ndarray:
@@ -542,44 +558,27 @@ def _walk_input(rng, n: int, sps: float = 4.5) -> np.ndarray:
     return x.astype(np.complex64)
 
 
-def _walk_params(mode, bw, limit):
-    """The walker's three parameters: the AGC's rate, reference and
-    ceiling, or the loop's alpha, beta and limit."""
-    from satdump_tpu_torch.ops import costas
-    if mode == "agc":
-        return 1e-2, 1.0, 65536.0
-    return (*costas.costas_gains(bw), limit)
-
-
 def _walk_call(mode, bw, limit):
     """The wrapper and the plain version of one walker case, as
     f(x, state) -> (y, state')."""
+    from satdump_tpu_torch.ops import costas
     from satdump_tpu_torch.ops.cuda import sample_walk as sw
-    p = _walk_params(mode, bw, limit)
     if mode == "agc":
+        p = (1e-2, 1.0, 65536.0)      # rate, reference, ceiling
         return (lambda x, s: sw.agc_walk(x, s, *p),
                 lambda x, s: sw.agc_walk_plain(x, s, *p))
+    a, b = costas.costas_gains(bw)
     if mode == "pll":
-        return (lambda x, s: sw.pll_walk(x, s, *p),
-                lambda x, s: sw.pll_walk_plain(x, s, *p))
-    a, b, lim = p
-    return (lambda x, s: sw.costas_walk(x, s, a, b, mode, lim),
-            lambda x, s: sw.costas_walk_plain(x, s, a, b, mode, lim))
-
-
-def _chain_kernels():
-    """The sources' chain-only entries (the loop-carried chain with no
-    memory traffic in the loop), for the latency bound; on no path."""
-    import ctypes
-    from satdump_tpu_torch.ops.cuda import _build
-    f, i, p = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
-    return (_build.Kernel("sample_walk", [f, f, i, p, p, i, f, f, f],
-                          entry="chain_launch"),
-            _build.Kernel("mm_clock", [p, p, p, p, i, f, f, f, f, i],
-                          entry="chain_launch"))
+        return (lambda x, s: sw.pll_walk(x, s, a, b, limit),
+                lambda x, s: sw.pll_walk_plain(x, s, a, b, limit))
+    return (lambda x, s: sw.costas_walk(x, s, a, b, mode, limit),
+            lambda x, s: sw.costas_walk_plain(x, s, a, b, mode, limit))
 
 
 def _mm_call(sps: float, complex_mode: bool):
+    """The M&M wrapper and its plain version at the demods' defaults (clock
+    alpha 8.7e-3, omega limit 0.005) and their out_cap, as
+    f(ext, n, state, bank) -> (syms, valid, state')."""
     from satdump_tpu_torch.ops.cuda import mm_clock
     kw = dict(omega_mid=sps, gain_omega=8.7e-3 ** 2 / 4, gain_mu=8.7e-3,
               omega_limit=0.005 * sps, complex_mode=complex_mode)
@@ -607,10 +606,24 @@ def _max_err(a, b) -> float:
                  ) if a.numel() else 0.0
 
 
-def _host_ms(fn) -> float:
+def _held(what: str, dev: tuple, cpu: tuple, tol: float, note: str) -> float:
+    """The largest difference between a walker's outputs and state on the
+    card and its plain version's; raises beyond tol."""
+    import torch
+    torch.cuda.synchronize()
+    err = max(_max_err(a, b) for a, b in zip(dev, cpu))
+    log(f"{what}: max |err| {err:.3e} against plain, {note} "
+        f"(tolerance {tol})")
+    if not np.isfinite(err) or err > tol:
+        raise AssertionError(f"{what} differs from its plain version: {err}")
+    return err
+
+
+def _timed_plain(fn):
+    """fn()'s result and its host milliseconds."""
     t = time.perf_counter()
-    fn()
-    return (time.perf_counter() - t) * 1e3
+    out = fn()
+    return out, (time.perf_counter() - t) * 1e3
 
 
 def sm_clock_mhz() -> float:
@@ -620,126 +633,174 @@ def sm_clock_mhz() -> float:
     return float(out.strip().splitlines()[0])
 
 
+def _walker_sass() -> dict:
+    """The walkers' SASS: no FFMA but with a zero factor (an FMA that
+    rounds would part the card from the plain versions), then each walk
+    loop's loop-carried chain read off it (tools/sass_chain.py), with the
+    latencies of the instructions that wait on a scoreboard measured on
+    this card (tools/op_latency.cu). Keyed by mode: "agc", "pll", the
+    Costas order, "mm complex", "mm real"."""
+    from satdump_tpu_torch.tools import sass_chain as sc
+    measured, dropped = sc.measured_latencies()
+    log(f"scoreboard latencies on the card, cycles (op_latency.cu): "
+        f"{json.dumps(measured)}; dropped (its SASS lacks the instruction): "
+        f"{json.dumps(dropped)}")
+    funcs = []
+    for src in ("sample_walk", "mm_clock"):
+        for f in sc.parse_sass(_sass(src)):
+            ffma = [x for x in f.ins if x.mnemonic == "FFMA"]
+            rounding = [x.text for x in ffma if "RZ" not in (
+                o.strip().lstrip("-") for o in x.text.split(",")[1:3])]
+            log(f"{src} SASS {f.name[-44:]}: {len(f.ins)} instructions, "
+                f"FFMA {len(ffma)} ({len(ffma) - len(rounding)} with a zero "
+                f"factor), DFMA {sum(x.mnemonic == 'DFMA' for x in f.ins)} "
+                f"(libdevice's sincos / atan2 / sqrt)")
+            if rounding:
+                raise AssertionError(f"{src} SASS holds FFMA that rounds: "
+                                     f"{rounding[:4]}")
+            funcs.append(f)
+    fixed = sc.fixed_latencies(funcs)
+    log(f"fixed latencies read off the walkers' stall counts, cycles: "
+        f"{json.dumps(fixed, sort_keys=True)}")
+    out = {}
+    for f in funcs:
+        m = re.search(r"sample_walk_kernelILi(\d)E|mm_clock_kernelILb(\d)E",
+                      f.name)
+        if m is None:
+            continue
+        mode = ({"0": "agc", "1": "pll"}.get(m.group(1), int(m.group(1)))
+                if m.group(1) else ("mm complex" if m.group(2) == "1"
+                                    else "mm real"))
+        lat = sc.Latency(fixed, measured)
+        r = sc.chain(f, lat)
+        log(f"SASS chain {mode}: {r['cycles_a_step']:.2f} cycles a step "
+            f"({r['cycles_a_pass']:.0f} a pass of {r['steps_a_pass']} steps, "
+            f"{r['instructions_a_pass']} instructions); the schedule's stall "
+            f"counts {r['stall_cycles_a_step']:.1f} a step; chain opcodes "
+            f"{json.dumps(r['chain_opcodes'])}; at the smallest latency "
+            f"{json.dumps(r['unmeasured'])}")
+        out[mode] = r
+    if len(out) != 7:
+        raise AssertionError(f"walk loops found for {sorted(map(str, out))}")
+    return out
+
+
 def phase_walkers(rng) -> dict:
     """The sample walkers and the M&M walker against their plain versions:
     two blocks of WALK_BLOCK samples with the state carried (the kernel's
-    state tensor on the card, the plain version's on the CPU); then each
-    kernel's device time at a WALK_TIMED block, in cycles a sample at the
-    card's maximum SM clock (CUDA events around single launches), the
-    plain version's time and the bounds."""
+    state tensor on the card, the plain version's on the CPU), then a
+    WALK_TIMED block; that block's device time (CUDA events around single
+    launches), in cycles a sample at the card's maximum SM clock, the plain
+    version's time and the bounds."""
     import torch
-    from satdump_tpu_torch.ops.cuda.sample_walk import MODES
     from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
     mhz = sm_clock_mhz()
-    walk_chain, mm_chain = _chain_kernels()
-    dev = torch.cuda.current_device()
+    chains = _walker_sass()
     res = {}
     for label, mode, bw, limit in WALK_CASES:
         kern, plain = _walk_call(mode, bw, limit)
-        n2 = 1 if mode == "agc" else 2
+        tol = 0 if mode == "agc" else WALK_ATOL
         s_dev = torch.tensor([1.0] if mode == "agc" else [0.0, 0.0],
                              dtype=torch.float32, device="cuda")
-        s_cpu = s_dev.cpu()
+        s0, s_cpu = s_dev.clone(), s_dev.cpu()
         err = 0.0
         x = _walk_input(rng, 2 * WALK_BLOCK)
         for blk in range(2):
             xb = torch.from_numpy(x[blk * WALK_BLOCK:(blk + 1) * WALK_BLOCK])
             y_dev, s_dev = kern(xb.cuda(), s_dev)
             y_cpu, s_cpu = plain(xb, s_cpu)
-            torch.cuda.synchronize()
-            e = max(_max_err(y_dev, y_cpu), _max_err(s_dev, s_cpu))
-            same = int((y_dev.cpu() == y_cpu).sum())
-            log(f"walker {label} block {blk}: max |err| {e:.3e} against "
-                f"plain, {same} of {WALK_BLOCK} outputs equal, state "
-                f"{s_dev.cpu().tolist()} (tolerance "
-                f"{0 if mode == 'agc' else WALK_ATOL})")
-            err = max(err, e)
-        if not np.isfinite(err) or err > (0 if mode == "agc" else WALK_ATOL):
-            raise AssertionError(f"walker {label} differs from its plain "
-                                 f"version: {err}")
+            err = max(err, _held(
+                f"walker {label} block {blk}", (y_dev, s_dev), (y_cpu, s_cpu),
+                tol, f"{int((y_dev.cpu() == y_cpu).sum())} of {WALK_BLOCK} "
+                f"outputs equal, state {s_dev.cpu().tolist()}"))
         if label.endswith(", freq_limit 2e-4"):
+            res[label] = {"max_abs_err": err}
             continue
         xt = torch.from_numpy(_walk_input(rng, WALK_TIMED))
         xt_dev = xt.cuda()
-        s0 = torch.zeros(n2, dtype=torch.float32, device="cuda")
-        s1 = torch.empty_like(s0)
-        t = {"max_abs_err": err,
-             "ms": call_ms(lambda: kern(xt_dev, s0), WALK_REPS),
-             "plain_ms": _host_ms(lambda: plain(xt, s0.cpu())),
-             "latency_bound_ms": call_ms(lambda: walk_chain(
-                 dev, 0.6, 0.8, WALK_TIMED, s0.data_ptr(), s1.data_ptr(),
-                 MODES[mode], *_walk_params(mode, bw, limit)), WALK_REPS)}
+        (y_cpu, s_cpu), plain_ms = _timed_plain(lambda: plain(xt, s0.cpu()))
+        y_dev, s_dev = kern(xt_dev, s0)
+        e = _held(f"walker {label} at {WALK_TIMED}", (y_dev, s_dev),
+                  (y_cpu, s_cpu), tol,
+                  f"{int((y_dev.cpu() == y_cpu).sum())} of {WALK_TIMED} "
+                  f"outputs equal, state {s_dev.cpu().tolist()}")
+        t = {"max_abs_err": max(err, e), "plain_ms": plain_ms,
+             "ms": call_ms(lambda: kern(xt_dev, s0), WALK_REPS)}
         res[label] = _walk_timing(t, WALK_TIMED, WALK_TIMED,
-                                  16 * WALK_TIMED, mhz, label)
+                                  16 * WALK_TIMED, mhz, chains[mode], label)
     bank = torch.as_tensor(mm_interpolator_bank())
-    for label, sps, cm in (("mm complex, sps 4.5", 4.5, True),
-                           ("mm real, sps 7.99", 7.99, False)):
+    bank_dev = bank.cuda()
+    carried = []            # inc past each block end (sps 8 may carry none)
+    for label, sps, cm in MM_CASES:
         kern, plain = _mm_call(sps, cm)
-        x = _walk_input(rng, 2 * WALK_BLOCK, sps)
-        if not cm:
-            x = x.real.astype(np.complex64)
+
+        def signal(n):
+            x = _walk_input(rng, n, sps)
+            return x if cm else x.real.astype(np.complex64)
+        x = signal(2 * WALK_BLOCK)
         s_dev, s_cpu = _mm_state0(sps).cuda(), _mm_state0(sps)
         h = torch.zeros(7, dtype=torch.complex64)
-        err, carried = 0.0, []
+        err = 0.0
         for blk in range(2):
             ext = torch.cat([h, torch.from_numpy(
                 x[blk * WALK_BLOCK:(blk + 1) * WALK_BLOCK])])
             h = ext[WALK_BLOCK:]
-            out_dev = kern(ext.cuda(), WALK_BLOCK, s_dev, bank.cuda())
+            out_dev = kern(ext.cuda(), WALK_BLOCK, s_dev, bank_dev)
             out_cpu = plain(ext, WALK_BLOCK, s_cpu, bank)
-            torch.cuda.synchronize()
             s_dev, s_cpu = out_dev[2], out_cpu[2]
-            e = max(_max_err(a, b) for a, b in zip(out_dev, out_cpu))
-            inc = int(s_cpu[2:3].view(torch.int32))
-            carried.append(inc)
-            log(f"walker {label} block {blk}: max |err| {e:.3e} against "
-                f"plain (valid masks and state included), "
-                f"{int(out_dev[1].sum())} symbols, inc carried {inc} "
-                f"(tolerance 0)")
-            err = max(err, e)
-        if err != 0 or not any(carried):
-            raise AssertionError(f"walker {label} differs from its plain "
-                                 f"version ({err}) or carried no inc past a "
-                                 f"block end ({carried})")
-        xt = _walk_input(rng, WALK_TIMED, sps)
+            carried.append(int(s_cpu[2:3].view(torch.int32)))
+            err = max(err, _held(
+                f"walker {label} block {blk}", out_dev, out_cpu, 0,
+                f"valid masks and state included, {int(out_cpu[1].sum())} "
+                f"symbols, inc carried {carried[-1]}"))
         ext = torch.from_numpy(np.concatenate([np.zeros(7, np.complex64),
-                                               xt]))
-        ext_dev, bank_dev, s0 = ext.cuda(), bank.cuda(), _mm_state0(sps)
-        s0_dev, s1_dev = s0.cuda(), torch.empty(16, device="cuda")
-        nsyms = int(kern(ext_dev, WALK_TIMED, s0_dev, bank_dev)[1].sum())
-        t = {"max_abs_err": err,
+                                               signal(WALK_TIMED)]))
+        ext_dev, s0 = ext.cuda(), _mm_state0(sps)
+        s0_dev = s0.cuda()
+        out_cpu, plain_ms = _timed_plain(
+            lambda: plain(ext, WALK_TIMED, s0, bank))
+        out_dev = kern(ext_dev, WALK_TIMED, s0_dev, bank_dev)
+        nsyms = int(out_cpu[1].sum())
+        e = _held(f"walker {label} at {WALK_TIMED}", out_dev, out_cpu, 0,
+                  f"valid masks and state included, {nsyms} symbols of "
+                  f"out_cap {len(out_cpu[1])}")
+        t = {"max_abs_err": max(err, e), "plain_ms": plain_ms,
              "ms": call_ms(lambda: kern(ext_dev, WALK_TIMED, s0_dev,
-                                        bank_dev), WALK_REPS),
-             "plain_ms": _host_ms(lambda: plain(ext, WALK_TIMED, s0, bank)),
-             "latency_bound_ms": call_ms(lambda: mm_chain(
-                 dev, ext_dev.data_ptr(), bank_dev.data_ptr(),
-                 s0_dev.data_ptr(), s1_dev.data_ptr(), nsyms, sps,
-                 8.7e-3 ** 2 / 4, 8.7e-3, 0.005 * sps, int(cm)), WALK_REPS)}
-        cap = int(np.ceil(WALK_TIMED / (sps * 0.995))) + 2
-        res[label] = _walk_timing(t, WALK_TIMED, nsyms, (WALK_TIMED + 7) * 8
-                                  + cap * 9 + 128 * 8 * 4, mhz, label)
+                                        bank_dev), WALK_REPS)}
+        res[label] = _walk_timing(
+            t, WALK_TIMED, nsyms, (WALK_TIMED + 7) * 8 + len(out_cpu[1]) * 9
+            + 128 * 8 * 4, mhz, chains["mm complex" if cm else "mm real"],
+            label)
+    if not any(carried):
+        raise AssertionError(f"no M&M case carried an inc past a block end "
+                             f"({carried})")
     return res
 
 
 def _walk_timing(t: dict, n: int, steps: int, nbytes: int, mhz: float,
-                 label: str):
-    """Cycles a sample (and a step: a sample, or an M&M symbol) at the
+                 chain: dict, label: str):
+    """Cycles a sample and a step (a sample, or an M&M symbol) at the
     maximum SM clock; the contract's bound (the bytes in and out at the
-    memory rate; the operations take less); and the latency bound, the
-    loop-carried chain's time for the same steps, measured by the chain-only
-    kernel."""
-    cyc = mhz * 1e6 * 1e-3
+    memory rate; the operations take less); and the latency bound: the
+    loop-carried chain's cycles a step, read off the SASS, times the steps
+    at the maximum SM clock. Raises if the kernel beat that bound."""
+    cyc = mhz * 1e3                                  # cycles a millisecond
     t["cycles_per_sample"] = t["ms"] * cyc / n
     t["cycles_per_step"] = t["ms"] * cyc / steps
-    t["chain_cycles_per_step"] = t["latency_bound_ms"] * cyc / steps
+    t["chain_cycles_per_step"] = chain["cycles_a_step"]
+    t["latency_bound_ms"] = chain["cycles_a_step"] * steps / cyc
     t["bound_ms"], t["bound_by"] = nbytes / H100_BYTES_PER_S * 1e3, "bytes"
     log(f"walker {label} at {n} samples ({steps} steps): kernel "
         f"{t['ms']:.4f} ms (events), {t['cycles_per_sample']:.1f} cycles "
         f"a sample, {t['cycles_per_step']:.1f} a step at {mhz:.0f} MHz, "
-        f"{n / t['ms'] / 1e3:.2f} Msamp/s; latency bound (the chain alone) "
+        f"{n / t['ms'] / 1e3:.2f} Msamp/s; latency bound (the SASS chain) "
         f"{t['latency_bound_ms']:.4f} ms, {t['chain_cycles_per_step']:.1f} "
-        f"cycles a step; plain {t['plain_ms']:.1f} ms; bound "
+        f"cycles a step; the stall counts {chain['stall_cycles_a_step']:.1f} "
+        f"a step; plain {t['plain_ms']:.1f} ms; bound "
         f"{t['bound_ms']:.5f} ms (bytes)")
+    if t["latency_bound_ms"] > t["ms"]:
+        raise AssertionError(f"walker {label} ran faster than its SASS "
+                             f"chain allows: the chain is no bound")
     return t
 
 
@@ -1632,14 +1693,14 @@ def main() -> int:
              "tools/pallas_smoke.py:10", probe),
             # the classic chain's walkers replace lax.scan loops (no Pallas);
             # their rows are at a 2^18 block, Costas at order 2 (pm_demod's),
-            # M&M in complex mode at sps 4.5 (NOAA HRPT's)
+            # M&M in complex mode at sps 8 (INTEGRAL's, the main path's)
             ("agc_walk", sw_src, f"{sw_rep}/stages.py:98", walkers["agc"]),
             ("pll_walk", sw_src, f"{sw_rep}/costas.py:100", walkers["pll"]),
             ("costas_walk", sw_src, f"{sw_rep}/costas.py:71",
              dict(walkers["costas order 2"], max_abs_err=costas_err)),
             ("mm_walk", "satdump_tpu_torch/csrc/mm_clock.cu",
              f"{sw_rep}/clock_recovery.py:132",
-             dict(walkers["mm complex, sps 4.5"], max_abs_err=mm_err))):
+             dict(walkers["mm complex, sps 8"], max_abs_err=mm_err))):
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": rep, "launches": launches[name],
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -23,8 +23,8 @@
 // What bounds it on an H100: latency. Each symbol's window and branch come
 // from the inc and mu that the previous symbol left: shared-memory loads,
 // eight ordered adds, the detector and the loop update are one chain, on
-// one thread; the bytes (8 a sample in, 9 a symbol out) are far below it.
-// So:
+// one thread (tools/sass_chain.py reads that chain off this kernel's
+// SASS); the bytes (8 a sample in, 9 a symbol out) are far below it. So:
 //  * one CTA of 128 threads; lane 0 of warp 0 walks, its state in
 //    registers, and writes each symbol straight to device memory (stores do
 //    not stall it);
@@ -100,12 +100,13 @@ struct Walker {
 
 struct Params {
   float omega_mid, gain_omega, gain_mu, omega_limit;
-  int complex_mode;
 };
 
 // one output slot: the sample at the window w (ext[start ..], in shared
 // memory) through the branch that mu picks from the bank's taps (in shared
-// memory), the detector and the loop update; returns the sample
+// memory), the detector (complex or real) and the loop update; returns the
+// sample
+template <bool Complex>
 __device__ __forceinline__ float2 mm_step(Walker& s, const float2* w,
                                           const float* taps, const Params& p) {
   const int imu = min(max(__float2int_rn(__fmul_rn(s.mu, float(kNFilt))), 0),
@@ -122,7 +123,7 @@ __device__ __forceinline__ float2 mm_step(Walker& s, const float2* w,
         __dmul_rn(static_cast<double>(w[j].y), static_cast<double>(t[j]))));
   }
   float e;
-  if (p.complex_mode) {
+  if (Complex) {
     const float c0r = sr > 0.f ? 1.f : 0.f;
     const float c0i = si > 0.f ? 1.f : 0.f;
     // Re[(p0 - p_regs[1]) conj(c_regs[0])]: the c are 0 or 1, so each
@@ -161,6 +162,8 @@ __device__ __forceinline__ float2 mm_step(Walker& s, const float2* w,
   return make_float2(sr, si);
 }
 
+// one kernel a detector, so the walk loop holds one of them
+template <bool Complex>
 __global__ void __launch_bounds__(kThreads) mm_clock_kernel(
     const float2* __restrict__ ext, int n, const float* __restrict__ bank,
     const float* __restrict__ st_in, float* __restrict__ st_out,
@@ -191,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) mm_clock_kernel(
         }
         const int start = min(max(s.inc, 0), n - 1);
         if (start < base || start >= base + kTile) break;   // next tile
-        syms[k] = mm_step(s, win + (start - base), taps, p);
+        syms[k] = mm_step<Complex>(s, win + (start - base), taps, p);
         valid[k] = 1;
         ++k;
       }
@@ -210,32 +213,6 @@ __global__ void __launch_bounds__(kThreads) mm_clock_kernel(
   if (tid == 0) s.store(st_out, max(s.inc - n, 0));
 }
 
-// The loop-carried chain alone, for chip_smoke.py's latency bound: one
-// thread takes nsyms steps over one tile of ext held in shared memory (the
-// window's start wrapped into the tile), with no global memory traffic in
-// the loop, so its time is the chain's cycles times nsyms.
-__global__ void mm_chain_kernel(const float2* __restrict__ ext,
-                                const float* __restrict__ bank,
-                                const float* __restrict__ st_in,
-                                float* __restrict__ st_out, int nsyms,
-                                Params p) {
-  __shared__ float2 win[kTile + kNTaps - 1];
-  __shared__ float taps[kNFilt * kNTaps];
-  for (int i = threadIdx.x; i < kNFilt * kNTaps; i += blockDim.x)
-    taps[i] = bank[i];
-  for (int i = threadIdx.x; i < kTile + kNTaps - 1; i += blockDim.x)
-    win[i] = ext[i];
-  __syncthreads();
-  if (threadIdx.x) return;
-  Walker s;
-  s.load(st_in);
-  // one step an iteration, as the kernel's walk takes them
-#pragma unroll 1
-  for (int k = 0; k < nsyms; ++k)
-    mm_step(s, win + (s.inc & (kTile - 1)), taps, p);
-  s.store(st_out, s.inc);
-}
-
 }  // namespace
 
 // ext: n + 7 complex64; bank: (128, 8) float32; state: float32[16] in and
@@ -246,26 +223,13 @@ extern "C" int mm_clock_launch(const void* ext, int n, const void* bank,
                                float gain_omega, float gain_mu,
                                float omega_limit, int complex_mode,
                                void* stream) {
-  mm_clock_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = complex_mode ? mm_clock_kernel<true>
+                              : mm_clock_kernel<false>;
+  kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(ext), n, static_cast<const float*>(bank),
       static_cast<const float*>(st_in), static_cast<float*>(st_out),
       static_cast<float2*>(syms), static_cast<uint8_t*>(valid), out_cap,
-      Params{omega_mid, gain_omega, gain_mu, omega_limit, complex_mode});
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the chain alone (see mm_chain_kernel); ext holds at least kTile + 7
-// samples
-extern "C" int mm_clock_chain_launch(const void* ext, const void* bank,
-                                     const void* st_in, void* st_out,
-                                     int nsyms, float omega_mid,
-                                     float gain_omega, float gain_mu,
-                                     float omega_limit, int complex_mode,
-                                     void* stream) {
-  mm_chain_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(ext), static_cast<const float*>(bank),
-      static_cast<const float*>(st_in), static_cast<float*>(st_out), nsyms,
-      Params{omega_mid, gain_omega, gain_mu, omega_limit, complex_mode});
+      Params{omega_mid, gain_omega, gain_mu, omega_limit});
   return static_cast<int>(cudaGetLastError());
 }
 

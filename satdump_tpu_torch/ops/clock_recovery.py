@@ -94,6 +94,24 @@ def mm_clock_recovery(state: MMState, x: torch.Tensor, *,
     the real part: fsk_demod, sdpsk_demod). Returns (state', symbols
     (out_cap,), valid (out_cap,) bool); symbols past the valid count are
     zeros. out_cap defaults to ceil(n / (omega_mid*(1-limit)))+2."""
+    v, history, syms, valid = mm_clock_recovery_packed(
+        _pack(state), state.history, x, omega_mid=omega_mid,
+        gain_omega=gain_omega, gain_mu=gain_mu,
+        omega_relative_limit=omega_relative_limit, bank=bank,
+        out_cap=out_cap, complex_mode=complex_mode)
+    return _unpack(v, history), syms, valid
+
+
+def mm_clock_recovery_packed(v: torch.Tensor, history: torch.Tensor,
+                             x: torch.Tensor, *, omega_mid: float,
+                             gain_omega: float, gain_mu: float,
+                             omega_relative_limit: float,
+                             bank: torch.Tensor | None = None,
+                             out_cap: int | None = None,
+                             complex_mode: bool = True):
+    """mm_clock_recovery on the walker's packed state vector (`_pack`), as
+    a demod keeps it from block to block: returns (v', history', symbols,
+    valid), with no packing or unpacking between blocks."""
     if bank is None:
         bank = torch.as_tensor(mm_interpolator_bank(), device=x.device)
     nfilt, ntaps = bank.shape
@@ -103,10 +121,10 @@ def mm_clock_recovery(state: MMState, x: torch.Tensor, *,
                       ) + 2
     # [history(ntaps-1) | input(n)], the reference's buffer layout
     # (clock_recovery_mm.cpp:47)
-    ext = torch.cat([state.history[: ntaps - 1], x])
+    ext = torch.cat([history[: ntaps - 1], x])
     syms, valid, v = mm_clock.mm_walk(
-        ext, n, _pack(state), bank, omega_mid=omega_mid,
+        ext, n, v, bank, omega_mid=omega_mid,
         gain_omega=gain_omega, gain_mu=gain_mu,
         omega_limit=omega_relative_limit * omega_mid, out_cap=out_cap,
         complex_mode=complex_mode)
-    return _unpack(v, ext[n:]), syms, valid
+    return v, ext[n:], syms, valid

@@ -95,24 +95,22 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class Kernel:
-    """The entry `<name>_<entry>(..., stream)` of csrc/<name>.cu (entry
-    `launch` unless named), which returns a cudaError_t, loaded (and built
-    if needed) at its first call.
+    """The entry `<name>_launch(..., stream)` of csrc/<name>.cu, which
+    returns a cudaError_t, loaded (and built if needed) at its first call.
 
     `kernel(device_index, *args)` launches it on that device's current
     stream: the stream's raw handle is read once, the device is made current
     only when it is not already, and a nonzero error raises.
     """
 
-    def __init__(self, name: str, argtypes: Sequence, entry: str = "launch"):
+    def __init__(self, name: str, argtypes: Sequence):
         self.name = name
-        self.entry = entry
         self._argtypes = [*argtypes, ctypes.c_void_p]       # the stream
         self._fn = None
 
     def _load(self):
         lib = load(self.name)
-        fn = getattr(lib, f"{self.name}_{self.entry}")
+        fn = getattr(lib, f"{self.name}_launch")
         fn.argtypes = self._argtypes
         fn.restype = ctypes.c_int
         self._lib, self._fn = lib, fn

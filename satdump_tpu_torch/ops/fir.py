@@ -20,6 +20,10 @@ from satdump_tpu_torch.utils.device import resolve_device
 
 class FIRState(NamedTuple):
     history: torch.Tensor  # last (ntaps-1) input samples
+    # the taps (float32, host) and their FFT at nfft, on the device: made
+    # at the first block and kept while the taps and block size stay
+    taps: np.ndarray | None = None
+    spectrum: torch.Tensor | None = None
 
 
 def fir_init(ntaps: int, dtype=torch.complex64,
@@ -37,17 +41,20 @@ def fir_apply(state: FIRState, x: torch.Tensor, taps,
     """Causal FIR of one block via overlap-save. x: (N,) complex64 or
     float32; taps: (ntaps,) host or device float taps. Returns y with
     y[n] = sum_k taps[k] xext[n-k], xext the history then x."""
-    h = torch.as_tensor(np.asarray(taps, np.float32), device=x.device)
-    ntaps = h.shape[0]
+    t = np.asarray(taps.cpu() if torch.is_tensor(taps) else taps, np.float32)
+    ntaps = t.shape[0]
     n = x.shape[-1]
     ext = torch.cat([state.history, x])            # N + ntaps - 1
     nfft = fft_size or max(256, _next_pow2(n + ntaps - 1))
+    H = state.spectrum
+    nbins = nfft if x.is_complex() else nfft // 2 + 1
+    if H is None or H.shape[0] != nbins or H.device != x.device \
+            or not np.array_equal(state.taps, t):
+        h = torch.as_tensor(t, device=x.device)
+        H = (torch.fft.fft(h.to(torch.complex64), nfft) if x.is_complex()
+             else torch.fft.rfft(h, nfft))
     if x.is_complex():
-        X = torch.fft.fft(ext, nfft)
-        H = torch.fft.fft(h.to(torch.complex64), nfft)
-        y = torch.fft.ifft(X * H)[ntaps - 1: ntaps - 1 + n].to(x.dtype)
+        y = torch.fft.ifft(torch.fft.fft(ext, nfft) * H)
     else:
-        X = torch.fft.rfft(ext, nfft)
-        H = torch.fft.rfft(h, nfft)
-        y = torch.fft.irfft(X * H, nfft)[ntaps - 1: ntaps - 1 + n].to(x.dtype)
-    return FIRState(ext[n:]), y
+        y = torch.fft.irfft(torch.fft.rfft(ext, nfft) * H, nfft)
+    return FIRState(ext[n:], t, H), y[ntaps - 1: ntaps - 1 + n].to(x.dtype)

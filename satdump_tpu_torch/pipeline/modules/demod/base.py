@@ -136,18 +136,22 @@ class BaseDemodModule(ProcessingModule):
         sps = self.final_sps
         self._bank = torch.as_tensor(firdes.mm_interpolator_bank(),
                                      device=self.torch_device)
-        self._mm_state = clock_recovery.mm_init(
-            omega=sps, mu=self.clock_mu, device=self.torch_device)
+        # the walker's packed state, kept on the device from block to block
+        st = clock_recovery.mm_init(omega=sps, mu=self.clock_mu,
+                                    device=self.torch_device)
+        self._mm_vec, self._mm_hist = clock_recovery._pack(st), st.history
         self._mm_cap = int(np.ceil(
             self._out_n / (sps * (1 - self.clock_omega_limit)))) + 2
 
     def clock(self, x: torch.Tensor, complex_mode: bool = True):
         """One block of M&M clock recovery: (symbols out_cap, valid)."""
-        self._mm_state, syms, valid = clock_recovery.mm_clock_recovery(
-            self._mm_state, x, omega_mid=self.final_sps,
-            gain_omega=self.clock_gain_omega, gain_mu=self.clock_gain_mu,
-            omega_relative_limit=self.clock_omega_limit, bank=self._bank,
-            out_cap=self._mm_cap, complex_mode=complex_mode)
+        self._mm_vec, self._mm_hist, syms, valid = (
+            clock_recovery.mm_clock_recovery_packed(
+                self._mm_vec, self._mm_hist, x, omega_mid=self.final_sps,
+                gain_omega=self.clock_gain_omega,
+                gain_mu=self.clock_gain_mu,
+                omega_relative_limit=self.clock_omega_limit, bank=self._bank,
+                out_cap=self._mm_cap, complex_mode=complex_mode))
         return syms, valid
 
     def keep_valid(self, syms: torch.Tensor, vmask: torch.Tensor,

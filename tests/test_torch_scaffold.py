@@ -67,6 +67,7 @@ SLICE_MODULES = [
     "satdump_tpu_torch.pipeline.modules.demod.pm",
     "satdump_tpu_torch.pipeline.modules.demod.fsk",
     "satdump_tpu_torch.pipeline.modules.ccsds.simple_psk",
+    "satdump_tpu_torch.tools.sass_chain",
 ]
 
 
