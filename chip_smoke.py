@@ -32,13 +32,21 @@ Phases (any failure raises and the script exits non-zero):
  4b. the classic chain's walkers (csrc/sample_walk.cu: the AGC, the PLL,
     the Costas loop at orders 2, 4 and 8; csrc/mm_clock.cu: M&M, complex at
     sps 4.5 and at INTEGRAL's sps 8 with its out_cap, and real): their SASS
-    must hold no FFMA that rounds; each against its plain version on CPU
-    copies of the same inputs, two blocks of 2^15 samples with the state
-    carried (an M&M inc carried past a block end), then one 2^18 block (the
-    main path's); that block's device time, cycles a sample at the card's
-    maximum SM clock, the plain version's time, and the latency bound: the
-    loop-carried chain read off the SASS (tools/sass_chain.py, with the
-    scoreboard latencies tools/op_latency.cu measures) times the steps;
+    must hold no FFMA that rounds outside nvcc's own correctly rounded
+    division and square root, and the AGC's and the PLL's kernels (and
+    walk_math's) no float64 instruction; the AGC's and the PLL's float32
+    sincos / atan2 / |x| (walk_math) must equal their plain versions bit
+    for bit on 2^22 phases over [-2 pi, 2 pi], 2^22 (y, x) pairs over many
+    decades with subnormals and signed zeros, and the special cases; each
+    walker against its plain version on CPU copies of the same inputs, two
+    blocks of 2^15 samples with the state carried (an M&M inc carried past
+    a block end; the PLL also at max_offset 20, its walk for any phase),
+    then one 2^18 block (the main path's): the AGC, the PLL and M&M equal,
+    outputs and state; that block's device time, cycles a
+    sample at the card's maximum SM clock, the plain version's time, and
+    the latency bound: the loop-carried chain read off the SASS
+    (tools/sass_chain.py, with the scoreboard latencies tools/op_latency.cu
+    measures) times the steps;
  5. a 12-CADU pass of MetOp AHRPT (6 Msps, sps 18/7) to CADU, and a
     METEOR-M2 LRPT pass (280 ksps, sps 35/9) carrying two strips of MSU-MR
     channels 1-3 to products, through the port on the card and on the CPU:
@@ -523,12 +531,16 @@ WALK_BLOCK, WALK_TIMED = 1 << 15, 1 << 18
 # single launches time it (the wrapper's host work is microseconds), and
 # no profiler session can lose its records
 WALK_REPS = 5
-# the AGC and M&M do only float32 and correctly rounded float64 operations:
-# equal. The PLL and Costas loops form e^{-j phase} and arg() with float64
-# sin / cos / atan2, where the card's and the CPU's libm may round an ulp of
-# a double apart; about one sample in 2^28 then rounds otherwise in float32
-# and the loop carries that last-bit step on: within 1e-4
+# the AGC and the PLL do only correctly rounded float32 operations, M&M
+# float32 and correctly rounded float64 ones: equal (tolerance 0). The
+# Costas loop forms e^{-j phase} with float64 sin / cos, where the card's
+# and the CPU's libm may round an ulp of a double apart; about one sample in
+# 2^28 then rounds otherwise in float32 and the loop carries that last-bit
+# step on: within WALK_ATOL
 WALK_ATOL = 1e-4
+# the walkers' kernels that must hold no float64 instruction
+FP32_WALKERS = ("sample_walk_kernelILi0E", "sample_walk_kernelILi1E",
+                "walk_math_kernel")
 # (label, mode: "agc" | "pll" | Costas order, loop bw, limit)
 WALK_CASES = (
     ("agc", "agc", None, None),
@@ -537,7 +549,12 @@ WALK_CASES = (
     ("costas order 4", 4, 0.005, 1.0),
     ("costas order 8", 8, 0.005, 1.0),
     ("costas order 2, freq_limit 2e-4", 2, 0.02, 2e-4),
+    ("pll, max_offset 20", "pll", 0.01, 20.0),
 )
+# held to their plain versions, not timed: Costas against its frequency
+# limit, and the PLL on its walk for phases not known to stay in range
+# (max_offset 20 puts a step's sum beyond the in-range wrap's reach)
+WALK_UNTIMED = ("costas order 2, freq_limit 2e-4", "pll, max_offset 20")
 # (label, sps, complex mode): NOAA HRPT's pm_demod, INTEGRAL's (the main
 # path's: sps 8 and its out_cap) and a real-mode (fsk_demod) case
 MM_CASES = (("mm complex, sps 4.5", 4.5, True),
@@ -634,31 +651,43 @@ def sm_clock_mhz() -> float:
 
 
 def _walker_sass() -> dict:
-    """The walkers' SASS: no FFMA but with a zero factor (an FMA that
-    rounds would part the card from the plain versions), then each walk
-    loop's loop-carried chain read off it (tools/sass_chain.py), with the
-    latencies of the instructions that wait on a scoreboard measured on
-    this card (tools/op_latency.cu). Keyed by mode: "agc", "pll", the
-    Costas order, "mm complex", "mm real"."""
+    """The walkers' SASS: no FFMA that rounds (an FMA that contracts the
+    port's own products and sums would part the card from the plain
+    versions) but with a zero factor or inside nvcc's correctly rounded
+    division and square root (sass_chain.rounding_ffma); no float64
+    instruction in FP32_WALKERS; then each walk loop's loop-carried chain
+    read off it (tools/sass_chain.py), with the latencies of the
+    instructions that wait on a scoreboard measured on this card
+    (tools/op_latency.cu). Keyed by mode: "agc", "pll", the Costas order,
+    "mm complex", "mm real"."""
     from satdump_tpu_torch.tools import sass_chain as sc
     measured, dropped = sc.measured_latencies()
     log(f"scoreboard latencies on the card, cycles (op_latency.cu): "
         f"{json.dumps(measured)}; dropped (its SASS lacks the instruction): "
         f"{json.dumps(dropped)}")
-    funcs = []
+    funcs, fp32 = [], set()
     for src in ("sample_walk", "mm_clock"):
         for f in sc.parse_sass(_sass(src)):
-            ffma = [x for x in f.ins if x.mnemonic == "FFMA"]
-            rounding = [x.text for x in ffma if "RZ" not in (
-                o.strip().lstrip("-") for o in x.text.split(",")[1:3])]
+            ffma = sum(x.mnemonic == "FFMA" for x in f.ins)
+            rounding, inside = sc.rounding_ffma(f)
+            fp64 = sc.fp64_instructions(f)
+            seeds = sum(x.op in ("MUFU.RCP", "MUFU.RSQ") for x in f.ins)
             log(f"{src} SASS {f.name[-44:]}: {len(f.ins)} instructions, "
-                f"FFMA {len(ffma)} ({len(ffma) - len(rounding)} with a zero "
-                f"factor), DFMA {sum(x.mnemonic == 'DFMA' for x in f.ins)} "
-                f"(libdevice's sincos / atan2 / sqrt)")
+                f"FFMA {ffma} ({inside} in nvcc's division / square root, "
+                f"{ffma - inside - len(rounding)} with a zero factor), "
+                f"float64 {len(fp64)}, MUFU.RCP / RSQ {seeds}")
             if rounding:
                 raise AssertionError(f"{src} SASS holds FFMA that rounds: "
-                                     f"{rounding[:4]}")
+                                     f"{[x.text for x in rounding[:4]]}")
+            if any(k in f.name for k in FP32_WALKERS):
+                fp32.add(next(k for k in FP32_WALKERS if k in f.name))
+                if fp64:
+                    raise AssertionError(
+                        f"{f.name} holds float64 instructions: "
+                        f"{[x.text for x in fp64[:6]]}")
             funcs.append(f)
+    if fp32 != set(FP32_WALKERS):
+        raise AssertionError(f"float32 walkers found: {sorted(fp32)}")
     fixed = sc.fixed_latencies(funcs)
     log(f"fixed latencies read off the walkers' stall counts, cycles: "
         f"{json.dumps(fixed, sort_keys=True)}")
@@ -685,6 +714,99 @@ def _walker_sass() -> dict:
     return out
 
 
+WALK_MATH_GRID = 1 << 22
+
+
+def _walk_math_inputs(rng):
+    """phases, then (y, x) pairs: WALK_MATH_GRID phases spread over
+    [-2 pi, 2 pi] with every float32 within 64 ulp of each multiple of
+    pi/4 there; WALK_MATH_GRID pairs of magnitudes 10^-45..10^38 (some
+    subnormal) at random signs, half of them at one magnitude and a random
+    angle (the octants and the diagonal), then the special cases: every
+    pair of +-0, +-1, +-the smallest subnormal, +-the largest float32,
+    +-inf and NaN."""
+    f32 = np.float32
+    two_pi = float(f32(2 * np.pi))
+    ph = rng.uniform(-two_pi, two_pi, WALK_MATH_GRID).astype(f32)
+    near = []
+    for m in range(-8, 9):
+        v = f32(m * np.pi / 4)
+        steps = np.arange(-64, 65, dtype=np.int64)
+        if v == 0:
+            near.append(np.concatenate([
+                np.arange(65, dtype=np.int32).view(f32),
+                -np.arange(65, dtype=np.int32).view(f32)]))
+        else:
+            bits = np.array([v], f32).view(np.int32).astype(np.int64)
+            near.append((bits + steps).astype(np.int32).view(f32))
+    ph = np.concatenate([ph, *near, np.array([two_pi, -two_pi], f32)])
+    half = WALK_MATH_GRID // 2
+    mag = 10.0 ** rng.uniform(-45, 38.5, (2, half))
+    sgn = rng.choice([-1.0, 1.0], (2, half))
+    with np.errstate(over="ignore"):
+        yx = (mag * sgn).astype(f32)
+        r = 10.0 ** rng.uniform(-40, 38, half)
+        a = rng.uniform(-np.pi, np.pi, half)
+        polar = np.stack([r * np.sin(a), r * np.cos(a)]).astype(f32)
+    tiny, big = np.float32(1e-45), np.finfo(f32).max
+    sp = np.array([0.0, -0.0, 1.0, -1.0, tiny, -tiny, big, -big, np.inf,
+                   -np.inf, np.nan], f32)
+    special = np.stack(np.meshgrid(sp, sp)).reshape(2, -1)
+    pairs = np.concatenate([yx, polar, special], axis=1)
+    return ph, np.ascontiguousarray(pairs[0]), np.ascontiguousarray(pairs[1])
+
+
+def _same_bits(a: np.ndarray, b: np.ndarray) -> int:
+    """How many elements differ in their bits (two NaNs count as equal)."""
+    same = (a.view(np.int32) == b.view(np.int32)) | (np.isnan(a) &
+                                                    np.isnan(b))
+    return int((~same).sum())
+
+
+def _ulp_max(got: np.ndarray, ref: np.ndarray) -> float:
+    """The largest error of float32 `got` against float64 `ref`, in float32
+    ulp of the reference, over the finite references."""
+    ok = np.isfinite(ref) & np.isfinite(got)
+    sp = np.spacing(np.abs(ref[ok]).astype(np.float32)).astype(np.float64)
+    return float((np.abs(got[ok].astype(np.float64) - ref[ok]) / sp).max())
+
+
+def phase_walk_math(rng) -> None:
+    """The AGC's and the PLL's float32 functions on the card (walk_math)
+    against their plain versions, bit for bit, on the grids of
+    _walk_math_inputs; their largest error against float64 numpy is
+    logged."""
+    import torch
+    from satdump_tpu_torch.ops.cuda.sample_walk import walk_math
+    ph, y, x = _walk_math_inputs(rng)
+    cases = (("sincos", (ph,), lambda: (np.sin(ph.astype(np.float64)),
+                                        np.cos(ph.astype(np.float64)))),
+             ("atan2", (y, x), lambda: (np.arctan2(y.astype(np.float64),
+                                                   x.astype(np.float64)),)),
+             ("abs", (y, x), lambda: (np.hypot(y.astype(np.float64),
+                                               x.astype(np.float64)),)))
+    for fn, args, ref in cases:
+        dev = walk_math(fn, *(torch.from_numpy(a).cuda() for a in args))
+        with np.errstate(all="ignore"):
+            cpu = walk_math(fn, *(torch.from_numpy(a) for a in args))
+            refs = ref()
+        torch.cuda.synchronize()
+        diff = sum(_same_bits(d.cpu().numpy(), c.numpy())
+                   for d, c in zip(dev, cpu))
+        # |x| unscaled: its squares stay normal for components in
+        # [1e-18, 1e18]; atan2 and sincos: every finite input
+        dom = np.ones(len(args[0]), bool) if fn != "abs" else \
+            (np.abs(y) < 1e18) & (np.abs(x) < 1e18) & (
+                (np.abs(y) > 1e-18) | (np.abs(x) > 1e-18))
+        ulp = [_ulp_max(c.numpy()[dom], r[dom]) for c, r in zip(cpu, refs)]
+        log(f"walk_math {fn} on {len(args[0])} points: {diff} outputs differ "
+            f"from plain in their bits (tolerance 0); largest error against "
+            f"float64 {', '.join(f'{u:.3f}' for u in ulp)} ulp")
+        if diff:
+            raise AssertionError(f"walk_math {fn} differs from its plain "
+                                 f"version at {diff} points")
+
+
 def phase_walkers(rng) -> dict:
     """The sample walkers and the M&M walker against their plain versions:
     two blocks of WALK_BLOCK samples with the state carried (the kernel's
@@ -696,10 +818,11 @@ def phase_walkers(rng) -> dict:
     from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
     mhz = sm_clock_mhz()
     chains = _walker_sass()
+    phase_walk_math(rng)
     res = {}
     for label, mode, bw, limit in WALK_CASES:
         kern, plain = _walk_call(mode, bw, limit)
-        tol = 0 if mode == "agc" else WALK_ATOL
+        tol = 0 if mode in ("agc", "pll") else WALK_ATOL
         s_dev = torch.tensor([1.0] if mode == "agc" else [0.0, 0.0],
                              dtype=torch.float32, device="cuda")
         s0, s_cpu = s_dev.clone(), s_dev.cpu()
@@ -713,7 +836,7 @@ def phase_walkers(rng) -> dict:
                 f"walker {label} block {blk}", (y_dev, s_dev), (y_cpu, s_cpu),
                 tol, f"{int((y_dev.cpu() == y_cpu).sum())} of {WALK_BLOCK} "
                 f"outputs equal, state {s_dev.cpu().tolist()}"))
-        if label.endswith(", freq_limit 2e-4"):
+        if label in WALK_UNTIMED:
             res[label] = {"max_abs_err": err}
             continue
         xt = torch.from_numpy(_walk_input(rng, WALK_TIMED))

@@ -95,22 +95,24 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class Kernel:
-    """The entry `<name>_launch(..., stream)` of csrc/<name>.cu, which
-    returns a cudaError_t, loaded (and built if needed) at its first call.
+    """The entry `<entry>_launch(..., stream)` of csrc/<name>.cu (`entry`
+    defaults to `name`), which returns a cudaError_t, loaded (and built if
+    needed) at its first call.
 
     `kernel(device_index, *args)` launches it on that device's current
     stream: the stream's raw handle is read once, the device is made current
     only when it is not already, and a nonzero error raises.
     """
 
-    def __init__(self, name: str, argtypes: Sequence):
+    def __init__(self, name: str, argtypes: Sequence, entry: str = ""):
         self.name = name
+        self.entry = entry or name
         self._argtypes = [*argtypes, ctypes.c_void_p]       # the stream
         self._fn = None
 
     def _load(self):
         lib = load(self.name)
-        fn = getattr(lib, f"{self.name}_launch")
+        fn = getattr(lib, f"{self.entry}_launch")
         fn.argtypes = self._argtypes
         fn.restype = ctypes.c_int
         self._lib, self._fn = lib, fn
@@ -126,5 +128,5 @@ class Kernel:
                          torch._C._cuda_getCurrentRawStream(device_index))
         if err:
             msg = getattr(self._lib, f"{self.name}_error_string")(err)
-            raise RuntimeError(f"{self.name} launch failed: CUDA error {err} "
+            raise RuntimeError(f"{self.entry} launch failed: CUDA error {err} "
                                f"({msg.decode()})")

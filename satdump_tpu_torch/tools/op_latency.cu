@@ -104,6 +104,32 @@ extern "C" __global__ void lat_i2f_f64(const int* in, int* sink,
   sink[0] = v;
 }
 
+// add.rn.f32 with a zero the compiler cannot see: FADD
+extern "C" __global__ void lat_fadd(const float* in, float* sink,
+                                    long long* cyc) {
+  float v = in[0], z = in[1];
+  TIMED(asm volatile("add.rn.f32 %0, %0, %1;" : "+f"(v) : "f"(z)))
+  sink[0] = v;
+}
+
+// rcp.approx.ftz.f32 and an FADD of zero (two reciprocals in a row would
+// fold): MUFU.RCP (the seed of __fdiv_rn) + FADD
+extern "C" __global__ void lat_rcp(const float* in, float* sink,
+                                   long long* cyc) {
+  float v = in[0], z = in[1];
+  TIMED(asm volatile("rcp.approx.ftz.f32 %0, %0;\n\t"
+                     "add.rn.f32 %0, %0, %1;" : "+f"(v) : "f"(z)))
+  sink[0] = v;
+}
+
+// rsqrt.approx.ftz.f32: MUFU.RSQ (the seed of __fsqrt_rn)
+extern "C" __global__ void lat_rsq(const float* in, float* sink,
+                                   long long* cyc) {
+  float v = in[0];
+  TIMED(asm volatile("rsqrt.approx.ftz.f32 %0, %0;" : "+f"(v)))
+  sink[0] = v;
+}
+
 // rcp.approx.ftz.f64: MUFU.RCP64H
 extern "C" __global__ void lat_rcp64h(const double* in, double* sink,
                                       long long* cyc) {
@@ -180,17 +206,21 @@ int main() {
   const double up = run(lat_f2f_f64_f32, 1.0f, 0.0f);
   const double trip = run(lat_f2f_round_trip, 1.0f, 0.0f);
   const double i2f64 = run(lat_i2f_f64, 1, 0);
+  const double fadd = run(lat_fadd, 1.0f, 0.0f);
   const double vals[] = {
       dadd, up, trip - up - dadd, run(lat_f2i, 1.0f, 0.0f),
       run(lat_i2f, 1, 0), run(lat_frnd, 1.5f, 0.0f),
       run(lat_f2i_f64, 1.0, 0.0) - i2f64, i2f64,
       run(lat_rcp64h, 1.5, 0.0), run(lat_rsq64h, 1.5, 0.0),
-      run(lat_lds, 3, 0), run(lat_lds64, 3, 0)};
+      run(lat_lds, 3, 0), run(lat_lds64, 3, 0),
+      run(lat_rcp, 1.5f, 0.0f) - fadd, run(lat_rsq, 1.5f, 0.0f), fadd};
   const char* keys[] = {"DADD", "F2F.F64.F32", "F2F.F32.F64", "F2I", "I2F",
                         "FRND", "F2I.F64", "I2F.F64", "MUFU.RCP64H",
-                        "MUFU.RSQ64H", "LDS", "LDS.64"};
+                        "MUFU.RSQ64H", "LDS", "LDS.64", "MUFU.RCP",
+                        "MUFU.RSQ", "FADD"};
+  constexpr int kTests = sizeof(keys) / sizeof(keys[0]);
   printf("{");
-  for (int i = 0; i < 12; ++i) {
+  for (int i = 0; i < kTests; ++i) {
     if (vals[i] <= 0) return 1;
     printf("%s\"%s\": %.3f", i ? ", " : "", keys[i], vals[i]);
   }

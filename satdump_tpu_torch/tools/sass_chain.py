@@ -9,7 +9,9 @@ before it left. So the kernel takes at least the cycles of that chain times
 its steps. This module reads the chain off `cuobjdump -sass`:
 
  * the walk loop is the function's largest loop (a backward branch) with no
-   barrier in it; its steps a pass are its 8-byte stores (one output a step);
+   barrier in it, outside the subroutines it calls (the PLL walks phases not
+   known to stay in range in one); its steps a pass are its 8-byte stores
+   (one output a step);
  * an instruction that writes no scoreboard (fixed latency) takes the
    fewest issue cycles (stall counts) that the compiler put between such an
    instruction and the first one that reads its result, anywhere in the
@@ -24,9 +26,14 @@ its steps. This module reads the chain off `cuobjdump -sass`:
    the walk's data can take. A way on which a carried value turns
    constant does not count there: that is special-value handling (zero,
    infinity, NaN; a product with the zero register RZ, 0 x a finite value)
-   that a recurrence's finite data never takes. Memory dependencies,
+   that a recurrence's finite data never takes, and neither does a way
+   through a CALL (nvcc's slow path of __fdiv_rn and __fsqrt_rn, for zero,
+   subnormal, huge or special operands). Memory dependencies,
    control dependencies and issue limits are left out. So the result is a
    lower bound on the loop's time on such data;
+ * a walk loop that moves values through local memory (LDL / STL: the
+   state spilled, or its address taken) is refused, since the chain is
+   read through registers;
  * the chain's cycles a pass are the largest cycle mean of that
    register-to-register matrix (max-plus), divided by the steps a pass.
    Beside it, the stall cycles a step: the fewest issue cycles the compiler's
@@ -277,14 +284,16 @@ class Latency:
 
 def walk_loop(f: Function) -> Tuple[int, int]:
     """(first, last) instruction index of the largest loop with no barrier
-    in it: the walker's per-step loop."""
+    in it outside the subroutines f calls: the walker's per-step loop."""
     at = {x.addr: i for i, x in enumerate(f.ins)}
+    called = [range(i, j + 1) for i, j in _subroutines(f)]
     best = None
     for i, x in enumerate(f.ins):
         if x.branch and x.target is not None and x.target <= x.addr \
                 and x.target in at:
             j = at[x.target]
-            if any(y.mnemonic == "BAR" for y in f.ins[j:i + 1]):
+            if any(y.mnemonic == "BAR" for y in f.ins[j:i + 1]) or \
+                    any(i in r for r in called):
                 continue
             if best is None or i - j > best[1] - best[0]:
                 best = (j, i)
@@ -312,7 +321,11 @@ def _join(vs: List[Dict[str, _Path]]) -> Dict[str, _Path]:
     return {h: min((v[h] for v in live), key=lambda p: p[0]) for h in heads}
 
 
-def _merge(states: List[dict]) -> dict:
+def _merge(states: List[dict], cold: List[bool]) -> dict:
+    """The state where ways meet; ways through a CALL (cold) are left out
+    where another way arrives."""
+    if not all(cold):
+        states = [s for s, c in zip(states, cold) if not c]
     if len(states) == 1:
         return dict(states[0])
     return {r: _join([_get(s, r) for s in states])
@@ -324,17 +337,30 @@ def chain(f: Function, lat: Latency) -> dict:
     steps a pass, and the opcodes along the longest one-pass cycle."""
     j0, j1 = walk_loop(f)
     body = f.ins[j0:j1 + 1]
+    spill = [x.text for x in body if x.mnemonic in ("LDL", "STL")]
+    if spill:
+        raise ValueError(f"{f.name}: the walk loop moves values through "
+                         f"local memory ({spill[:2]}), which a register "
+                         f"chain misses")
     at = {x.addr: i for i, x in enumerate(body)}
     lead = sorted({i for i in _leaders(body) if i < len(body)})
     ends = dict(zip(lead, lead[1:] + [len(body)]))
     incoming: Dict[int, List[dict]] = {0: [{}]}
-    issue_in: Dict[int, int] = {0: 0}
+    cold_in: Dict[int, List[bool]] = {0: [False]}
+    issue_in: Dict[int, List[Tuple[bool, int]]] = {0: [(False, 0)]}
     end_state = end_issue = None
     for b in lead:
         if b not in incoming:
             continue                  # reached only by a dropped back edge
-        state = _merge(incoming.pop(b))
-        issue = issue_in.pop(b) + sum(x.stall for x in body[b:ends[b]])
+        arrivals = cold_in.pop(b)
+        state = _merge(incoming.pop(b), arrivals)
+        # a way through a CALL (nvcc's slow path of a division or a square
+        # root, for special operands) stays cold until it meets another
+        cold = all(arrivals) or any(x.mnemonic == "CALL"
+                                    for x in body[b:ends[b]])
+        ways = issue_in.pop(b)
+        issue = min(c for k, c in ways if k == all(arrivals)) + \
+            sum(x.stall for x in body[b:ends[b]])
         for i in range(b, ends[b]):
             x = body[i]
             paths: Dict[str, _Path] = {}
@@ -363,7 +389,8 @@ def chain(f: Function, lat: Latency) -> dict:
         for s in succ:
             if s < len(body):
                 incoming.setdefault(s, []).append(state)
-                issue_in[s] = min(issue_in.get(s, issue), issue)
+                cold_in.setdefault(s, []).append(cold)
+                issue_in.setdefault(s, []).append((cold, issue))
     if end_state is None:
         raise ValueError(f"{f.name}: the walk loop's end is not reached")
     regs = sorted({r for r, v in end_state.items() if v})
@@ -400,6 +427,92 @@ def chain(f: Function, lat: Latency) -> dict:
             "unmeasured": dict(lat.unmeasured)}
 
 
+def fp64_instructions(f: Function) -> List[Ins]:
+    """f's float64 instructions: arithmetic and compares on doubles, the
+    double-precision MUFU seeds and every conversion to or from a double."""
+    out = []
+    for x in f.ins:
+        mn, *mods = x.op.split(".")
+        if mn in _FP64 or (mn == "MUFU" and any(m.endswith("64H")
+                                                for m in mods)) or \
+                (mn in ("F2F", "F2I", "I2F", "FRND") and "F64" in mods):
+            out.append(x)
+    return out
+
+
+def _zero_factor(x: Ins) -> bool:
+    """An FFMA one of whose factors is the zero register: it adds, and
+    rounds nothing that an FADD would not."""
+    return any(o.strip().lstrip("-|").split(".")[0] == "RZ"
+               for o in _split_operands(x.text.partition(" ")[2])[1:3])
+
+
+def _subroutines(f: Function) -> List[Tuple[int, int]]:
+    """(first, last) instruction index of each subroutine that f CALLs:
+    from the call's target to the first RET after it."""
+    at = {x.addr: i for i, x in enumerate(f.ins)}
+    out = []
+    for t in sorted({x.target for x in f.ins if x.mnemonic == "CALL"
+                     and x.target in at}):
+        i = at[t]
+        j = next((k for k in range(i, len(f.ins))
+                  if f.ins[k].mnemonic == "RET"), len(f.ins) - 1)
+        out.append((i, j))
+    return out
+
+
+def _seed(x: Ins) -> bool:
+    """A float32 MUFU.RCP or MUFU.RSQ: the seed of nvcc's correctly
+    rounded division or square root."""
+    return x.op.split(".")[:2] in (["MUFU", "RCP"], ["MUFU", "RSQ"])
+
+
+def rounding_ffma(f: Function) -> Tuple[List[Ins], int]:
+    """(the FFMAs of f that round a product into a sum outside nvcc's own
+    correctly rounded division and square root, how many FFMAs lie inside
+    those). An FFMA with a zero factor (RZ) adds and rounds nothing more;
+    every other FFMA is inside where
+     * it reads, directly or through other float products, sums and
+       moves, the result of a MUFU.RCP or MUFU.RSQ (the seed of __fdiv_rn's
+       or __fsqrt_rn's Newton steps), before the BSYNC where that
+       sequence's fast way meets its slow one (a window read in address
+       order, so a register once reached stays reached until that BSYNC:
+       the slow way may overwrite it before the fast way, laid out after
+       it, reads it); the code that uses the quotient or the root after
+       that point is outside, or
+     * it lies in a subroutine CALLed between such a seed and its BSYNC:
+       the sequence's slow path, for special operands."""
+    subs = dict((f.ins[i].addr, (i, j)) for i, j in _subroutines(f))
+
+    def scan(slow: set):
+        seeded: set = set()
+        rounding, inside, calls = [], 0, set()
+        for k, x in enumerate(f.ins):
+            mn = x.mnemonic
+            if mn == "BSYNC":
+                seeded.clear()
+                continue
+            if mn == "CALL" and seeded and x.target in subs:
+                calls.add(x.target)
+            fed = any(r in seeded for r in x.srcs)
+            if mn == "FFMA" and not _zero_factor(x):
+                if fed or k in slow:
+                    inside += 1
+                else:
+                    rounding.append(x)
+            if _seed(x) or (fed and (mn in ("FFMA", "FMUL", "FADD", "MOV")
+                                     or x.op.startswith("IMAD.MOV"))):
+                seeded.update(x.dsts)
+        return rounding, inside, calls
+
+    # the windows do not depend on the slow paths: find those, then count
+    slow = set()
+    for t in scan(set())[2]:
+        slow.update(range(subs[t][0], subs[t][1] + 1))
+    rounding, inside, _ = scan(slow)
+    return rounding, inside
+
+
 def cuobjdump_sass(lib: Path) -> str:
     """`cuobjdump -sass` of a built library or program, with the toolkit's
     cuobjdump (beside nvcc)."""
@@ -413,6 +526,7 @@ LATENCY_SRC = Path(__file__).with_name("op_latency.cu")
 LATENCY_STEPS = 512                 # op_latency.cu's kSteps
 # each test of op_latency.cu and the opcode key whose latency it prints
 LATENCY_TESTS = {
+    "lat_rcp": "MUFU.RCP", "lat_rsq": "MUFU.RSQ", "lat_fadd": "FADD",
     "lat_dadd": "DADD", "lat_f2f_f64_f32": "F2F.F64.F32",
     "lat_f2f_round_trip": "F2F.F32.F64", "lat_f2i": "F2I", "lat_i2f": "I2F",
     "lat_frnd": "FRND", "lat_f2i_f64": "F2I.F64", "lat_i2f_f64": "I2F.F64",
