@@ -100,7 +100,26 @@ Phases (any failure raises and the script exits non-zero):
     -> simple PSK), SpaceTeamSat1 9k6 (fsk_demod resampled from 140 ksps ->
     simple PSK) and Saral (psk_demod -> conv-concat at rs_i 5) on the card
     and on the CPU, the .cadu byte-identical and holding the CADUs sent;
- 12. one JSON line describing each kernel, then the card's line and the
+ 12. the deep-space FEC (CCSDS 131.0-B turbo and LDPC): turbo_bcjr (the
+    max-log BCJR) against its plain version on the card, bit-identical, at
+    base 223 at rates 1/2, 1/3, 1/4 and 1/6 (both constituent codes) and
+    at base 1115 with JUICE's 58-frame batch; its SASS must hold no FFMA
+    that rounds and no float64 instruction; at base 1115 its device time,
+    time a call, the plain version's time, the latency bound (the SASS
+    chain of the longer recursion times the steps) and the bound; JUICE
+    X-band at 2.105 Msps (pm_demod -> ccsds_turbo_decoder, rate 1/2, base
+    1115, 5 iterations; 32 frames) on the card, every frame sent decoded
+    with a valid CRC, the four walkers and turbo_bcjr launched; TGO from
+    .soft (one 2^20-soft block of 58 frames, 50 iterations), every frame
+    decoded, its wall against the signal's length and turbo_bcjr's
+    launches; GOES-R raw sounder data at 2 Msps (psk_demod BPSK ->
+    ccsds_ldpc_decoder, C2 with 8192-bit CADUs in the internal stream; 55
+    CADUs in 64 LDPC frames) on the card (K2 launched) and on the CPU, the
+    .cadu byte-identical and holding every CADU sent, and the C2 min-sum's
+    device time and launches for a 32-frame batch; Orion from .soft
+    (OQPSK with the Q rail a symbol late, AR4JA 1/2 k 1024, 64 frames) on
+    both devices, the frames identical and equal to those sent;
+ 13. one JSON line describing each kernel, then the card's line and the
     result line. No kernel of the port lies on the products level or on
     the FM path.
 
@@ -152,14 +171,25 @@ def profiled():
         time.sleep(PROFILE_PAD_S)
 
 
-def call_ms(fn, reps: int) -> float:
-    """Time per call of fn(): the median over `reps` calls of CUDA events
-    recorded around each single call, after one warm-up call. For a
-    kernel's wrapper this includes the host's launch path wherever that
-    takes longer than the kernel."""
+def call_ms(fn, reps: int, back_to_back: bool = False) -> float:
+    """Time per call of fn(), after one warm-up call: the median over `reps`
+    calls of CUDA events recorded around each single call (for a kernel's
+    wrapper this includes the host's launch path wherever that takes
+    longer than the kernel), or with `back_to_back` the time between two
+    events around all `reps` calls, over reps (the device time of a call
+    whose work outlasts the host's enqueueing of the next)."""
     import torch
     fn()
     torch.cuda.synchronize()
+    if back_to_back:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -1677,6 +1707,393 @@ def phase_classic(rng, work: Path) -> tuple:
     return launches, walls
 
 
+# phase 12: the deep-space FEC (turbo and LDPC). turbo_bcjr is held to its
+# plain version on the card at base 223 at each rate (both constituent
+# codes) and at base 1115, rate 1/2, JUICE's 58-frame batch (timed there)
+BCJR_CASES = tuple((223, r, 4) for r in ("1/2", "1/3", "1/4", "1/6")) + \
+    ((1115, "1/2", 58),)
+BCJR_REPS = 5
+# JUICE X-band (pm_demod at 526,316 sym/s recorded at sps 4, turbo 1/2 base
+# 1115, 5 iterations): 32 frames, ~2.3 M samples; TGO from .soft (50
+# iterations): one 2^20-soft block of 58 frames; GOES-R raw sounder data
+# (psk_demod BPSK at 928 ksym/s at 2 Msps, C2 LDPC, 8192-bit CADUs in the
+# internal stream): 55 CADUs in 64 LDPC frames; Orion from .soft (OQPSK,
+# AR4JA 1/2, k 1024): 64 frames
+JUICE_FRAMES, TGO_FRAMES, SOUNDER_CADUS, ORION_FRAMES = 32, 58, 55, 64
+JUICE_RATE, TGO_SYMRATE, GOES_SPS = 2_105_264, 52_765, (125, 58)
+# the decoders' correlation thresholds on demodulated softs: both modules
+# (as in the JAX package) normalize the correlation to softs at full scale
+# (127), and hold it to 0.5 by default; pm_demod's softs sit near +-19 at
+# a modulation index of 1 rad (0.15 of full scale) and psk_demod's near
+# +-55 (0.43), so at the defaults neither locks behind its demod
+# (ROADMAP.md section 3). The baseband passes set the threshold below
+# their demod's scale and above the best match that noise of that scale
+# reaches over a block.
+JUICE_CORR_THRESHOLD, GOES_CORR_THRESHOLD = 0.1, 0.3
+
+
+def _bcjr_sass() -> dict:
+    """turbo_bcjr's SASS: no FFMA that rounds and no float64 instruction in
+    any of its functions (every add, max and scaling by 0.5 is its own
+    correctly rounded instruction: __fadd_rn / __fmul_rn, which nvcc never
+    contracts); then the loop-carried chain of each step loop (the forward
+    and the backward recursion) of the rate-1/2 upper code's walk
+    (tools/sass_chain.py; a step is its 16 state-metric stores)."""
+    from satdump_tpu_torch.tools import sass_chain as sc
+    funcs = sc.parse_sass(_sass("turbo_bcjr"))
+    for f in funcs:
+        rounding, _ = sc.rounding_ffma(f)
+        fp64 = sc.fp64_instructions(f)
+        ffma = sum(x.mnemonic == "FFMA" for x in f.ins)
+        log(f"turbo_bcjr SASS {f.name[-48:]}: {len(f.ins)} instructions, "
+            f"FFMA {ffma}, float64 {len(fp64)}")
+        if rounding or fp64:
+            raise AssertionError(f"{f.name}: FFMA that rounds "
+                                 f"{[x.text for x in rounding[:4]]} or "
+                                 f"float64 {[x.text for x in fp64[:4]]}")
+    walk = next(f for f in funcs if "bcjr_walk_kernelILi2ELi4E" in f.name)
+    measured, _ = sc.measured_latencies()
+    lat = sc.Latency(sc.fixed_latencies(funcs), measured)
+    # the forward and the backward step loops (more if nvcc versions one)
+    loops = sc.step_loops(walk, "STG.E")
+    if len(loops) < 2:
+        raise AssertionError(f"turbo_bcjr walk: {len(loops)} step loops")
+    out = {}
+    for name, loop in zip(map(str, range(len(loops))), loops):
+        r = sc.chain(walk, lat, loop=loop, step_store="STG.E",
+                     stores_a_step=16)
+        log(f"turbo_bcjr SASS chain, loop {name} at {hex(walk.ins[loop[0]].addr)}"
+            f": {r['cycles_a_step']:.2f} cycles a"
+            f" step ({r['instructions_a_pass']} instructions a pass of "
+            f"{r['steps_a_pass']:g} steps); the schedule's stall counts "
+            f"{r['stall_cycles_a_step']:.1f} a step; chain opcodes "
+            f"{json.dumps(r['chain_opcodes'])}; at the smallest latency "
+            f"{json.dumps(r['unmeasured'])}")
+        out[name] = r
+    return out
+
+
+def _bcjr_bound(B: int, S: int, C: int):
+    """The least time of one call: its bytes (Lch and La in, the APP out)
+    and its operations, each counted once a step and frame: the branch
+    metrics as the function needs them (the 2^C signed sums of the C
+    components, C - 1 adds and a scaling each; 0.5 La; one add for each of
+    the 2^(C+1) distinct values of g), the forward step (32 adds, 32 maxes
+    with the floor, 15 for the max, 16 subtractions), the backward step
+    (32, 16, 15, 16) and the APP (64 adds, 32 maxes, a subtraction)."""
+    K = S - 4
+    nbytes = (B * S * C + 2 * B * K) * 4
+    branch = (1 << C) * C + 1 + (1 << (C + 1))
+    ops = B * S * (branch + 95 + 79) + B * K * 97
+    return bound_ms(nbytes, ops, H100_F32_OPS)
+
+
+def phase_bcjr(rng) -> dict:
+    """12.1: turbo_bcjr against its plain version on the card (the same
+    torch ops as on the CPU), tolerance 0, at every case of BCJR_CASES and
+    both constituent codes; the last case timed (device time a call from
+    CUDA events around BCJR_REPS calls back to back, since on an H100 the
+    profiler's session held no device record of these calls after phase
+    11; a wrapper call from events around single calls; the plain
+    version's on the card) beside its bounds: bytes / operations, and the
+    latency bound, the SASS chain a step times S at the maximum SM
+    clock."""
+    import torch
+    from satdump_tpu_torch.ops.cuda.turbo_bcjr import (turbo_bcjr,
+                                                       turbo_bcjr_plain)
+    from satdump_tpu_torch.ops.fec.turbo import _RATES
+    from satdump_tpu_torch.ops.fec.turbo_trellis import MEMORY
+    chains = _bcjr_sass()
+    mhz = sm_clock_mhz()
+    err, res = 0.0, {}
+    for base, rate, B in BCJR_CASES:
+        for comps in map(tuple, _RATES[rate]):
+            K = 8 * base
+            S, C = K + MEMORY, len(comps)
+            L = torch.from_numpy(rng.normal(0, 3, (B, S, C)).astype(
+                np.float32)).cuda()
+            La = torch.from_numpy(rng.normal(0, 4, (B, K)).astype(
+                np.float32)).cuda()
+            got = turbo_bcjr(L, La, comps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = turbo_bcjr_plain(L, La, comps)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            e = float((got - ref).abs().max())
+            same = torch.equal(got, ref)
+            log(f"turbo_bcjr base {base} rate {rate} {comps} B {B}: max |err|"
+                f" {e:.3e} against plain (tolerance 0), bit-identical "
+                f"{same}")
+            if not same:
+                raise AssertionError(f"turbo_bcjr differs from its plain "
+                                     f"version at {base} {rate} {comps}")
+            err = max(err, e)
+            if base == 1115 and comps == ("sys", "p1"):
+                call = lambda: turbo_bcjr(L, La, comps)  # noqa: E731
+                res = {"ms": call_ms(call, BCJR_REPS, back_to_back=True),
+                       "call_ms": call_ms(call, BCJR_REPS),
+                       "plain_ms": plain_ms}
+                res["bound_ms"], res["bound_by"] = _bcjr_bound(B, S, C)
+                cyc = max(c["cycles_a_step"] for c in chains.values())
+                res["latency_bound_ms"] = cyc * S / (mhz * 1e3)
+                res["chain_cycles_per_step"] = cyc
+                res["cycles_per_step"] = res["ms"] * mhz * 1e3 / S
+                log(f"turbo_bcjr at base 1115, {B} frames ({S} steps): "
+                    f"device {res['ms']:.4f} ms a call (events over "
+                    f"{BCJR_REPS} calls: both kernels), "
+                    f"{res['call_ms']:.4f} ms a wrapper call "
+                    f"(events), {res['cycles_per_step']:.1f} cycles a step "
+                    f"at {mhz:.0f} MHz; latency bound (the SASS chain, the "
+                    f"longer recursion) {res['latency_bound_ms']:.4f} ms, "
+                    f"{cyc:.1f} cycles a step; bound {res['bound_ms']:.5f} "
+                    f"ms ({res['bound_by']}); plain on the card "
+                    f"{plain_ms:.1f} ms")
+    res["max_abs_err"] = err
+    return res
+
+
+def _frm_check(out: str, frames: np.ndarray, label: str) -> None:
+    """The .frm holds every frame sent, in order, bit-exact behind the
+    ASM, each with a valid CRC-16."""
+    from satdump_tpu_torch.ops.fec.crc import crc_ccitt
+    got = np.fromfile(out, np.uint8).reshape(-1, 4 + frames.shape[1])
+    ok = sum(crc_ccitt.compute(g[4:-2]) == (int(g[-2]) << 8 | int(g[-1]))
+             for g in got)
+    log(f"{label}: {len(got)} frames decoded of {len(frames)} sent, "
+        f"{ok} with a valid CRC")
+    if len(got) != len(frames) or not np.array_equal(got[:, 4:], frames) \
+            or ok != len(frames):
+        raise AssertionError(f"{label}: frames differ from those sent")
+
+
+def _minsum_profile(rng, frames: int = 32):
+    """The C2 min-sum (10 iterations) on `frames` noisy frames on the card:
+    its time a call (CUDA events over three calls back to back), and its
+    device time and kernel launches a call from torch.profiler (None
+    where the profiler records no device work)."""
+    import torch
+    from torch.autograd import DeviceType
+    from satdump_tpu_torch.ops.fec.ldpc_ccsds import CCSDSLDPC
+    dec = CCSDSLDPC("7/8", iters=10).dec
+    y = 1.0 + 0.5 * rng.standard_normal((frames, dec.code.n))
+    llr = torch.from_numpy((4.0 * y).astype(np.float32)).cuda()
+    dec.decode_tensor(llr)
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        for _ in range(3):
+            dec.decode_tensor(llr)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 3 / 1e3 \
+        if ev else None
+    return (call_ms(lambda: dec.decode_tensor(llr), 3,
+                    back_to_back=True), busy,
+            len(ev) / 3 if ev else None)
+
+
+def _first_use_split(work: str) -> None:
+    """Phase 12.6, run in a process of its own: the GOES-R raw sounder pass
+    (12.4) twice, then Orion's from .soft (12.5) twice, on the card, each
+    pass's wall split into its correlator calls (`correlate` and
+    `earliest`) and its min-sum calls, each timed between two
+    synchronizations, the first call apart; the rest is the demod and the
+    host's work, where cProfile names the functions of most self time.
+    Prints the split as one JSON object."""
+    import cProfile
+    import pstats
+    import torch
+    sys.path.insert(0, str(ROOT))
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    out: dict = {"cuda_init_s": time.perf_counter() - t0}
+    from satdump_tpu_torch.ops.fec.correlator import CorrelatorGeneric
+    from satdump_tpu_torch.ops.fec.ldpc import MinSumDecoder
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    calls: dict = {}
+
+    def timed(cls, name, key):
+        f = getattr(cls, name)
+
+        def g(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = f(*a, **k)
+            torch.cuda.synchronize()
+            calls.setdefault(key, []).append(time.perf_counter() - t)
+            return r
+        setattr(cls, name, g)
+    timed(CorrelatorGeneric, "correlate", "correlator")
+    timed(CorrelatorGeneric, "earliest", "correlator")
+    timed(MinSumDecoder, "decode", "minsum")
+    w = Path(work)
+    passes = [("goes_raw_sounder_data", lambda d: run_pipeline(
+        _pipeline("GOES.json", "goes_raw_sounder_data"),
+        str(w / "goes" / "pass.cf32"), str(w / "split" / d),
+        user_params=dict(PASS_PARAMS, samplerate=2e6,
+                         corr_threshold=GOES_CORR_THRESHOLD)))] * 2 + \
+        [("orion_link", lambda d: run_pipeline(
+            _pipeline("Orion.json", "orion_link", "soft", "cadu"),
+            str(w / "orion" / "pass.soft"), str(w / "split" / d),
+            user_params=dict(PASS_PARAMS), start_level="soft"))] * 2
+    for i, (name, run) in enumerate(passes):
+        calls.clear()
+        prof = cProfile.Profile()
+        t = time.perf_counter()
+        prof.runcall(run, f"{name}-{i}")
+        torch.cuda.synchronize()
+        r = {"wall_s": time.perf_counter() - t}
+        st = pstats.Stats(prof).sort_stats("tottime")
+        r["self_time_s"] = [
+            [f"{Path(f).name}:{line}:{fn}", st.stats[(f, line, fn)][1],
+             st.stats[(f, line, fn)][2]]
+            for f, line, fn in st.fcn_list[:8]]
+        for key, ts in calls.items():
+            r[key] = {"calls": len(ts), "first_s": ts[0],
+                      "rest_s": sum(ts[1:])}
+        r["rest_s"] = r["wall_s"] - sum(sum(ts) for ts in calls.values())
+        out[f"{name} {i % 2 + 1}"] = r
+    print(json.dumps(out))
+
+
+def phase_deep_space(rng, work: Path) -> tuple:
+    """The deep-space FEC on the card (phase 12); returns turbo_bcjr's row
+    (12.1, with its launches on JUICE's pass) and the walls."""
+    import torch
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.ops.cuda.resample import resample_arith_grid
+    from satdump_tpu_torch.ops.cuda.turbo_bcjr import turbo_bcjr
+    from satdump_tpu_torch.ops.fec.ldpc_ccsds import CCSDSLDPC
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    t_phase = time.perf_counter()
+    row = phase_bcjr(rng)
+    walls = {}
+    # 12.2 JUICE X-band: baseband -> frames on the card
+    frames = sim.crc_frames(JUICE_FRAMES, rng, 1115)
+    # JUICE's narrow loops (PLL 0.002, Costas 0.001) lock in a few thousand
+    # symbols: 8192 random bits go ahead of the first marker
+    bb = sim.pm_bpsk_baseband(sim.turbo_stream_bits(frames, 1115, "1/2"), 4,
+                              rng, lead_bits=8192)
+    w = work / "juice"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    out, wall, launches = _run_counted(lambda: run_pipeline(
+        _pipeline("Juice.json", "juice_x_link"), str(w / "pass.cf32"),
+        str(w / "cuda"), user_params=dict(
+            PASS_PARAMS, samplerate=JUICE_RATE,
+            correlator_threshold=JUICE_CORR_THRESHOLD)),
+        "juice_x_link", kernels=_classic_kernels() + (turbo_bcjr,))
+    _frm_check(out, frames, f"juice_x_link ({len(bb)} samples)")
+    row["launches"] = launches["turbo_bcjr"]
+    walls["juice_frm"] = wall
+    log(f"juice_x_link 2.105 Msps: baseband->frames on the card {wall:.3f} s"
+        f" = {len(bb) / wall / 1e6:.3f} Msamp/s (live rate 2.105); launches "
+        f"{launches}")
+    # 12.3 TGO from .soft: one 2^20-soft block, 50 iterations
+    frames = sim.crc_frames(TGO_FRAMES, rng, 1115)
+    soft = sim.soft_stream(sim.turbo_stream_bits(frames, 1115, "1/2"), rng)
+    w = work / "tgo"
+    w.mkdir(parents=True, exist_ok=True)
+    soft.tofile(w / "pass.soft")
+    out, wall, launches = _run_counted(lambda: run_pipeline(
+        _pipeline("TGO.json", "tgo_link", "soft", "cadu"), str(w /
+                                                              "pass.soft"),
+        str(w / "cuda"), user_params=dict(PASS_PARAMS), start_level="soft"),
+        "tgo_link", kernels=(turbo_bcjr,))
+    _frm_check(out, frames, f"tgo_link ({len(soft)} softs)")
+    walls["tgo_frm"] = wall
+    log(f"tgo_link from .soft: {len(soft)} softs ({len(soft) / TGO_SYMRATE:.2f}"
+        f" s of signal at 52,765 sym/s) decoded on the card in {wall:.3f} s;"
+        f" turbo_bcjr launches {launches['turbo_bcjr']} (2 x 50 + 1 a "
+        f"block)")
+    # 12.4 GOES-R raw sounder data: baseband -> CADU, card and CPU
+    cadus = sim.make_cadus(SOUNDER_CADUS, rng)
+    ld = CCSDSLDPC("7/8")
+    bits = sim.ldpc_stream_bits(sim.ldpc_internal_frames(cadus, ld, rng),
+                                0x1ACFFC1D, 32)
+    chan = np.concatenate([rng.integers(0, 2, 4096).astype(np.uint8), bits,
+                           rng.integers(0, 2, 2048).astype(np.uint8)])
+    bb = sim.psk_baseband(chan, rng, GOES_SPS, "bpsk")
+    out, wall = _cadu_card_cpu(
+        "goes_raw_sounder_data 2 Msps", "GOES.json", "goes_raw_sounder_data",
+        cadus, bb, work / "goes", {"samplerate": 2e6,
+                                   "corr_threshold": GOES_CORR_THRESHOLD},
+        kernels=(resample_arith_grid,))
+    if len(np.fromfile(out, np.uint8)) != cadus.size:
+        raise AssertionError("goes_raw_sounder_data: a CADU sent is missing")
+    # the same pass again on the card: the first one pays the process's
+    # first use of the min-sum's kernels and the correlator's FFT plans
+    again, wall2, _ = _run_counted(lambda: run_pipeline(
+        _pipeline("GOES.json", "goes_raw_sounder_data"),
+        str(work / "goes" / "pass.cf32"), str(work / "goes" / "cuda-again"),
+        user_params=dict(PASS_PARAMS, samplerate=2e6,
+                         corr_threshold=GOES_CORR_THRESHOLD)),
+        "goes_raw_sounder_data again", kernels=(resample_arith_grid,))
+    if not np.array_equal(np.fromfile(again, np.uint8),
+                          np.fromfile(out, np.uint8)):
+        raise AssertionError("goes_raw_sounder_data: the second card pass "
+                             "differs from the first")
+    walls["goes_raw_sounder_cadu"] = wall
+    walls["goes_raw_sounder_cadu_again"] = wall2
+    log(f"goes_raw_sounder_data: {len(bb)} samples in {wall:.3f} s = "
+        f"{len(bb) / wall / 1e6:.3f} Msamp/s, again {wall2:.3f} s = "
+        f"{len(bb) / wall2 / 1e6:.3f} Msamp/s (live rate 2.0)")
+    ms, busy, n = _minsum_profile(rng)
+    log(f"C2 min-sum, 10 iterations, 32 frames: {ms:.3f} ms a call (events),"
+        f" device busy {busy if busy is None else round(busy, 4)} ms and "
+        f"{n} kernel launches a call (profiler; None: not measured)")
+    walls["minsum_c2_32_ms"] = ms
+    # 12.5 Orion from .soft: OQPSK with the Q rail a symbol late and both
+    # rails negated (the correlator's swap path), card and CPU
+    ld = CCSDSLDPC("1/2", 1024)
+    frames = ld.encode_frames(ld.encoder(), rng.integers(
+        0, 2, (ORION_FRAMES, ld.data_bits)).astype(np.uint8))
+    soft = sim.oqpsk_q_late(sim.soft_stream(
+        sim.ldpc_stream_bits(frames, 0x034776C7272895B0, 64), rng, mag=100,
+        sigma=20.0, prefix=778))
+    w = work / "orion"
+    w.mkdir(parents=True, exist_ok=True)
+    soft.tofile(w / "pass.soft")
+    sent = np.concatenate([np.tile(np.frombuffer(
+        (0x034776C7272895B0).to_bytes(8, "big"), np.uint8),
+        (ORION_FRAMES, 1)), np.packbits(frames, axis=-1)], axis=1)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = run_pipeline(_pipeline("Orion.json", "orion_link", "soft",
+                                     "cadu"), str(w / "pass.soft"),
+                           str(w / dev), user_params=dict(
+                               PASS_PARAMS, torch_device=dev),
+                           start_level="soft")
+        torch.cuda.synchronize()
+        got[dev] = np.fromfile(out, np.uint8)
+        log(f"orion_link from .soft on {dev}: {time.perf_counter() - t0:.3f}"
+            f" s, {got[dev].size // sent.shape[1]} frames")
+    if not (np.array_equal(got["cuda"], got["cpu"])
+            and np.array_equal(got["cuda"], sent.reshape(-1))):
+        raise AssertionError("orion_link: frames differ between the devices "
+                             "or from those sent")
+    log(f"orion_link: {ORION_FRAMES} frames identical on cuda and cpu and to"
+        f" those sent")
+    # 12.6 where the LDPC passes' first card pass goes, in a fresh process
+    split = subprocess.run(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, "
+         f"{str(ROOT)!r}); import chip_smoke; "
+         f"chip_smoke._first_use_split({str(work)!r})"],
+        capture_output=True, text=True, timeout=300)
+    if split.returncode:
+        raise AssertionError(f"first-use split failed: {split.stderr[-2000:]}")
+    log(f"LDPC passes in a fresh process, s (first call apart): "
+        f"{split.stdout.strip().splitlines()[-1]}")
+    for line in (split.stdout + split.stderr).splitlines():
+        if " done in " in line:
+            log(f"  fresh process: {line.strip()[:160]}")
+    log(f"deep-space phase {time.perf_counter() - t_phase:.1f} s")
+    return row, walls
+
+
 def phase_products(rng, work: Path) -> None:
     """Products at full width from the cadu level: metop_instruments once,
     then the processor on the card, on the CPU (composites must be
@@ -1795,12 +2212,15 @@ def main() -> int:
         phase_idct(rng)
         walls = phase_resampled(rng, work / "resampled")
         classic_launches, classic_walls = phase_classic(rng, work / "classic")
+        bcjr, fec_walls = phase_deep_space(rng, work / "deep_space")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the classic walkers' launches come from their slice's main path,
     # INTEGRAL's pm_demod -> conv-concat pass; K1's stay MetOp's
     for k in ("agc_walk", "pll_walk", "costas_walk", "mm_walk"):
         launches[k] = classic_launches[k]
+    # turbo_bcjr's from its slice's main path, JUICE's baseband -> frames
+    launches["turbo_bcjr"] = bcjr.pop("launches")
     costas_err = max(r["max_abs_err"] for k, r in walkers.items()
                      if k.startswith("costas"))
     mm_err = max(r["max_abs_err"] for k, r in walkers.items()
@@ -1823,19 +2243,25 @@ def main() -> int:
              dict(walkers["costas order 2"], max_abs_err=costas_err)),
             ("mm_walk", "satdump_tpu_torch/csrc/mm_clock.cu",
              f"{sw_rep}/clock_recovery.py:132",
-             dict(walkers["mm complex, sps 8"], max_abs_err=mm_err))):
+             dict(walkers["mm complex, sps 8"], max_abs_err=mm_err)),
+            # the max-log BCJR replaces the lax.scan recursions of
+            # _bcjr_maxlog (no Pallas); its row is at base 1115 with
+            # JUICE's 58-frame batch, its launches JUICE's pass's
+            ("turbo_bcjr", "satdump_tpu_torch/csrc/turbo_bcjr.cu",
+             f"{sw_rep}/fec/turbo.py:205", bcjr)):
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": rep, "launches": launches[name],
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for k in ("call_ms", "latency_bound_ms", "cycles_per_sample",
-                  "chain_cycles_per_step"):
+                  "cycles_per_step", "chain_cycles_per_step"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
     log(f"resampled walls on the card, s: {json.dumps(walls)}")
     log(f"classic walls on the card, s: {json.dumps(classic_walls)}")
+    log(f"deep-space walls on the card, s: {json.dumps(fec_walls)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

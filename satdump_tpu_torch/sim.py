@@ -145,7 +145,19 @@ def ccsds_psk_baseband(cadus: np.ndarray, rng: np.random.Generator,
     seed comes from `rng`. Returns complex64 baseband."""
     bits = encode_cadu_stream(cadus, nrzm=nrzm)
     tail = rng.integers(0, 2, 2048).astype(np.uint8)
-    chan = np.concatenate([bits, tail])
+    return psk_baseband(np.concatenate([bits, tail]), rng, sps,
+                        constellation, snr_db, freq_offset, dc)
+
+
+def psk_baseband(chan: np.ndarray, rng: np.random.Generator,
+                 sps: Tuple[int, int], constellation: str = "qpsk",
+                 snr_db: float = 18.0, freq_offset: float = 1e-4,
+                 dc: complex = 0.0) -> np.ndarray:
+    """Channel bits at exactly sps = up/down samples/symbol: BPSK (one bit a
+    symbol, 1 -> +1), QPSK or OQPSK (bit pairs, I first; OQPSK's I rail half
+    a symbol late), RRC alpha 0.5, then AWGN at `snr_db`, a carrier offset
+    of `freq_offset` cycles/sample, a phase of 0.4 rad and a DC term `dc`.
+    The channel noise seed comes from `rng`. Returns complex64 baseband."""
     if constellation == "bpsk":
         tx = qpsk_modulate_rational(
             (chan.astype(np.float32) * 2 - 1).astype(np.complex64), *sps)
@@ -227,6 +239,81 @@ def pm_bpsk_baseband(chan_bits: np.ndarray, sps: float,
     x = x + noise * (rng.standard_normal(len(x))
                      + 1j * rng.standard_normal(len(x)))
     return x.astype(np.complex64)
+
+
+def crc_frames(n: int, rng: np.random.Generator, size: int) -> np.ndarray:
+    """(n, size) random frames whose last two bytes are the CRC-16 (CCITT,
+    big-endian) of the rest, as ccsds_turbo_decoder counts `crc_ok`."""
+    from satdump_tpu_torch.ops.fec.crc import crc_ccitt
+    frames = rng.integers(0, 256, (n, size), dtype=np.uint8)
+    for fr in frames:
+        c = crc_ccitt.compute(fr[: size - 2])
+        fr[size - 2], fr[size - 1] = c >> 8, c & 0xFF
+    return frames
+
+
+def turbo_stream_bits(frames: np.ndarray, base: int, rate: str
+                      ) -> np.ndarray:
+    """Frames (n, base) -> the channel bits ccsds_turbo_decoder takes: each
+    frame turbo-encoded at `rate`, the codeword PN-randomized from its
+    start, behind the rate's attached sync marker (tests/test_turbo.py's
+    fixture)."""
+    from satdump_tpu_torch.ops.fec.randomization import derand_ccsds_soft_bits
+    from satdump_tpu_torch.ops.fec.turbo import CCSDSTurbo
+    from satdump_tpu_torch.pipeline.modules.ccsds.turbo_decoder import (
+        TURBO_ASM, _asm_bits)
+    cw = CCSDSTurbo(base, rate).encode_bits(np.unpackbits(frames, axis=-1))
+    cw = derand_ccsds_soft_bits(cw)
+    asm = np.tile(_asm_bits(*TURBO_ASM[rate]), (len(frames), 1))
+    return np.concatenate([asm, cw], axis=1).reshape(-1)
+
+
+def ldpc_stream_bits(frames: np.ndarray, asm_val: int, asm_size: int
+                     ) -> np.ndarray:
+    """LDPC frames (n, frame_bits) channel bits -> the stream
+    ccsds_ldpc_decoder takes: each frame PN-randomized from its start,
+    behind the `asm_size`-bit marker."""
+    from satdump_tpu_torch.ops.fec.randomization import derand_ccsds_soft_bits
+    frames = derand_ccsds_soft_bits(np.asarray(frames, np.uint8))
+    asm = ((asm_val >> np.arange(asm_size - 1, -1, -1)) & 1).astype(np.uint8)
+    return np.concatenate([np.tile(asm, (len(frames), 1)), frames],
+                          axis=1).reshape(-1)
+
+
+def ldpc_internal_frames(cadus: np.ndarray, ld, rng: np.random.Generator
+                         ) -> np.ndarray:
+    """CADUs carried as an LDPC internal stream (GOES-R raw sounder data):
+    their bits cut into blocks of `ld.data_bits` (the last one padded with
+    random bits) and each encoded into one frame of `ld` (a CCSDSLDPC).
+    Returns the frames' channel bits (n, frame_bits)."""
+    bits = np.unpackbits(np.asarray(cadus, np.uint8).reshape(-1))
+    n = -(-len(bits) // ld.data_bits)
+    pad = rng.integers(0, 2, n * ld.data_bits - len(bits)).astype(np.uint8)
+    data = np.concatenate([bits, pad]).reshape(n, ld.data_bits)
+    return ld.encode_frames(ld.encoder(), data)
+
+
+def soft_stream(bits: np.ndarray, rng: np.random.Generator, mag: int = 90,
+                sigma: float = 12.0, prefix: int = 777) -> np.ndarray:
+    """Channel bits -> int8 softs of +-mag (bit 1 positive) behind `prefix`
+    random softs in [-50, 50), with Gaussian noise of `sigma`, clipped to
+    +-127 (tests/test_turbo.py's fixture)."""
+    soft = (np.asarray(bits).astype(np.int16) * (2 * mag) - mag).astype(
+        np.int8)
+    soft = np.concatenate([rng.integers(-50, 50, prefix).astype(np.int8),
+                           soft])
+    return np.clip(soft + rng.normal(0, sigma, len(soft)), -127, 127
+                   ).astype(np.int8)
+
+
+def oqpsk_q_late(soft: np.ndarray) -> np.ndarray:
+    """Interleaved (I, Q) softs with the Q rail one symbol late (the first
+    Q an erasure) and both rails negated: an OQPSK stream that the
+    correlator finds only through its Q-delayed replica turned by 180."""
+    out = np.asarray(soft, np.int8).copy()
+    out[3::2] = soft[1:-2:2]
+    out[1] = 0
+    return np.clip(-out.astype(np.int16), -127, 127).astype(np.int8)
 
 
 def fsk_baseband(chan_bits: np.ndarray, samplerate: float, symbolrate: float,

@@ -282,6 +282,30 @@ class Latency:
         return min(got)
 
 
+def step_loops(f: Function, step_store: str) -> List[Tuple[int, int]]:
+    """(first, last) instruction index of each innermost loop with no
+    barrier in it, outside the subroutines f calls, that holds a
+    `step_store` (an opcode with its modifiers): the per-step loops of a
+    kernel that walks in more than one loop (csrc/turbo_bcjr.cu's forward
+    and backward recursions), in address order."""
+    at = {x.addr: i for i, x in enumerate(f.ins)}
+    called = [range(i, j + 1) for i, j in _subroutines(f)]
+    loops = []
+    for i, x in enumerate(f.ins):
+        if x.branch and x.target is not None and x.target <= x.addr \
+                and x.target in at:
+            j = at[x.target]
+            body = f.ins[j:i + 1]
+            if any(y.mnemonic == "BAR" for y in body) or \
+                    any(i in r for r in called) or \
+                    not any(y.op == step_store for y in body):
+                continue
+            loops.append((j, i))
+    inner = [a for a in loops if not any(b != a and a[0] <= b[0] and
+                                         b[1] <= a[1] for b in loops)]
+    return sorted(inner)
+
+
 def walk_loop(f: Function) -> Tuple[int, int]:
     """(first, last) instruction index of the largest loop with no barrier
     in it outside the subroutines f calls: the walker's per-step loop."""
@@ -332,10 +356,14 @@ def _merge(states: List[dict], cold: List[bool]) -> dict:
             for r in set().union(*states)}
 
 
-def chain(f: Function, lat: Latency) -> dict:
-    """The loop-carried chain of f's walk loop: cycles a pass and a step,
-    steps a pass, and the opcodes along the longest one-pass cycle."""
-    j0, j1 = walk_loop(f)
+def chain(f: Function, lat: Latency, loop: Optional[Tuple[int, int]] = None,
+          step_store: Optional[str] = None, stores_a_step: int = 1) -> dict:
+    """The loop-carried chain of f's walk loop (or of `loop`, from
+    step_loops): cycles a pass and a step, steps a pass, and the opcodes
+    along the longest one-pass cycle. A step is one 8-byte store, or
+    `stores_a_step` stores of the opcode `step_store` where one is
+    given."""
+    j0, j1 = loop or walk_loop(f)
     body = f.ins[j0:j1 + 1]
     spill = [x.text for x in body if x.mnemonic in ("LDL", "STL")]
     if spill:
@@ -407,7 +435,10 @@ def chain(f: Function, lat: Latency) -> dict:
         best = max(best, float(np.max(np.diag(p))) / k)
         if k < n:
             p = np.max(p[:, :, None] + a[None, :, :], axis=1)
-    steps = sum(1 for x in body if x.op.startswith(_STEP_STORES))
+    if step_store is None:
+        steps = sum(1 for x in body if x.op.startswith(_STEP_STORES))
+    else:
+        steps = sum(1 for x in body if x.op == step_store) / stores_a_step
     if steps == 0 or not np.isfinite(best):
         raise ValueError(f"{f.name}: no step stores or no carried chain")
     # the one-pass self cycle with the most cycles, for its opcodes

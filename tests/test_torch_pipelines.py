@@ -1,0 +1,61 @@
+"""Which pipelines of resources/pipelines/*.json the port can run: each
+pipeline's `work` modules checked against the port's module registry."""
+
+import json
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PIPELINES = ROOT / "resources" / "pipelines"
+
+# the CCSDS 131.0-B deep-space pipelines: turbo behind pm_demod / psk_demod,
+# LDPC behind psk_demod / pm_demod
+DEEP_SPACE = (
+    ("Chandrayaan.json", "chandrayaan3_link_2k"),
+    ("Chandrayaan.json", "chandrayaan3_link_8k"),
+    ("Escapade.json", "escapade_x_link"),
+    ("Hera.json", "hera_x_link"),
+    ("Juice.json", "juice_x_link"),
+    ("ORX.json", "orx_link"),
+    ("Psyche.json", "psyche_hr"),
+    ("TGO.json", "tgo_link"),
+    ("GOES.json", "goes_raw_sounder_data"),
+    ("Iris.json", "iris_dump"),
+    ("Orion.json", "orion_link"),
+    ("Peregrine.json", "peregrine_x_tlm"),
+)
+
+
+def _pipelines():
+    """{(file, id): [module ids of its work levels]}."""
+    out = {}
+    for f in sorted(PIPELINES.glob("*.json")):
+        for pid, p in json.loads(f.read_text()).items():
+            if isinstance(p, dict) and "work" in p:
+                out[(f.name, pid)] = [lvl["module"] for lvl in
+                                      p["work"].values()
+                                      if isinstance(lvl, dict)
+                                      and "module" in lvl]
+    return out
+
+
+def _registry():
+    from satdump_tpu_torch.pipeline.module import (module_registry,
+                                                   register_all_modules)
+    register_all_modules()
+    return set(module_registry)
+
+
+@pytest.mark.parametrize("fname,pipe_id", DEEP_SPACE)
+def test_deep_space_pipeline_has_every_module(fname, pipe_id):
+    mods = _pipelines()[(fname, pipe_id)]
+    assert {"ccsds_turbo_decoder", "ccsds_ldpc_decoder"} & set(mods)
+    assert set(mods) <= _registry(), mods
+
+
+def test_pipelines_with_every_module_registered():
+    pipes, reg = _pipelines(), _registry()
+    full = [k for k, mods in pipes.items() if set(mods) <= reg]
+    assert len(pipes) == 123
+    assert len(full) >= 93, len(full)

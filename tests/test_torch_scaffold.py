@@ -117,8 +117,8 @@ def test_port_registry_holds_only_ported_modules():
                                                    register_all_modules)
     register_all_modules()
     assert sorted(module_registry) == [
-        "am_demod", "ccsds_conv_concat_decoder", "ccsds_simple_psk_decoder",
-        "fm_demod", "fsk_demod", "meteor_lrpt_decoder", "meteor_msumr_lrpt",
+        "am_demod", "ccsds_conv_concat_decoder", "ccsds_ldpc_decoder",
+        "ccsds_simple_psk_decoder", "ccsds_turbo_decoder", "fm_demod", "fsk_demod", "meteor_lrpt_decoder", "meteor_msumr_lrpt",
         "metop_ahrpt_decoder", "metop_instruments", "noaa_apt_decoder",
         "noaa_apt_demod", "pm_demod", "psk_demod", "sdpsk_demod",
         "ssb_demod"]
@@ -192,6 +192,15 @@ def test_wrappers_raise_on_cuda_without_fallback(monkeypatch):
     walkers = (sample_walk.agc_walk, sample_walk.pll_walk,
                sample_walk.costas_walk, mm_clock.mm_walk)
     assert [w.launches for w in walkers] == [0, 0, 0, 0]
+    # the max-log BCJR
+    from satdump_tpu_torch.ops.cuda import turbo_bcjr
+    monkeypatch.setattr(turbo_bcjr, "turbo_bcjr_plain", no_fallback)
+    with pytest.raises(Exception) as e:
+        turbo_bcjr.turbo_bcjr(_CudaLike((2, 1788, 2), torch.float32),
+                              _CudaLike((2, 1784), torch.float32),
+                              ("sys", "p1"))
+    assert not isinstance(e.value, FellBack), e.value
+    assert turbo_bcjr.turbo_bcjr.launches == 0
     with pytest.raises(ValueError, match="unsupported device"):
         sample_walk.costas_walk(torch.zeros(8, dtype=torch.complex64,
                                             device="meta"),
