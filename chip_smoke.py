@@ -119,7 +119,24 @@ Phases (any failure raises and the script exits non-zero):
     device time and launches for a 32-frame batch; Orion from .soft
     (OQPSK with the Q rail a symbol late, AR4JA 1/2 k 1024, 64 frames) on
     both devices, the frames identical and equal to those sent;
- 13. one JSON line describing each kernel, then the card's line and the
+ 13. DVB-S2 and DVB-S: GOES-R GRB at full width (8,665,938 sym/s, QPSK
+    9/10 = MODCOD 11, normal frames, at 2 sps = 17.33 Msps; ~4.36 M
+    samples, 67 PLFRAMEs, 230 CADUs in the first 65) through the port's
+    run_pipeline on
+    the card (dvbs2_demod -> goes_grb_cadu_extractor), twice: every CADU
+    decoded one that was sent, at most 2 missing, agc_walk launched (its
+    count set to 0 just before each pass and read just after), each wall
+    against the live 17.33 Msamp/s; one block's split (the front end's
+    and demap + LDPC's device ms, the host PL layer's and BCH's ms, the
+    copies, launches and idle share); the same pipeline on 9 PLFRAMEs on
+    the card and the CPU, the .bbframe and .cadu byte-identical; the
+    `dvbs2` pipeline (its file's MODCOD 4 and 1 Msym/s, short frames) on
+    200 TS packets on the card, every packet out one sent (dvbs2_demod
+    given no modcod raises); and
+    dvbs_demod at rate 3/4 (found by its rate search) on the card and the
+    CPU, the .ts byte-identical and holding packets sent, with the
+    kernels it launched;
+ 14. one JSON line describing each kernel, then the card's line and the
     result line. No kernel of the port lies on the products level or on
     the FM path.
 
@@ -1726,9 +1743,9 @@ JUICE_RATE, TGO_SYMRATE, GOES_SPS = 2_105_264, 52_765, (125, 58)
 # (127), and hold it to 0.5 by default; pm_demod's softs sit near +-19 at
 # a modulation index of 1 rad (0.15 of full scale) and psk_demod's near
 # +-55 (0.43), so at the defaults neither locks behind its demod
-# (ROADMAP.md section 3). The baseband passes set the threshold below
-# their demod's scale and above the best match that noise of that scale
-# reaches over a block.
+# (ROADMAP.md, queue item 18). The baseband passes set the threshold
+# below their demod's scale and above the best match that noise of that
+# scale reaches over a block.
 JUICE_CORR_THRESHOLD, GOES_CORR_THRESHOLD = 0.1, 0.3
 
 
@@ -2094,6 +2111,264 @@ def phase_deep_space(rng, work: Path) -> tuple:
     return row, walls
 
 
+# phase 13: DVB-S2 and DVB-S. GOES-R GRB (GOES.json goes_grb: 8,665,938
+# sym/s, QPSK 9/10 = MODCOD 11, normal frames, no pilots, rrc_alpha 0.25)
+# at 2 sps: 67 PLFRAMEs of 2048-byte CADUs (237, 230 in the first 65)
+# behind 1000 lead symbols, 4,355,660 samples (> 2^22, 0.251 s); the
+# same pipeline on 9 PLFRAMEs (7 of CADUs) on the card and the CPU; the
+# `dvbs2` pipeline (1 Msym/s at 2 Msps, MODCOD 4 short) on 200 TS packets;
+# dvbs_demod at 3/4 (tests/test_dvbs_legacy.py's 100 ksym/s at 220 ksps)
+# on 128 TS packets, card and CPU
+GRB_FRAMES, GRB_SHORT_FRAMES, S2_TS_PACKETS, DVBS_TS_PACKETS = 65, 7, 200, 128
+GRB_LIVE_MSPS = 2 * 8_665_938 / 1e6
+DVBS_PUNCTURED = "3/4"
+
+
+def _grb_input(rng, frames: int):
+    """GRB baseband at exactly 2 sps: `frames` BBFrames of 2048-byte CADUs
+    then 2 more (the block trim and the extractor's look-ahead end there),
+    every frame full of CADUs: (cadus, the count the first `frames` hold,
+    baseband)."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.ops.dvbs2 import tx
+    per_frame = 58192 // 8 - 10
+    n = (frames + 2) * per_frame // 2048
+    cadus = rng.integers(0, 256, (n, 2048)).astype(np.uint8)
+    cadus[:, :4] = [0x1A, 0xCF, 0xFC, 0x1D]
+    syms = tx.bbframes_to_symbols(sim.grb_bbframes(cadus), 11, False,
+                                  False).ravel()
+    return cadus, frames * per_frame // 2048, sim.dvbs2_baseband(syms, rng)
+
+
+def _check_grb(out: str, cadus: np.ndarray, n: int, label: str) -> None:
+    """Every CADU out one that was sent, bit for bit, and at least the `n`
+    that the data frames hold less 2 at the edges."""
+    got = np.fromfile(out, dtype=np.uint8).reshape(-1, 2048)
+    sent = {c.tobytes() for c in cadus}
+    bad = sum(g.tobytes() not in sent for g in got)
+    log(f"{label}: {len(got)} CADUs decoded, {n} in the data frames, "
+        f"{bad} not bit-exact")
+    if bad or len(got) < n - 2:
+        raise AssertionError(f"{label}: {bad} corrupt CADUs, {len(got)} of "
+                             f"{n} decoded")
+
+
+def _grb_block_split(bb: np.ndarray, pipe, params: dict) -> dict:
+    """One 2^18-sample block of the GRB input through dvbs2_demod's layers
+    on the card (blocks 0-1 first, so the PL layer holds its carry): each
+    layer timed on its own (the front end by CUDA events, the demap +
+    LDPC by CUDA events and the host clock, the copies and the host layers
+    by the host clock between synchronizations), then the next block's
+    whole work under torch.profiler for its launches, copies and idle
+    share, and the timed block's demap + LDPC again for theirs."""
+    import torch
+    from satdump_tpu_torch.ops.dvbs2.rx import DVBS2Demod
+    from satdump_tpu_torch.pipeline.modules.dvbs2.demod import \
+        DVBS2DemodModule
+    step = next(s for s in pipe.steps if s.module_id == "dvbs2_demod")
+    mod = DVBS2DemodModule("", "", pipe.prepare_parameters(
+        step, dict(params, torch_device="cuda")))
+    mod._build()
+    n = mod.block_size
+    dem = DVBS2Demod(mod.modcod, mod.shortframes, mod.pilots,
+                     ldpc_iters=mod.ldpc_iters, device="cuda")
+
+    def block(i):
+        x = mod.to_device(bb[i * n: (i + 1) * n])
+        syms, valid = mod.front_end(x)
+        payloads, nv = dem.pl_layer(mod.keep_valid(syms, valid, None,
+                                                   False).cpu().numpy())
+        if payloads is not None:
+            dem.bch_layer(dem.fec_layer(payloads, nv))
+
+    block(0)
+    block(1)
+    torch.cuda.synchronize()
+    split = {}
+    t0 = time.perf_counter()
+    x = mod.to_device(bb[2 * n: 3 * n])
+    torch.cuda.synchronize()
+    split["h2d_samples_ms"] = (time.perf_counter() - t0) * 1e3
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    syms, valid = mod.front_end(x)
+    b.record()
+    b.synchronize()
+    split["front_end_ms"] = a.elapsed_time(b)
+    t0 = time.perf_counter()
+    s = mod.keep_valid(syms, valid, None, False).cpu().numpy()
+    split["d2h_symbols_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    payloads, nv = dem.pl_layer(s)
+    split["pl_host_ms"] = (time.perf_counter() - t0) * 1e3
+    if payloads is None:
+        raise AssertionError("GRB block split: no whole PLFRAME in the block")
+    split["frames"] = len(payloads)
+    a.record()
+    t0 = time.perf_counter()
+    bits = dem.fec_layer(payloads, nv)
+    b.record()
+    b.synchronize()
+    split["demap_ldpc_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    split["demap_ldpc_events_ms"] = a.elapsed_time(b)
+    t0 = time.perf_counter()
+    frames = dem.bch_layer(bits)
+    split["bch_host_ms"] = (time.perf_counter() - t0) * 1e3
+    if len(frames) != len(payloads):
+        raise AssertionError(f"GRB block split: {len(frames)} of "
+                             f"{len(payloads)} frames passed BCH")
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        block(3)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    r = report_profile("GRB block (dvbs2_demod, the next block)", prof,
+                       pwall, pwall)
+    with profiled() as prof:
+        dem.fec_layer(payloads, nv)
+        torch.cuda.synchronize()
+    f = report_profile("GRB demap + LDPC of the timed block", prof,
+                       pwall, pwall, top=4)
+    split.update(block_busy_ms=r["busy_ms"], block_launches=r["launches"],
+                 block_copies=r["copies"], demap_ldpc_busy_ms=f["busy_ms"],
+                 demap_ldpc_launches=f["launches"],
+                 payload_bytes=payloads.nbytes, symbols_bytes=s.nbytes)
+    return split
+
+
+def phase_dvb(rng, work: Path) -> dict:
+    """DVB-S2 and DVB-S on the card (phase 13); returns the walls and
+    agc_walk's launches on the GRB pass."""
+    import torch
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.core.exceptions import PipelineError
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.ops.cuda.sample_walk import agc_walk
+    from satdump_tpu_torch.ops.dvbs2 import tx
+    from satdump_tpu_torch.pipeline.modules.dvbs2.demod import \
+        DVBS2DemodModule
+    from satdump_tpu_torch.pipeline.modules.dvbs2.dvbs import DVBSDemodModule
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    t_phase = time.perf_counter()
+    walls = {}
+    # 13.1 GOES-R GRB at full width: baseband -> BBFrames -> CADUs
+    grb_rate = 2 * sim.GRB_SYMBOLRATE
+    cadus, n_cadus, bb = _grb_input(rng, GRB_FRAMES)
+    w = work / "grb"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    pipe = _pipeline("GOES.json", "goes_grb")
+    params = dict(PASS_PARAMS, samplerate=grb_rate)
+    for tag in ("first", "again"):
+        out, wall, launches = _run_counted(lambda: run_pipeline(
+            pipe, str(w / "pass.cf32"), str(w / tag), user_params=params),
+            f"goes_grb ({tag} pass)", kernels=(agc_walk,))
+        _check_grb(out, cadus, n_cadus, f"goes_grb 17.33 Msps ({len(bb)} "
+                   f"samples, {tag} pass)")
+        walls[f"grb_cadu_{tag}"] = wall
+        rate = len(bb) / wall / 1e6
+        log(f"goes_grb 8,665,938 sym/s at 2 sps, {tag} pass in the process:"
+            f" baseband->CADU on the card {wall:.3f} s = {rate:.3f} Msamp/s"
+            f" (live rate {GRB_LIVE_MSPS:.3f}: "
+            f"{'met' if rate >= GRB_LIVE_MSPS else 'not met'}); "
+            f"{len(bb) / grb_rate:.3f} s of signal; launches {launches}")
+        walls[f"grb_agc_launches_{tag}"] = launches["agc_walk"]
+    split = _grb_block_split(bb, pipe, params)
+    walls["grb_block_split"] = split
+    log(f"GRB one 2^18-sample block's split (ms; card: front end and "
+        f"demap + LDPC; host: PL layer and BCH): {json.dumps(split)}")
+    # 13.2 the same pipeline on a short input, card against CPU
+    cadus, n_cadus, bb = _grb_input(rng, GRB_SHORT_FRAMES)
+    w = work / "grb_short"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    files = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = run_pipeline(pipe, str(w / "pass.cf32"), str(w / dev),
+                           user_params=dict(params, torch_device=dev))
+        torch.cuda.synchronize()
+        walls[f"grb_short_{dev}"] = time.perf_counter() - t0
+        _check_grb(out, cadus, n_cadus, f"goes_grb short ({dev})")
+        files[dev] = [np.fromfile(w / dev / f"goes_grb.{ext}", np.uint8)
+                      for ext in ("bbframe", "cadu")]
+    for k, ext in enumerate(("bbframe", "cadu")):
+        if not np.array_equal(files["cuda"][k], files["cpu"][k]):
+            raise AssertionError(f"goes_grb short: .{ext} differs between "
+                                 f"cuda and cpu")
+    log(f"goes_grb short ({len(bb)} samples): .bbframe and .cadu "
+        f"byte-identical cuda vs cpu; card {walls['grb_short_cuda']:.3f} s, "
+        f"CPU {walls['grb_short_cpu']:.3f} s")
+    # 13.3 the `dvbs2` pipeline: MODCOD 4 short -> TS packets, on the card
+    ts = rng.integers(0, 256, (S2_TS_PACKETS, 188)).astype(np.uint8)
+    ts[:, 0] = 0x47
+    bb = sim.dvbs2_baseband(tx.ts_to_symbols(ts, 4, True, False), rng)
+    w = work / "dvbs2"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    # its modcod (4), symbolrate and rrc_alpha come from the pipeline
+    # file's parameters block; a module given none raises, as in the JAX
+    # package
+    try:
+        DVBS2DemodModule("", "", {"samplerate": 2e6, "symbolrate": 1e6,
+                                  "rrc_alpha": 0.25, "torch_device": "cuda"})
+        raise AssertionError("dvbs2_demod without modcod did not raise")
+    except PipelineError as e:
+        log(f"dvbs2_demod without modcod raises, as in the JAX package: {e}")
+    s2 = _pipeline("DVB-S2.json", "dvbs2", "baseband", "ts")
+    out, wall, launches = _run_counted(lambda: run_pipeline(
+        s2, str(w / "pass.cf32"), str(w / "cuda"), user_params=dict(
+            PASS_PARAMS, samplerate=2e6, shortframes=True)), "dvbs2",
+        kernels=(agc_walk,))
+    got = np.fromfile(out, np.uint8).reshape(-1, 188)
+    sent = {r.tobytes() for r in ts}
+    bad = sum(g.tobytes() not in sent for g in got)
+    if bad or len(got) < S2_TS_PACKETS * 9 // 10:
+        raise AssertionError(f"dvbs2: {bad} TS packets not sent, {len(got)}"
+                             f" of {S2_TS_PACKETS} out")
+    walls["dvbs2_ts"] = wall
+    log(f"dvbs2 1 Msym/s, MODCOD 4 short: {len(got)} of {S2_TS_PACKETS} TS "
+        f"packets, every one sent, on the card in {wall:.3f} s "
+        f"({len(bb) / wall / 1e6:.3f} Msamp/s); launches {launches}")
+    # 13.4 dvbs_demod at a punctured rate, card against CPU
+    ts = rng.integers(0, 256, (DVBS_TS_PACKETS, 188)).astype(np.uint8)
+    ts[:, 0] = 0x47
+    bb = sim.ChannelModel(snr_db=17.0, freq_offset=1e-4, phase=0.3,
+                          seed=int(rng.integers(1 << 30))).apply(
+        sim.qpsk_modulate(sim.dvbs_symbols(ts, DVBS_PUNCTURED), sps=2.2,
+                          rrc_alpha=0.35))
+    w = work / "dvbs"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    got, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        mod = DVBSDemodModule(str(w / "pass.cf32"), str(w / dev), dict(
+            PASS_PARAMS, samplerate=220e3, symbolrate=100e3,
+            conv_rate="auto", torch_device=dev))
+        if dev == "cuda":
+            _, wall, launches = _run_counted(
+                mod.process, "dvbs_demod", need_kernels=False,
+                kernels=_path_kernels() + _classic_kernels())
+        else:
+            mod.process()
+        got[dev] = np.fromfile(mod.d_output_file, np.uint8)
+        stats[dev] = mod.stats
+    pk = got["cuda"].reshape(-1, 188)
+    bad = sum(g.tobytes() not in {r.tobytes() for r in ts} for g in pk)
+    if not np.array_equal(got["cuda"], got["cpu"]) or bad or \
+            len(pk) < DVBS_TS_PACKETS // 2 or \
+            stats["cuda"]["viterbi_rate"] != DVBS_PUNCTURED:
+        raise AssertionError(f"dvbs_demod: .ts differs between the devices "
+                             f"or from the packets sent ({len(pk)} packets,"
+                             f" {bad} not sent; {stats})")
+    walls["dvbs_ts"] = wall
+    log(f"dvbs_demod rate {DVBS_PUNCTURED} (auto): {len(pk)} of "
+        f"{DVBS_TS_PACKETS} TS packets, every one sent, .ts byte-identical "
+        f"cuda vs cpu; card {wall:.3f} s; kernels launched {launches}")
+    log(f"DVB phase {time.perf_counter() - t_phase:.1f} s")
+    return walls
+
+
 def phase_products(rng, work: Path) -> None:
     """Products at full width from the cadu level: metop_instruments once,
     then the processor on the card, on the CPU (composites must be
@@ -2213,6 +2488,7 @@ def main() -> int:
         walls = phase_resampled(rng, work / "resampled")
         classic_launches, classic_walls = phase_classic(rng, work / "classic")
         bcjr, fec_walls = phase_deep_space(rng, work / "deep_space")
+        dvb_walls = phase_dvb(rng, work / "dvb")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the classic walkers' launches come from their slice's main path,
@@ -2237,7 +2513,9 @@ def main() -> int:
             # the classic chain's walkers replace lax.scan loops (no Pallas);
             # their rows are at a 2^18 block, Costas at order 2 (pm_demod's),
             # M&M in complex mode at sps 8 (INTEGRAL's, the main path's)
-            ("agc_walk", sw_src, f"{sw_rep}/stages.py:98", walkers["agc"]),
+            ("agc_walk", sw_src, f"{sw_rep}/stages.py:98",
+             dict(walkers["agc"],
+                  grb_launches=dvb_walls["grb_agc_launches_first"])),
             ("pll_walk", sw_src, f"{sw_rep}/costas.py:100", walkers["pll"]),
             ("costas_walk", sw_src, f"{sw_rep}/costas.py:71",
              dict(walkers["costas order 2"], max_abs_err=costas_err)),
@@ -2255,13 +2533,15 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for k in ("call_ms", "latency_bound_ms", "cycles_per_sample",
-                  "cycles_per_step", "chain_cycles_per_step"):
+                  "cycles_per_step", "chain_cycles_per_step",
+                  "grb_launches"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
     log(f"resampled walls on the card, s: {json.dumps(walls)}")
     log(f"classic walls on the card, s: {json.dumps(classic_walls)}")
     log(f"deep-space walls on the card, s: {json.dumps(fec_walls)}")
+    log(f"DVB walls on the card, s: {json.dumps(dvb_walls)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

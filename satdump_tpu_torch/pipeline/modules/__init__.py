@@ -2,3 +2,4 @@
 
 import satdump_tpu_torch.pipeline.modules.demod  # noqa: F401
 import satdump_tpu_torch.pipeline.modules.ccsds  # noqa: F401
+import satdump_tpu_torch.pipeline.modules.dvbs2  # noqa: F401

@@ -316,6 +316,68 @@ def oqpsk_q_late(soft: np.ndarray) -> np.ndarray:
     return np.clip(-out.astype(np.int16), -127, 127).astype(np.int8)
 
 
+GRB_SYMBOLRATE = 8_665_938.0   # GOES-R GRB (GOES.json goes_grb)
+
+
+def grb_bbframes(cadus: np.ndarray, lead: int = 0) -> np.ndarray:
+    """GOES-R GRB's BBFrames: the 2048-byte `cadus` as one continuous byte
+    stream (after `lead` zero bytes) in the 7264-byte data fields of
+    (B, 7274) unscrambled BBFrames behind a generic-stream BBHeader, the
+    last frame padded with zeros."""
+    from satdump_tpu_torch.ops.dvbs2.bbframe import BBHeader
+    size, hdr = 58192 // 8, 10
+    stream = np.concatenate([np.zeros(lead, np.uint8),
+                             np.asarray(cadus, np.uint8).reshape(-1)])
+    n = -(-len(stream) // (size - hdr))
+    frames = np.zeros((n, size), np.uint8)
+    frames[:, :hdr] = BBHeader(ts_gs=0b01, upl=0, dfl=(size - hdr) * 8,
+                               sync=0, syncd=0).build()
+    data = np.zeros(n * (size - hdr), np.uint8)
+    data[: len(stream)] = stream
+    frames[:, hdr:] = data.reshape(n, size - hdr)
+    return frames
+
+
+def dvbs2_baseband(symbols: np.ndarray, rng: np.random.Generator,
+                   sps: Tuple[int, int] = (2, 1), rrc_alpha: float = 0.25,
+                   snr_db: float = 14.0, freq_offset: float = 1e-4,
+                   phase: float = 0.5, gain: float = 0.7, lead: int = 1000
+                   ) -> np.ndarray:
+    """DVB-S2 PLFRAME symbols (ops/dvbs2/tx.py) at exactly sps = up/down
+    samples/symbol: `lead` random QPSK symbols ahead (a receiver joins a
+    stream mid-frame), RRC at `rrc_alpha`, then the channel model: AWGN at
+    `snr_db`, a carrier offset of `freq_offset` cycles/sample, a phase and a
+    gain. The noise seed comes from `rng`. Returns complex64 baseband."""
+    head = bits_to_qpsk_symbols(rng.integers(0, 2, 2 * lead).astype(
+        np.uint8))
+    tx = qpsk_modulate_rational(
+        np.concatenate([head, np.asarray(symbols, np.complex64)]), *sps,
+        rrc_alpha=rrc_alpha)
+    return ChannelModel(snr_db=snr_db, freq_offset=freq_offset, phase=phase,
+                        gain=gain, seed=int(rng.integers(1 << 30))).apply(tx)
+
+
+def dvbs_symbols(ts_pkts: np.ndarray, rate: str) -> np.ndarray:
+    """188-byte TS packets -> DVB-S QPSK symbols (EN 300 421 TX, as
+    tests/test_dvbs_legacy.py's fixture: energy dispersal a group of 8 with
+    the inverted sync -> RS(204,188) -> Forney interleave -> r=1/2 k=7
+    encode, punctured to `rate` -> QPSK)."""
+    from satdump_tpu_torch.ops import dvbs
+    from satdump_tpu_torch.ops.fec.depuncture import puncture
+    ts = np.asarray(ts_pkts, np.uint8).reshape(-1, dvbs.TS_SIZE)
+    rnd = []
+    for g in range(len(ts) // 8):
+        grp = ts[g * 8:(g + 1) * 8].copy()
+        grp[0, 0] = dvbs.SYNC_INV
+        rnd.append(dvbs.energy_dispersal(grp))   # involution = randomize
+    cws = dvbs.DVBSReedSolomon().encode(np.concatenate(rnd))
+    inter = dvbs.ConvInterleaver().work(cws.reshape(-1))
+    enc = cc.conv_encode_batch(np.unpackbits(inter)[None])[0]
+    if rate != "1/2":
+        enc = puncture(enc, rate)
+    return bits_to_qpsk_symbols(enc[: len(enc) // 2 * 2])
+
+
 def fsk_baseband(chan_bits: np.ndarray, samplerate: float, symbolrate: float,
                  rng: np.random.Generator, deviation: float,
                  snr_db: float = 20.0, lead_bits: int = 512) -> np.ndarray:

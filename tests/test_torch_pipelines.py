@@ -26,6 +26,17 @@ DEEP_SPACE = (
     ("Peregrine.json", "peregrine_x_tlm"),
 )
 
+# the DVB pipelines: each one's modules up to the level the port reaches
+# (GOES-R GRB to its CADUs, DVB-S2 Test to its TS; their products decoder
+# and network server are not ported)
+DVB = (
+    ("DVB-S2.json", "dvbs2", None),
+    ("Work-In-Progress.json", "eumetcast_africa", None),
+    ("GOES.json", "goes_grb", "goes_grb_data_decoder"),
+    ("DVB_Test.json", "dvbs2_test", "network_server"),
+    ("Himawari.json", "himawaricast", "himawaricast_data_decoder"),
+)
+
 
 def _pipelines():
     """{(file, id): [module ids of its work levels]}."""
@@ -54,8 +65,19 @@ def test_deep_space_pipeline_has_every_module(fname, pipe_id):
     assert set(mods) <= _registry(), mods
 
 
+@pytest.mark.parametrize("fname,pipe_id,first_missing", DVB)
+def test_dvb_pipeline_modules(fname, pipe_id, first_missing):
+    mods = _pipelines()[(fname, pipe_id)]
+    assert mods[0] == "dvbs2_demod"
+    reg = _registry()
+    missing = [m for m in mods if m not in reg]
+    assert missing[:1] == ([first_missing] if first_missing else [])
+    assert set(mods[: mods.index(first_missing)] if first_missing
+               else mods) <= reg
+
+
 def test_pipelines_with_every_module_registered():
     pipes, reg = _pipelines(), _registry()
     full = [k for k, mods in pipes.items() if set(mods) <= reg]
     assert len(pipes) == 123
-    assert len(full) >= 93, len(full)
+    assert len(full) >= 95, len(full)

@@ -68,6 +68,16 @@ SLICE_MODULES = [
     "satdump_tpu_torch.pipeline.modules.demod.fsk",
     "satdump_tpu_torch.pipeline.modules.ccsds.simple_psk",
     "satdump_tpu_torch.tools.sass_chain",
+    "satdump_tpu_torch.ops.dvbs",
+    "satdump_tpu_torch.ops.dvbs2.bch",
+    "satdump_tpu_torch.ops.dvbs2.bbframe",
+    "satdump_tpu_torch.ops.dvbs2.demap",
+    "satdump_tpu_torch.ops.dvbs2.ldpc",
+    "satdump_tpu_torch.ops.dvbs2.plsync",
+    "satdump_tpu_torch.ops.dvbs2.rx",
+    "satdump_tpu_torch.ops.dvbs2.tx",
+    "satdump_tpu_torch.pipeline.modules.dvbs2",
+    "satdump_tpu_torch.models.goes_grb",
 ]
 
 
@@ -118,7 +128,9 @@ def test_port_registry_holds_only_ported_modules():
     register_all_modules()
     assert sorted(module_registry) == [
         "am_demod", "ccsds_conv_concat_decoder", "ccsds_ldpc_decoder",
-        "ccsds_simple_psk_decoder", "ccsds_turbo_decoder", "fm_demod", "fsk_demod", "meteor_lrpt_decoder", "meteor_msumr_lrpt",
+        "ccsds_simple_psk_decoder", "ccsds_turbo_decoder", "dvbs2_demod",
+        "dvbs2_ts_extractor", "dvbs_demod", "fm_demod", "fsk_demod",
+        "goes_grb_cadu_extractor", "meteor_lrpt_decoder", "meteor_msumr_lrpt",
         "metop_ahrpt_decoder", "metop_instruments", "noaa_apt_decoder",
         "noaa_apt_demod", "pm_demod", "psk_demod", "sdpsk_demod",
         "ssb_demod"]
