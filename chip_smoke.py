@@ -136,7 +136,28 @@ Phases (any failure raises and the script exits non-zero):
     dvbs_demod at rate 3/4 (found by its rate search) on the card and the
     CPU, the .ts byte-identical and holding packets sent, with the
     kernels it launched;
- 14. one JSON line describing each kernel, then the card's line and the
+ 14. FengYun-3 AHRPT, the NOAA and METEOR HRPT family and Inmarsat, each
+    stage of each pass with the kernels' counts set to 0 just before it
+    and read just after: FY-3D AHRPT at full rate (90 Msps, 30 Msym/s, sps
+    3; ~2^23 samples) from baseband to CADU on the card, every CADU
+    decoded one that was sent (at most 2 missing) and K1 launched, its
+    wall against the live 90 Msamp/s, and one rail's lock search (wall,
+    device kernels) and K1 call apart; FY-3A/B at 8.4 Msps carrying a VIRR
+    line and the VCID-12 sounders, baseband to products on the card and
+    the CPU: .cadu identical and equal to the CADUs sent, products
+    identical; NOAA GAC (BPSK at 6 Msps, sps 2.254) to .frm and products on
+    the card, K2 launched, every frame found and AVHRR equal to the lines
+    sent, the products from the card's .frm on the CPU identical; NOAA
+    HRPT and METEOR HRPT at 3 Msps (pm_demod: the four walkers launched),
+    5 minor frames and 4 MSU-MR lines, every frame found and the imagery
+    equal to the lines sent, the card's .soft decoded on the CPU to
+    identical .frm / .cadu and products; NOAA DSB from softs on both;
+    Inmarsat STD-C (48 ksps), Aero 10.5k (12 ksps, K2) and Aero 1.2k (48
+    ksps, the walkers) from baseband to messages on the card, the card's
+    .soft on the CPU to identical .frm and message files, and the block
+    Viterbi's wall and device kernels a frame against the frame's air
+    time;
+ 15. one JSON line describing each kernel, then the card's line and the
     result line. No kernel of the port lies on the products level or on
     the FM path.
 
@@ -2369,6 +2390,496 @@ def phase_dvb(rng, work: Path) -> dict:
     return walls
 
 
+# phase 14: FengYun-3 AHRPT, the NOAA and METEOR HRPT family, Inmarsat.
+# FY-3D AHRPT (FengYun-3.json fengyun3_d_ahrpt: QPSK at 30 Msym/s recorded
+# at 90 Msps, sps 3, each rail its own r=1/2 k=7 code behind the FengYun
+# differential code, RS(255,223) x4) on 342 CADUs (8,417,286 samples >
+# 2^23, 0.094 s of signal); FY-3A/B at 8.4 Msps on a VIRR line and the
+# VCID-12 sounders (54 CADUs) on the card and the CPU; NOAA GAC (NOAA.json
+# noaa_gac: BPSK at 2.6616 Msym/s, 6 Msps, sps 2.254: K2) on 24 frames;
+# NOAA HRPT and METEOR HRPT (665.4 kbit/s PM at 3 Msps) on 5 minor frames
+# and 4 MSU-MR lines (51 CADUs); NOAA DSB from 330 TIP frames of softs;
+# Inmarsat STD-C (1200 sym/s BPSK at 48 ksps, 3 frames), Aero 10.5k
+# (OQPSK at 12 ksps, sps 2.29: K2) and Aero 1.2k (SDPSK at 48 ksps,
+# the walkers), 6 frames each. The samplerates are the builder's: the
+# Inmarsat pipeline files set none (at 48 ksps the JAX package's and the
+# port's resampled OQPSK path loses lock on Aero 10.5k).
+FY3_CADUS, FY3_LIVE_MSPS, FY3_AB_RATE, FY3_D_RATE = 342, 90.0, 8.4e6, 90e6
+HRPT_GAC_FRAMES, HRPT_NOAA_FRAMES, HRPT_METEOR_LINES, HRPT_DSB_TIPS = \
+    24, 5, 4, 330
+HRPT_RATE, HRPT_BITRATE, HRPT_GAC_RATE, HRPT_GAC_SPS = \
+    3e6, 665.4e3, 6e6, (2500, 1109)
+HRPT_YEAR = 2024   # year_override of METEOR, GAC, DSB: no wall-clock year
+HRPT_LEAD = 16384
+INM_FRAMES, INM_STDC_RATE, INM_AERO_R_RATE, INM_AERO_P_RATE = \
+    6, 48e3, 12e3, 48e3
+INM_START = 86400.0 * 20000   # the parsers' start_timestamp
+INM_AERO_R = ("inmarsat_aero_105", dict(oqpsk=True, dummy_bits=178,
+                                        inter_cols=78, inter_blocks=1), 5250)
+INM_AERO_P = ("inmarsat_aero_12", dict(oqpsk=False, dummy_bits=0,
+                                       inter_cols=9, inter_blocks=2), 1200)
+
+
+def _all_kernels():
+    return _path_kernels() + _classic_kernels()
+
+
+def _tree(d: Path, pattern: str = "*") -> dict:
+    """{relative path: bytes} of the files under d matching pattern."""
+    return {str(p.relative_to(d)): p.read_bytes()
+            for p in sorted(d.rglob(pattern)) if p.is_file()}
+
+
+def _same_products(a: Path, b: Path, label: str) -> list:
+    """dataset.json, every product's product.json, product.cbor and
+    channel images, and the pixels of every PNG in it (channels and
+    composites), equal under a and b. Returns the products."""
+    from satdump_tpu_torch.image.io import load_img
+    from satdump_tpu_torch.products.product import load_product
+    ds = (a / "dataset.json").read_text()
+    if (b / "dataset.json").read_text() != ds:
+        raise AssertionError(f"{label}: dataset.json differs")
+    products = json.loads(ds)["products"]
+    for rel in products:
+        for f in ("product.json", "product.cbor"):
+            if (a / rel / f).read_bytes() != (b / rel / f).read_bytes():
+                raise AssertionError(f"{label}: {rel}/{f} differs")
+        pa, pb = load_product(str(a / rel)), load_product(str(b / rel))
+        for x, y in zip(getattr(pa, "images", []), getattr(pb, "images", [])):
+            if not _same_images(x.image, y.image):
+                raise AssertionError(f"{label}: {rel} channel "
+                                     f"{x.channel_name} differs")
+        for png in sorted((a / rel).glob("*.png")):
+            c = png.relative_to(a)
+            if not _same_images(load_img(a / c), load_img(b / c)):
+                raise AssertionError(f"{label}: image {c} differs")
+    return products
+
+
+def _staged(fname, pipe_id, src, work: Path, params: dict, levels,
+            kernels=None):
+    """src through `pipe_id` on the card one level at a time (levels: the
+    pipeline's level names, the first the input's), each stage timed with
+    the kernels' launches counted (counts set to 0 just before it, read
+    just after). Returns ({level: output}, {level: wall s}, {level:
+    launches})."""
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    outs, walls, launches = {}, {}, {}
+    cur = str(src)
+    for lo, hi in zip(levels[:-1], levels[1:]):
+        out, walls[hi], launches[hi] = _run_counted(
+            lambda: run_pipeline(_pipeline(fname, pipe_id, lo, hi), cur,
+                                 str(work), user_params=dict(params),
+                                 start_level=lo),
+            f"{pipe_id} {lo}->{hi}", need_kernels=False,
+            kernels=kernels or _all_kernels())
+        outs[hi] = cur = out
+    return outs, walls, launches
+
+
+def _launched(launches: dict) -> dict:
+    """{stage: {kernel: launches}} without the kernels never launched."""
+    return {st: {k: n for k, n in ln.items() if n}
+            for st, ln in launches.items()}
+
+
+def _need(launches: dict, names, label: str) -> None:
+    missing = [k for k in names if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{label}: {missing} never launched: {launches}")
+
+
+def _ops_dispatched(fn) -> int:
+    """The torch operators that fn() dispatches (a TorchDispatchMode
+    counting them): for a loop of small ops on the card, one kernel launch
+    or more each. Cheap where a profiler session is not: reading the trace
+    of 10^5 launches takes tens of seconds."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def _fy3_lock_search(soft_path: str) -> dict:
+    """The FY-3D decoder's two steps on rail 0 of the card's .soft, on the
+    card, apart: the lock search (Viterbi12Sync.search_stream, the plain
+    block decoder) and the stream decode (K1); wall ms of each (host clock
+    around a synchronized call) and the torch ops the search dispatches."""
+    import torch
+    from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
+    from satdump_tpu_torch.ops.fec import convolutional as cc
+    from satdump_tpu_torch.ops.fec.rotation import PHASE_0, PHASE_180
+    from satdump_tpu_torch.pipeline.modules.ccsds.viterbi_sync import (
+        HALO, SEG, Viterbi12Sync)
+    rail = np.fromfile(soft_path, np.int8)[0::2]
+
+    def search():
+        v = Viterbi12Sync(0.30, 10, phases=[PHASE_0, PHASE_180],
+                          device="cuda")
+        return v.search_stream(rail)
+    search()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    off = search()
+    search_ms = (time.perf_counter() - t0) * 1e3
+    n_ops = _ops_dispatched(search)
+    n = len(rail) // 2
+    pairs = np.full((-(-n // SEG) * SEG, 2), 128.0, np.float32)
+    pairs[:n] = cc.soft_int8_to_u8(rail[: 2 * n]).reshape(-1, 2)
+    x = torch.from_numpy(pairs).cuda()
+    k1_ms = call_ms(lambda: viterbi_re(x, seg=SEG, ovl=HALO), 5)
+    return {"lock_offset": off, "search_ms": search_ms,
+            "search_ops": n_ops, "k1_ms": k1_ms, "rail_pairs": n}
+
+
+def _fy3_pass(rng, work: Path) -> dict:
+    """14.1: FY-3D at 90 Msps on the card, then FY-3A/B to products on the
+    card and the CPU."""
+    import torch
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    out = {}
+    cadus = sim.make_cadus(FY3_CADUS, rng)
+    bb = sim.fy3_ahrpt_baseband(cadus, rng)
+    w = work / "fy3d"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    outs, walls, launches = _staged(
+        "FengYun-3.json", "fengyun3_d_ahrpt", w / "pass.cf32", w / "cuda",
+        dict(PASS_PARAMS, samplerate=FY3_D_RATE),
+        ("baseband", "soft", "cadu"))
+    _need(launches["cadu"], ("viterbi_re",), "fengyun3_d_ahrpt decoder")
+    _check_cadus(outs["cadu"], cadus, f"fengyun3_d_ahrpt 90 Msps "
+                 f"({len(bb)} samples)")
+    wall = walls["soft"] + walls["cadu"]
+    rate = len(bb) / wall / 1e6
+    split = _fy3_lock_search(outs["soft"])
+    log(f"fengyun3_d_ahrpt 30 Msym/s at 90 Msps: baseband->CADU on the card "
+        f"{wall:.3f} s = {rate:.3f} Msamp/s (live rate {FY3_LIVE_MSPS}: "
+        f"{'met' if rate >= FY3_LIVE_MSPS else 'not met'}); psk_demod "
+        f"{walls['soft']:.3f} s, decoder {walls['cadu']:.3f} s; launches "
+        f"{_launched(launches)}; "
+        f"{len(bb) / FY3_D_RATE:.4f} s of signal")
+    log(f"fengyun3_d_ahrpt one rail ({split['rail_pairs']} pairs): lock "
+        f"search {split['search_ms']:.1f} ms wall, {split['search_ops']} "
+        f"torch ops, locked at soft {split['lock_offset']}; K1 "
+        f"{split['k1_ms']:.3f} ms a call (CUDA events); the decoder runs "
+        f"one of each a rail")
+    out.update(fy3d_soft_s=walls["soft"], fy3d_cadu_s=walls["cadu"],
+               fy3d_msamp_s=rate, fy3d_k1_launches=launches["cadu"][
+                   "viterbi_re"], fy3d_search_ms=split["search_ms"],
+               fy3d_search_ops=split["search_ops"],
+               fy3d_k1_ms=split["k1_ms"])
+    # FY-3A/B at 8.4 Msps, a VIRR line and the VCID-12 sounders, baseband
+    # -> products on the card and the CPU
+    cadus, lines = sim.fy3_instrument_cadus(rng, 1, 3, 2)
+    bb = sim.fy3_ahrpt_baseband(cadus, rng)
+    w = work / "fy3ab"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        run_pipeline(_pipeline("FengYun-3.json", "fengyun3_ab_ahrpt",
+                               stop="products"), str(w / "pass.cf32"),
+                     str(w / dev), user_params=dict(
+                         PASS_PARAMS, samplerate=FY3_AB_RATE,
+                         torch_device=dev))
+        torch.cuda.synchronize()
+        out[f"fy3ab_{dev}_s"] = time.perf_counter() - t0
+    c = {d: (w / d / "fengyun3_ab_ahrpt.cadu").read_bytes()
+         for d in ("cuda", "cpu")}
+    if c["cuda"] != c["cpu"] or c["cuda"] != cadus.tobytes():
+        raise AssertionError("fengyun3_ab_ahrpt: .cadu differs between "
+                             "cuda and cpu or from the CADUs sent")
+    products = _same_products(w / "cuda", w / "cpu", "fengyun3_ab_ahrpt")
+    from satdump_tpu_torch.products.product import load_product
+    virr = load_product(str(w / "cuda" / "VIRR")).get_channel("1").image
+    if not np.array_equal(virr // 64, lines[:, :, 0]):
+        raise AssertionError("fengyun3_ab_ahrpt: VIRR differs from the line "
+                             "sent")
+    log(f"fengyun3_ab_ahrpt 8.4 Msps ({len(bb)} samples, {len(cadus)} "
+        f"CADUs): baseband->products on the card {out['fy3ab_cuda_s']:.3f} s,"
+        f" on the CPU {out['fy3ab_cpu_s']:.3f} s; .cadu identical and equal "
+        f"to the CADUs sent, products {products} identical (VIRR = the line "
+        f"sent)")
+    return out
+
+
+def _from_card_soft(fname, pipe_id, soft: str, work: Path, params: dict,
+                    files, label: str) -> dict:
+    """The card's .soft -> the pipeline's last level on the CPU, into
+    work/cpu: `files` (glob patterns) must be byte-identical to the card's
+    (work/cuda) and products equal. Returns {pattern: files matched}."""
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    t0 = time.perf_counter()
+    run_pipeline(_pipeline(fname, pipe_id, "soft",
+                           _last_level(fname, pipe_id)), soft,
+                 str(work / "cpu"), user_params=dict(params,
+                                                     torch_device="cpu"),
+                 start_level="soft")
+    cpu_s = time.perf_counter() - t0
+    got = {}
+    for pat in files:
+        a, b = _tree(work / "cuda", pat), _tree(work / "cpu", pat)
+        if a != b:
+            raise AssertionError(f"{label}: {pat} differs between cuda and "
+                                 f"cpu ({sorted(a)} / {sorted(b)})")
+        got[pat] = len(a)
+    if not any(got.values()):
+        raise AssertionError(f"{label}: no {files} written")
+    if (work / "cuda" / "dataset.json").exists():
+        _same_products(work / "cuda", work / "cpu", label)
+    log(f"{label}: the card's .soft on the CPU in {cpu_s:.3f} s: "
+        f"{got} identical to the card's")
+    return got
+
+
+def _last_level(fname: str, pipe_id: str) -> str:
+    from satdump_tpu_torch.pipeline.pipeline import parse_pipeline_file
+    return parse_pipeline_file(ROOT / "resources" / "pipelines" /
+                               fname)[pipe_id].steps[-1].level
+
+
+def _hrpt_passes(rng, work: Path) -> dict:
+    """14.2 NOAA GAC and 14.3 NOAA HRPT, METEOR HRPT and NOAA DSB."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.products.product import load_product
+    out = {}
+    # 14.2 NOAA GAC: BPSK at 6 Msps (sps 2.254, K2) -> .frm -> products
+    bits, lines = sim.noaa_gac_frames(rng, HRPT_GAC_FRAMES)
+    bits = np.concatenate([rng.integers(0, 2, 4096).astype(np.uint8), bits,
+                           rng.integers(0, 2, 4096).astype(np.uint8)])
+    bb = sim.psk_baseband(bits, rng, HRPT_GAC_SPS, "bpsk")
+    w = work / "gac"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    params = dict(PASS_PARAMS, samplerate=HRPT_GAC_RATE,
+                  year_override=HRPT_YEAR)
+    outs, walls, launches = _staged(
+        "NOAA.json", "noaa_gac", w / "pass.cf32", w / "cuda", params,
+        ("baseband", "soft", "frm", "products"))
+    _need(launches["soft"], ("resample_arith_grid",), "noaa_gac psk_demod")
+    n_frm = Path(outs["frm"]).stat().st_size // 4159
+    img = load_product(str(w / "cuda" / "AVHRR")).get_channel("1").image
+    if n_frm != HRPT_GAC_FRAMES or not np.array_equal(img >> 6,
+                                                      lines[:, :, 0]):
+        raise AssertionError(f"noaa_gac: {n_frm} of {HRPT_GAC_FRAMES} "
+                             f"frames, AVHRR equal to the lines sent: "
+                             f"{np.array_equal(img >> 6, lines[:, :, 0])}")
+    rate = len(bb) / (walls["soft"] + walls["frm"]) / 1e6
+    log(f"noaa_gac 6 Msps ({len(bb)} samples): every frame of "
+        f"{HRPT_GAC_FRAMES}, AVHRR = the lines sent; baseband->frm on the "
+        f"card {walls['soft'] + walls['frm']:.3f} s = {rate:.3f} Msamp/s "
+        f"(live rate 6.0: {'met' if rate >= 6.0 else 'not met'}), products "
+        f"{walls['products']:.3f} s; launches {_launched(launches)}")
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    t0 = time.perf_counter()
+    run_pipeline(_pipeline("NOAA.json", "noaa_gac", "frm", "products"),
+                 outs["frm"], str(w / "cpu"),
+                 user_params=dict(params, torch_device="cpu"),
+                 start_level="frm")
+    _same_products(w / "cuda", w / "cpu", "noaa_gac")
+    log(f"noaa_gac: the card's .frm -> products on the CPU "
+        f"{time.perf_counter() - t0:.3f} s, identical to the card's")
+    out.update(gac_msamp_s=rate, gac_k2_launches=launches["soft"][
+        "resample_arith_grid"])
+    # 14.3 NOAA HRPT and METEOR HRPT: PM at 3 Msps (pm_demod's walkers).
+    # pm_bpsk_baseband sends a 1 as -1 and pm_demod returns a +1 as a
+    # positive soft, so the bits go out inverted to come back as sent; the
+    # loops get HRPT_LEAD bits to settle (neither format carries a code
+    # that would absorb their first slips)
+    sps = HRPT_RATE / HRPT_BITRATE
+    words, lines = sim.noaa_hrpt_frames(rng, HRPT_NOAA_FRAMES)
+    meteor, imgs = sim.meteor_hrpt_cadus(rng, HRPT_METEOR_LINES)
+    for pipe_id, fname, chan, p in (
+            ("noaa_hrpt", "NOAA.json", sim.words_to_bits(words), {}),
+            ("meteor_hrpt", "Meteor-M.json",
+             np.unpackbits(meteor.reshape(-1)),
+             {"year_override": HRPT_YEAR})):
+        bb = sim.pm_bpsk_baseband(1 - chan, sps, rng, lead_bits=HRPT_LEAD)
+        w = work / pipe_id
+        w.mkdir(parents=True, exist_ok=True)
+        write_baseband(w / "pass.cf32", "cf32", bb)
+        params = dict(PASS_PARAMS, samplerate=HRPT_RATE, **p)
+        levels = ("baseband", "soft") + tuple(
+            s.level for s in _pipeline(fname, pipe_id, "soft",
+                                       "products").steps[1:])
+        outs, walls, launches = _staged(fname, pipe_id, w / "pass.cf32",
+                                        w / "cuda", params, levels)
+        _need(launches["soft"], ("agc_walk", "pll_walk", "costas_walk",
+                                 "mm_walk"), f"{pipe_id} pm_demod")
+        frm = outs[levels[2]]
+        if pipe_id == "noaa_hrpt":
+            got = np.fromfile(frm, "<u2").reshape(-1, 11090)
+            ok = len(got) == HRPT_NOAA_FRAMES and np.array_equal(
+                got[:, 6:], words[:, 6:])
+            img = load_product(str(w / "cuda" / "AVHRR")).get_channel(
+                "2").image
+            ok &= np.array_equal(img >> 6, lines[:, :, 1])
+        else:
+            ok = Path(frm).read_bytes() == meteor.tobytes()
+            img = load_product(str(w / "cuda" / "MSU-MR")).get_channel(
+                "1").image
+            ok &= np.array_equal(img >> 6, imgs[:, 0])
+        if not ok:
+            raise AssertionError(f"{pipe_id}: the frames or the imagery "
+                                 f"differ from those sent")
+        rate = len(bb) / walls["soft"] / 1e6
+        log(f"{pipe_id} 3 Msps ({len(bb)} samples, "
+            f"{len(bb) / HRPT_RATE:.3f} s): every frame sent found, imagery "
+            f"= the lines sent; pm_demod on the card {walls['soft']:.3f} s = "
+            f"{rate:.3f} Msamp/s (live rate 3.0: "
+            f"{'met' if rate >= 3.0 else 'not met'}), then "
+            + ", ".join(f"{lv} {walls[lv]:.3f} s" for lv in levels[2:])
+            + f"; launches {_launched(launches)}")
+        _from_card_soft(fname, pipe_id, outs["soft"], w, params,
+                        ("*.frm", "*.cadu"), pipe_id)
+        out[f"{pipe_id}_pm_msamp_s"] = rate
+        out[f"{pipe_id}_walker_launches"] = launches["soft"]
+    # NOAA DSB from softs of TIP frames, on both devices
+    tips = sim.tip_frames(rng, HRPT_DSB_TIPS)
+    w = work / "noaa_dsb"
+    w.mkdir(parents=True, exist_ok=True)
+    sim.soft_stream(np.unpackbits(tips.reshape(-1)), rng).tofile(
+        w / "x.soft")
+    params = dict(PASS_PARAMS, year_override=HRPT_YEAR)
+    run_pipeline(_pipeline("NOAA.json", "noaa_dsb", "soft", "products"),
+                 str(w / "x.soft"), str(w / "cuda"),
+                 user_params=dict(params, torch_device="cuda"),
+                 start_level="soft")
+    if (w / "cuda" / "noaa_dsb.tip").read_bytes() != tips.tobytes():
+        raise AssertionError("noaa_dsb: the TIP frames differ from those "
+                             "sent")
+    _from_card_soft("NOAA.json", "noaa_dsb", str(w / "x.soft"), w, params,
+                    ("*.tip",), "noaa_dsb")
+    return out
+
+
+def _inmarsat_passes(rng, work: Path) -> dict:
+    """14.4: STD-C, Aero 10.5k and Aero 1.2k from baseband to messages on
+    the card; the card's .soft on the CPU; the block Viterbi's time and
+    launches a frame."""
+    import torch
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.ops import inmarsat_aero as aero
+    from satdump_tpu_torch.ops import inmarsat_stdc as stdc
+    from satdump_tpu_torch.ops.fec.convolutional import viterbi_decode_block
+    out = {}
+
+    def noise(n):
+        return rng.integers(0, 2, n).astype(np.uint8)
+
+    stdc_frames = sim.stdc_frames()
+    text = {"inmarsat_std_c": "THE QUICK BROWN FOX JUMPS OVER"}
+    passes = [("inmarsat_std_c", INM_STDC_RATE, 1200, 10368, 640,
+               sim.psk_baseband(
+        np.concatenate([noise(2000)] + [stdc.encode_frame(f)
+                                        for f in stdc_frames]
+                       + [noise(2000)]), rng, (40, 1), "bpsk", snr_db=15.0,
+        freq_offset=2e-4), len(stdc_frames))]
+    for pipe_id, cfg, symrate in (INM_AERO_R, INM_AERO_P):
+        n = aero.frame_geometry(**cfg)["info"] // 16
+        # an ACARS message in 6 signal units: one 72-byte 1.2k frame
+        text[pipe_id] = f"POS {symrate} BD"
+        sus = sim.acars_signal_units("B-6543", "H1", text[pipe_id])
+        frame = np.frombuffer(sus.ljust(n, b"\0")[:n], np.uint8)
+        bits = np.concatenate([aero.encode_frame(frame, **cfg, rng=rng)
+                               for _ in range(INM_FRAMES)])
+        total = aero.frame_geometry(**cfg)["total"]
+        if cfg["oqpsk"]:
+            # the symbols a quarter turn on, (I, Q) -> (-Q, I): the softs
+            # leave psk_demod at +90 degrees, as tests/test_inmarsat_aero.py
+            # presents them. The correlator's OQPSK replicas (90, 270, and
+            # 0 / 180 with the Q rail a symbol late) hold none for softs at
+            # 0 degrees, in either package
+            chan = np.concatenate([noise(2000), bits, noise(2000)])
+            turned = np.empty_like(chan)
+            turned[0::2], turned[1::2] = 1 - chan[1::2], chan[0::2]
+            bb = sim.psk_baseband(turned, rng, (16, 7), "oqpsk",
+                                  snr_db=15.0, freq_offset=2e-4)
+            rate = INM_AERO_R_RATE
+        else:
+            bb = sim.fsk_baseband(bits, INM_AERO_P_RATE, symrate, rng,
+                                  symrate / 4, snr_db=15.0, lead_bits=1000)
+            rate = INM_AERO_P_RATE
+        passes.append((pipe_id, rate, symrate * (2 if cfg["oqpsk"] else 1),
+                       total, n, bb, INM_FRAMES))
+    for pipe_id, rate, bitrate, frame_bits, frame_bytes, bb, sent in passes:
+        w = work / pipe_id
+        shutil.rmtree(w, ignore_errors=True)     # the parsers add files
+        w.mkdir(parents=True)
+        write_baseband(w / "pass.cf32", "cf32", bb)
+        params = dict(PASS_PARAMS, samplerate=rate,
+                      start_timestamp=INM_START)
+        outs, walls, launches = _staged(
+            "Inmarsat.json", pipe_id, w / "pass.cf32", w / "cuda", params,
+            ("baseband", "soft", "frm", "msg"))
+        n_frm = len(Path(outs["frm"]).read_bytes()) // frame_bytes
+        msgs = _tree(w / "cuda", "*.json")
+        # STD-C decodes every frame; the Aero decoder takes the best sync
+        # of a two-frame window, so with noise it passes some over (in both
+        # packages). Every message out must be the one sent
+        texts = {json.loads(v).get("message") for k, v in msgs.items()
+                 if k.startswith(("ACARS", "Full Message"))}
+        need = sent if pipe_id == "inmarsat_std_c" else 2
+        if n_frm < need or texts != {text[pipe_id]}:
+            raise AssertionError(f"{pipe_id}: {n_frm} frames of {sent}, "
+                                 f"messages {texts}")
+        air = frame_bits / bitrate
+        log(f"{pipe_id} at {rate:.0f} sps ({len(bb)} samples, "
+            f"{len(bb) / rate:.2f} s of signal, {sent} frames of {air:.3f} s "
+            f"sent): {len(msgs)} message files; on the card "
+            + ", ".join(f"{lv} {walls[lv]:.3f} s" for lv in walls)
+            + f"; {n_frm} frames out; launches {_launched(launches)}")
+        _from_card_soft("Inmarsat.json", pipe_id, outs["soft"], w, params,
+                        ("*.frm", "*.json"), pipe_id)
+        out[f"{pipe_id}_s"] = sum(walls.values())
+        out[f"{pipe_id}_launches"] = launches
+    # the block Viterbi: STD-C's frames of a chunk batched in one call
+    # (5,120 trellis steps), Aero a frame a call (10.5k: 2,496 steps)
+    rows = np.stack([sim.soft_stream(stdc.encode_frame(f), rng, prefix=0)
+                     for f in stdc_frames])
+    for label, fn, frames, air in (
+            ("STD-C", lambda: stdc.decode_frames(rows, "cuda"), 3, 8.64),
+            ("Aero 10.5k", lambda: viterbi_decode_block(
+                torch.full((1, 2496, 2), 200.0).cuda()), 1, 0.5)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ops = _ops_dispatched(fn)
+        log(f"block Viterbi on the card, {label}: a call of {frames} "
+            f"frame(s) {ms:.1f} ms wall, {ms / frames:.1f} ms a frame against"
+            f" {air} s of air time a frame; {ops} torch ops a call")
+        out[f"viterbi_{label}_ms_a_frame"] = ms / frames
+        out[f"viterbi_{label}_ops_a_call"] = ops
+    return out
+
+
+def phase_hrpt_inmarsat(rng, work: Path) -> dict:
+    """FengYun-3 AHRPT, the HRPT family and Inmarsat on the card (phase
+    14); returns the walls, rates and launches."""
+    t_phase = time.perf_counter()
+    out = _fy3_pass(rng, work)
+    out.update(_hrpt_passes(rng, work))
+    out.update(_inmarsat_passes(rng, work))
+    log(f"HRPT / Inmarsat phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_products(rng, work: Path) -> None:
     """Products at full width from the cadu level: metop_instruments once,
     then the processor on the card, on the CPU (composites must be
@@ -2489,6 +3000,7 @@ def main() -> int:
         classic_launches, classic_walls = phase_classic(rng, work / "classic")
         bcjr, fec_walls = phase_deep_space(rng, work / "deep_space")
         dvb_walls = phase_dvb(rng, work / "dvb")
+        hrpt = phase_hrpt_inmarsat(rng, work / "hrpt")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the classic walkers' launches come from their slice's main path,
@@ -2502,26 +3014,34 @@ def main() -> int:
     mm_err = max(r["max_abs_err"] for k, r in walkers.items()
                  if k.startswith("mm"))
     sw_src, sw_rep = "satdump_tpu_torch/csrc/sample_walk.cu", "satdump_tpu/ops"
+    hrpt_walk = hrpt["noaa_hrpt_walker_launches"]
     rows = []
     for name, src, rep, r in (
             ("viterbi_re", "satdump_tpu_torch/csrc/viterbi_re.cu",
-             "satdump_tpu/ops/pallas/viterbi.py:136", k1),
+             "satdump_tpu/ops/pallas/viterbi.py:136",
+             dict(k1, fy3d_launches=hrpt["fy3d_k1_launches"])),
             ("resample_arith_grid", "satdump_tpu_torch/csrc/resample_arith.cu",
-             "satdump_tpu/ops/pallas/resample.py:103", k2),
+             "satdump_tpu/ops/pallas/resample.py:103",
+             dict(k2, gac_launches=hrpt["gac_k2_launches"])),
             ("affine_probe", "satdump_tpu_torch/csrc/probe_affine.cu",
              "tools/pallas_smoke.py:10", probe),
             # the classic chain's walkers replace lax.scan loops (no Pallas);
             # their rows are at a 2^18 block, Costas at order 2 (pm_demod's),
             # M&M in complex mode at sps 8 (INTEGRAL's, the main path's)
+            # (hrpt_launches: NOAA HRPT's pm_demod pass in phase 14)
             ("agc_walk", sw_src, f"{sw_rep}/stages.py:98",
              dict(walkers["agc"],
-                  grb_launches=dvb_walls["grb_agc_launches_first"])),
-            ("pll_walk", sw_src, f"{sw_rep}/costas.py:100", walkers["pll"]),
+                  grb_launches=dvb_walls["grb_agc_launches_first"],
+                  hrpt_launches=hrpt_walk["agc_walk"])),
+            ("pll_walk", sw_src, f"{sw_rep}/costas.py:100",
+             dict(walkers["pll"], hrpt_launches=hrpt_walk["pll_walk"])),
             ("costas_walk", sw_src, f"{sw_rep}/costas.py:71",
-             dict(walkers["costas order 2"], max_abs_err=costas_err)),
+             dict(walkers["costas order 2"], max_abs_err=costas_err,
+                  hrpt_launches=hrpt_walk["costas_walk"])),
             ("mm_walk", "satdump_tpu_torch/csrc/mm_clock.cu",
              f"{sw_rep}/clock_recovery.py:132",
-             dict(walkers["mm complex, sps 8"], max_abs_err=mm_err)),
+             dict(walkers["mm complex, sps 8"], max_abs_err=mm_err,
+                  hrpt_launches=hrpt_walk["mm_walk"])),
             # the max-log BCJR replaces the lax.scan recursions of
             # _bcjr_maxlog (no Pallas); its row is at base 1115 with
             # JUICE's 58-frame batch, its launches JUICE's pass's
@@ -2534,7 +3054,8 @@ def main() -> int:
                "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for k in ("call_ms", "latency_bound_ms", "cycles_per_sample",
                   "cycles_per_step", "chain_cycles_per_step",
-                  "grb_launches"):
+                  "grb_launches", "fy3d_launches", "gac_launches",
+                  "hrpt_launches"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
@@ -2542,6 +3063,7 @@ def main() -> int:
     log(f"classic walls on the card, s: {json.dumps(classic_walls)}")
     log(f"deep-space walls on the card, s: {json.dumps(fec_walls)}")
     log(f"DVB walls on the card, s: {json.dumps(dvb_walls)}")
+    log(f"HRPT / Inmarsat on the card: {json.dumps(hrpt)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -1,11 +1,16 @@
 """Per-mission decoders/instruments (the reference's plugins/*_support analog).
 
 Importing this package registers the mission modules the port carries:
-`metop_instruments`, `meteor_msumr_lrpt`, `noaa_apt_decoder` and
-`goes_grb_cadu_extractor`.
+`metop_instruments`, `meteor_msumr_lrpt`, `noaa_apt_decoder`,
+`goes_grb_cadu_extractor`, `fengyun_ahrpt_decoder` and `fy3_instruments`,
+the NOAA HRPT / GAC / DSB decoders and `noaa_instruments`, and
+`meteor_hrpt_decoder` and `meteor_instruments`.
 """
 
 import satdump_tpu_torch.models.metop  # noqa: F401
 import satdump_tpu_torch.models.meteor  # noqa: F401
 import satdump_tpu_torch.models.noaa_apt  # noqa: F401
 import satdump_tpu_torch.models.goes_grb  # noqa: F401
+import satdump_tpu_torch.models.fengyun3  # noqa: F401
+import satdump_tpu_torch.models.noaa_hrpt  # noqa: F401
+import satdump_tpu_torch.models.meteor_hrpt  # noqa: F401

@@ -35,6 +35,11 @@ from satdump_tpu_torch.utils.device import resolve_device
 
 F32 = torch.float32
 C64 = torch.complex64
+# block seams (ff_clock_recovery): how far before the carried history a
+# block's first symbol may fall and still be picked, at the history's edge
+# (samples); and the zeros resample_strip puts ahead of ext
+FIRST_SNAP = 0.25
+STRIP_FRONT = 32
 
 
 def _ipow(x: torch.Tensor, y: int) -> torch.Tensor:
@@ -372,11 +377,15 @@ def resample_strip(ext: torch.Tensor, start: torch.Tensor,
     cap = nseg * G
     Lw = s0 * G + D + ntaps + 8
     pad = max(cap * s0 + Lw + 64 - n_ext, 0)
-    extp = torch.cat([ext, torch.zeros(pad, dtype=ext.dtype, device=dev)]) \
-        if pad else ext
+    # `front` zeros ahead of ext keep a segment window that starts before
+    # the carried history (a block whose first symbols lie before it)
+    # aligned with its symbols; the windows' contents are the same
+    front = STRIP_FRONT
+    extp = torch.cat([torch.zeros(front, dtype=ext.dtype, device=dev), ext,
+                      torch.zeros(pad, dtype=ext.dtype, device=dev)])
 
     s_idx = torch.arange(nseg, dtype=F32, device=dev) * G
-    c_s = torch.floor(start + s_idx * omega).to(torch.int64)
+    c_s = torch.floor(start + s_idx * omega).to(torch.int64) + front
     c_s = c_s.clamp(0, extp.shape[0] - Lw)
     seg = extp[c_s[:, None] + torch.arange(Lw, device=dev)[None, :]]
 
@@ -386,7 +395,7 @@ def resample_strip(ext: torch.Tensor, start: torch.Tensor,
     frac = p - ip
     src = ip.to(torch.int64)
     k_rel = torch.arange(G, device=dev)
-    d = src.reshape(nseg, G) - c_s[:, None] - s0 * k_rel[None, :]
+    d = src.reshape(nseg, G) + front - c_s[:, None] - s0 * k_rel[None, :]
     d = d.clamp(0, D - 1)
 
     coefs = _bank_poly_coefs(bank)                # (deg+1, ntaps) host np
@@ -464,9 +473,23 @@ def ff_clock_recovery(state: FFClockState, x: torch.Tensor, *, sps: float,
         valid = _valid_mask(positions, ntaps, n)
         syms = torch.where(valid, y, torch.zeros_like(y))
 
-    # next symbol position after the last valid one, rebased to the next block
+    # The first symbol is the one the previous block deferred (its window
+    # reached past that block's end). This block's own timing estimate can
+    # put it up to FIRST_SNAP samples before -ntaps/2, the earliest position
+    # the carried history covers, where the grid marks it invalid and the
+    # stream would lose a symbol: pick it at -ntaps/2 instead.
+    lo = -(ntaps // 2)
+    snap = (start < lo) & (start >= lo - FIRST_SNAP)
+    y0 = interp_at(ext, torch.full((1,), lo, dtype=F32, device=dev), bank_t,
+                   n)
+    syms = torch.cat([torch.where(snap, y0, syms[:1]), syms[1:]])
+    valid = torch.cat([valid[:1] | snap, valid[1:]])
+
+    # next symbol position after the last valid one, rebased to the next
+    # block (the grid's leading invalid symbols, before the history, count)
     n_valid = valid.sum()
-    next_pos = start + n_valid.to(F32) * omega - n
+    first = torch.argmax(valid.to(torch.uint8))
+    next_pos = start + (first + n_valid).to(F32) * omega - n
     new_state = state._replace(next_pos=next_pos, history=ext[n:])
     return new_state, syms, valid
 

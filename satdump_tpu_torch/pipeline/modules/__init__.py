@@ -3,3 +3,4 @@
 import satdump_tpu_torch.pipeline.modules.demod  # noqa: F401
 import satdump_tpu_torch.pipeline.modules.ccsds  # noqa: F401
 import satdump_tpu_torch.pipeline.modules.dvbs2  # noqa: F401
+import satdump_tpu_torch.pipeline.modules.inmarsat  # noqa: F401

@@ -698,3 +698,304 @@ def msumr_lrpt_cadus(rng: np.random.Generator, strips: int,
             payload=bytearray(_cds_header(0, s * 1600) + bytes(40))))
         seq = (seq + 1) & 0x3FFF
     return rs_encode_frames(vcid_frames(packets, 5, 0)), truth
+
+
+# ---------------------------------------------------------------------------
+# FengYun-3 AHRPT, NOAA and METEOR HRPT, Inmarsat STD-C and Aero
+# ---------------------------------------------------------------------------
+
+FY3_SPS = (3, 1)   # FY-3 AHRPT: 8.4 / 2.8, 7.8 / 2.6 and 90 / 30 Msps / Msym/s
+
+
+def fengyun_diff_encode(bits: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The inverse of models.fengyun3.fengyun_diff_decode in closed form:
+    bit pairs (b1, b0) -> the rails x and y, one symbol longer than the
+    pairs and starting at x = y = 0. With s = x ^ y, each symbol sets
+    s_k = s_(k-1) ^ b1 ^ b0 and x_k = x_(k-1) ^ (b0 if s_k else b1): two
+    running XORs."""
+    bits = np.asarray(bits, np.uint8)
+    b1, b0 = bits[0::2], bits[1::2]
+    s = np.bitwise_xor.accumulate(b1 ^ b0)
+    x = np.bitwise_xor.accumulate(np.where(s == 1, b0, b1))
+    zero = np.zeros(1, np.uint8)
+    return np.concatenate([zero, x]), np.concatenate([zero, x ^ s])
+
+
+def fy3_ahrpt_baseband(cadus: np.ndarray, rng: np.random.Generator,
+                       snr_db: float = 18.0, freq_offset: float = 1e-4
+                       ) -> np.ndarray:
+    """FengYun-3 AHRPT downlink of `cadus` at sps 3: randomize, the FengYun
+    differential encoder, each rail its own r=1/2 k=7 code (I carries x,
+    Q carries y), QPSK with RRC alpha 0.35 (the pipelines' own), AWGN at
+    `snr_db`, a carrier offset of `freq_offset` cycles/sample and a phase
+    of 0.4 rad. An idle tail after the last frame lets the Viterbi flush
+    it. The tail and the noise seed come from `rng`. Returns complex64
+    baseband."""
+    tx = cadus.copy()
+    tx[:, 4:] = derand_ccsds(tx[:, 4:])
+    bits = np.concatenate([np.unpackbits(tx.reshape(-1)),
+                           rng.integers(0, 2, 4096).astype(np.uint8)])
+    x, y = fengyun_diff_encode(bits)
+    chan = np.empty(4 * len(x), np.uint8)
+    chan[0::2] = cc.conv_encode_batch(x)
+    chan[1::2] = cc.conv_encode_batch(y)
+    sym = qpsk_modulate_rational(bits_to_qpsk_symbols(chan), *FY3_SPS,
+                                 rrc_alpha=0.35)
+    return ChannelModel(snr_db=snr_db, freq_offset=freq_offset, phase=0.4,
+                        seed=int(rng.integers(1 << 30))).apply(sym)
+
+
+def virr_frame(rng: np.random.Generator, days: int = 1234,
+               ms: int = 5_000_000) -> Tuple[np.ndarray, np.ndarray]:
+    """One VIRR frame (208,400 bits, its 60-bit sync first) carrying a
+    random (2048, 10) line of 10-bit counts and a day / ms timestamp, as
+    tests/test_fengyun3.py builds it. Returns (frame bytes, line)."""
+    from satdump_tpu_torch.models.fengyun3 import (VIRR_FRAME_BITS,
+                                                   VIRR_SYNC, VIRR_SYNC_BITS)
+    from satdump_tpu_torch.utils.repack import pack_nbits_to_bytes
+    frame = np.zeros(VIRR_FRAME_BITS // 8, np.uint8)
+    sync = (VIRR_SYNC >> np.arange(VIRR_SYNC_BITS - 1, -1, -1)) & 1
+    bits = np.unpackbits(frame)
+    bits[:VIRR_SYNC_BITS] = sync
+    frame = np.packbits(bits)
+    img = rng.integers(0, 1024, (2048, 10), dtype=np.uint16)
+    frame[436: 436 + 25600] = pack_nbits_to_bytes(img.reshape(-1), 10)[:25600]
+    t = np.zeros(8, np.uint8)
+    t[1], t[2] = (days >> 10) & 0b11, (days >> 2) & 0xFF
+    t[3] = ((days & 0b11) << 6) | ((ms >> 24) & 0b11)
+    t[4], t[6], t[7] = (ms >> 16) & 0xFF, (ms >> 8) & 0xFF, ms & 0xFF
+    for k, off in zip((0, 1, 2, 3, 4, 6, 7), range(7)):
+        frame[26041 + off] |= (t[k] >> 2) & 0b111111
+        frame[26042 + off] |= (t[k] & 0b11) << 6
+    return frame, img
+
+
+def _fy3_sounder_packets(mwhs2_scans: int, mwts2_scans: int) -> list:
+    """MWHS-2 (APID 16: four packets a scan, channel ch pixel i = 100 ch +
+    i + scan) and MWTS-2 (APID 7: markers 1-4, channel ch pixel i = 1000 +
+    16 i + ch + scan) packets, as tests/test_fengyun3.py builds them."""
+    from satdump_tpu_torch.ccsds import CCSDSHeader, CCSDSPacket
+    pkts = []
+    for s in range(mwhs2_scans):
+        for marker in range(4):
+            pl = bytearray(1018)
+            pl[0:8] = _cds_header(2000, 1_000_000 + s * 2667)
+            pl[35] = marker << 2
+            words = np.zeros(468, np.uint16)
+            for g in range(3 if marker == 3 else 4):
+                words[106 * g: 106 * g + 98] = \
+                    100 * (marker * 4 + g) + np.arange(98) + s
+            pl[50: 50 + 2 * 468] = words.astype(">u2").tobytes()
+            pkts.append(CCSDSPacket(header=CCSDSHeader(apid=16), payload=pl))
+    for s in range(mwts2_scans):
+        for marker in range(1, 5):
+            pl = bytearray(1018)
+            pl[0] = marker << 4
+            pl[4:12] = _cds_header(2000, 2_000_000 + s * 5333)
+            words = np.zeros(492, np.uint16)
+            if marker >= 2:
+                px = np.arange(30) + 30 * (marker - 2)
+                words[: 30 * 16] = (1000 + 16 * px[:, None]
+                                    + np.arange(16)[None, :] + s).reshape(-1)
+            pl[38: 38 + 2 * 492] = words.astype(">u2").tobytes()
+            pkts.append(CCSDSPacket(header=CCSDSHeader(apid=7), payload=pl))
+    return pkts
+
+
+def fy3_instrument_cadus(rng: np.random.Generator, virr_lines: int,
+                         mwhs2_scans: int, mwts2_scans: int):
+    """RS-encoded FY-3 CADUs: `virr_lines` VIRR frames as a bit stream in
+    VCID 5's 882-byte data zones, then MWHS-2 and MWTS-2 packets on VCID 12
+    (CCSDS packets behind an insert zone). Returns (cadus (n, 1024) uint8,
+    the VIRR lines sent (virr_lines, 2048, 10))."""
+    lines = []
+    stream = []
+    for i in range(virr_lines):
+        frame, img = virr_frame(rng, ms=5_000_000 + 1000 * i)
+        stream.append(frame)
+        lines.append(img)
+    frames = []
+    if virr_lines:
+        stream = np.concatenate(stream)
+        n = -(-len(stream) // 882)
+        zones = np.zeros(n * 882, np.uint8)
+        zones[: len(stream)] = stream
+        virr = np.zeros((n, 896), np.uint8)
+        virr[:, 0:4] = [0x1A, 0xCF, 0xFC, 0x1D]
+        virr[:, 4], virr[:, 5] = 0x40, 5
+        virr[:, 14:] = zones.reshape(n, 882)
+        frames.append(virr)
+    if mwhs2_scans or mwts2_scans:
+        frames.append(vcid_frames(
+            _fy3_sounder_packets(mwhs2_scans, mwts2_scans), 12, 0))
+    return rs_encode_frames(np.concatenate(frames)), \
+        np.stack(lines) if lines else np.zeros((0, 2048, 10), np.uint16)
+
+
+def _noaa_frames(rng: np.random.Generator, n: int, n_words: int,
+                 avhrr_at: int, width: int, per_second: int, day: int,
+                 ms0: int) -> Tuple[np.ndarray, np.ndarray]:
+    """n NOAA frames of random 10-bit words with the 60-bit HRPT sync, the
+    day / ms timestamp in words 8-11 (per_second frames a second) and an
+    AVHRR line of width x 5 random counts at word avhrr_at. Returns
+    (words (n, n_words) uint16, lines (n, width, 5))."""
+    from satdump_tpu_torch.models.noaa_hrpt import SYNC_WORDS
+    words = rng.integers(0, 1024, (n, n_words), dtype=np.uint16)
+    lines = rng.integers(0, 1024, (n, width, 5), dtype=np.uint16)
+    words[:, :6] = SYNC_WORDS
+    ms = ms0 + 1000 * np.arange(n) // per_second
+    words[:, 8] = day << 1
+    words[:, 9] = (ms >> 20) & 0x7F
+    words[:, 10] = (ms >> 10) & 0x3FF
+    words[:, 11] = ms & 0x3FF
+    words[:, avhrr_at: avhrr_at + width * 5] = lines.reshape(n, -1)
+    return words, lines
+
+
+def noaa_hrpt_frames(rng: np.random.Generator, n: int, day: int = 100,
+                     ms0: int = 43_200_000) -> Tuple[np.ndarray, np.ndarray]:
+    """n NOAA HRPT minor frames (11,090 words, 665.4 kbit/s: a frame every
+    1/6 s) with an AVHRR line of 2048 x 5 counts at word 750, as
+    tests/test_noaa_hrpt.py builds them. Returns (words, lines)."""
+    from satdump_tpu_torch.models.noaa_hrpt import FRAME_WORDS
+    return _noaa_frames(rng, n, FRAME_WORDS, 750, 2048, 6, day, ms0)
+
+
+def words_to_bits(words: np.ndarray, width: int = 10) -> np.ndarray:
+    """Words -> their `width` low bits each, MSB first, concatenated."""
+    w = np.asarray(words, np.uint16).reshape(-1)
+    return ((w[:, None] >> np.arange(width - 1, -1, -1)) & 1
+            ).astype(np.uint8).reshape(-1)
+
+
+def noaa_gac_frames(rng: np.random.Generator, n: int, day: int = 100,
+                    ms0: int = 43_200_000) -> Tuple[np.ndarray, np.ndarray]:
+    """n NOAA GAC frames as sent (3,327 words = 33,270 bits, a frame every
+    0.5 s, a GAC AVHRR line of 409 x 5 counts at word 1182), the bits
+    after the 60 sync bits XORed with the 1023-bit GAC PN
+    (models.noaa_hrpt.gac_pn_bytes). Returns (channel bits (n * 33270,),
+    lines (n, 409, 5))."""
+    from satdump_tpu_torch.models.noaa_hrpt import GAC_FRAME_BITS, gac_pn_bytes
+    words, lines = _noaa_frames(rng, n, GAC_FRAME_BITS // 10, 1182, 409, 2,
+                                day, ms0)
+    pn = np.unpackbits(gac_pn_bytes())[:GAC_FRAME_BITS]
+    return (words_to_bits(words).reshape(n, -1) ^ pn[None]).reshape(-1), \
+        lines
+
+
+def tip_frames(rng: np.random.Generator, n: int) -> np.ndarray:
+    """n NOAA DSB TIP frames (104 bytes, 0xEDE2 sync first, the minor frame
+    number in bytes 4-5 counting from 0, random data). Returns (n, 104)."""
+    frames = rng.integers(0, 256, (n, 104)).astype(np.uint8)
+    frames[:, 0], frames[:, 1] = 0xED, 0xE2
+    mf = np.arange(n) % 320
+    frames[:, 4] = (frames[:, 4] & 0xFE) | (mf >> 8)
+    frames[:, 5] = mf & 0xFF
+    return frames
+
+
+def meteor_hrpt_cadus(rng: np.random.Generator, lines: int, serial: int = 3,
+                      day_seconds: int = 86400 * 9000):
+    """METEOR-M HRPT CADUs carrying `lines` MSU-MR frames (6 channels x
+    1572 random 10-bit pixels, H/M/S = 10:30:s) and one BIS-M clock frame
+    a line, in the per-CADU byte slices of module_meteor_instruments.cpp,
+    as tests/test_meteor_hrpt.py builds them. Returns (cadus (n, 1024)
+    uint8, images (lines, 6, 1572))."""
+    from satdump_tpu_torch.models import meteor_hrpt as mh
+    msumr, bism, imgs = [], [], []
+    for i in range(lines):
+        f = np.zeros(mh.MSUMR_FRAME, np.uint8)
+        f[:8] = np.frombuffer(mh.MSUMR_SYNC.to_bytes(8, "big"), np.uint8)
+        f[8], f[9], f[10], f[11] = 10, 30, i % 60, 128
+        f[12] = serial << 4
+        f[35:50] = np.packbits(words_to_bits(
+            rng.integers(0, 1024, 12, dtype=np.uint16)))
+        img = rng.integers(0, 1024, (6, 1572), dtype=np.uint16)
+        data = np.stack([np.packbits(words_to_bits(img[ch])).reshape(393, 5)
+                         for ch in range(6)], 1).reshape(393, 30)
+        f[50: 50 + 393 * 30] = data.reshape(-1)
+        msumr.append(f)
+        imgs.append(img)
+        b = np.zeros(mh.BISM_FRAME, np.uint8)
+        b[:4] = np.frombuffer(mh.BISM_SYNC.to_bytes(4, "big"), np.uint8)
+        b[6:10] = np.frombuffer(int(day_seconds + i).to_bytes(4, "little"),
+                                np.uint8)
+        bism.append(b)
+    msumr, bism = np.concatenate(msumr), np.concatenate(bism)
+    per_m = sum(n for _, n in mh._MSUMR_SLICES)
+    per_b = sum(n for _, n in mh._BISM_SLICES)
+    # BIS-M leads by a frame so each line's day is known when it arrives
+    n = -(-len(msumr) // per_m) + 1
+    msumr = np.concatenate([np.zeros(per_m, np.uint8), msumr,
+                            np.zeros((n - 1) * per_m - len(msumr), np.uint8)])
+    bism = np.concatenate([bism, np.zeros(n * per_b - len(bism), np.uint8)])
+    cadus = np.zeros((n, mh.CADU_SIZE), np.uint8)
+    cadus[:, 0:4] = [0x1A, 0xCF, 0xFC, 0x1D]
+    for k, (off, ln) in enumerate(mh._MSUMR_SLICES):
+        o = sum(x for _, x in mh._MSUMR_SLICES[:k])
+        cadus[:, off: off + ln] = msumr.reshape(n, per_m)[:, o: o + ln]
+    for k, (off, ln) in enumerate(mh._BISM_SLICES):
+        o = sum(x for _, x in mh._BISM_SLICES[:k])
+        cadus[:, off: off + ln] = bism.reshape(n, per_b)[:, o: o + ln]
+    return cadus, np.stack(imgs)
+
+
+def stdc_frames() -> np.ndarray:
+    """Three 640-byte STD-C frames carrying a Bulletin Board each, a message
+    on logical channel 3 in two pieces and a two-part EGC message, as
+    tests/test_inmarsat_stdc.py builds them: the third frame's Bulletin
+    Board (69 s on) flushes the message. Returns (3, 640) uint8."""
+    from satdump_tpu_torch.pipeline.modules.inmarsat.stdc_pkts import \
+        append_crc
+
+    def medium(ptype, body):
+        return append_crc(bytes([0x80 | ptype, len(body) + 2]) + body
+                          + b"\0\0")
+
+    def bulletin(frame_number):
+        body = bytes([1, frame_number >> 8, frame_number & 0xFF, 3 << 2,
+                      0x00, (1 << 5) | (2 << 2), (1 << 6) | 4, 0xE0, 0x60,
+                      0x00, 25])
+        return append_crc(bytes([(0x07 << 4) | (len(body) + 2)]) + body
+                          + b"\0\0")
+
+    def message(seq, text):
+        return medium(0x2A, bytes([(1 << 6) | 4, 3, seq]) + text.encode())
+
+    def egc(ptype, cont, text):
+        return medium(ptype, bytes([0x00, (cont << 7) | (1 << 5) | 3, 0, 7,
+                                    0, 0]) + b"\x01\x02\x03" + text.encode())
+
+    frames = [[bulletin(1000), message(0, "THE QUICK BROWN "),
+               egc(0x31, True, "SECURITE: "), egc(0x32, False, "ICE REPORT")],
+              [bulletin(1002), message(1, "FOX JUMPS OVER")],
+              [bulletin(1010)]]
+    return np.stack([np.frombuffer(b"".join(f).ljust(640, b"\0"), np.uint8)
+                     for f in frames])
+
+
+def acars_signal_units(reg: str, label: str, text: str) -> bytes:
+    """An ACARS message as Aero signal units: a User Data ISU (0x71) and its
+    SSU chain, 12 bytes each with the CRC, as tests/test_inmarsat_aero.py
+    builds them."""
+    from satdump_tpu_torch.pipeline.modules.inmarsat.aero_parser import \
+        append_crc
+
+    def odd(c):
+        return c | 0x80 if bin(c & 0x7F).count("1") % 2 == 0 else c
+
+    body = [0xFF, 0xFF, 0x01, ord("2")]
+    body += [odd(ord(ch)) for ch in reg.rjust(7, ".")]
+    body += [ord("!"), ord(label[0]), ord(label[1]), ord("1"), 0x02]
+    body += [odd(ord(ch)) for ch in text] + [0x03, 0x00, 0x00, 0x7F]
+    payload = bytes(body)
+    rest = payload[2:]
+    n_ssu = -(-len(rest) // 8)
+    last = len(rest) - (n_ssu - 1) * 8
+    sus = [append_crc(bytes([0x71, 0x12, 0x34, 0x56, 0x01, 0x20,
+                             n_ssu & 0x3F, last << 4]) + payload[:2])]
+    for i in range(n_ssu):
+        seq = 0 if i == n_ssu - 1 else n_ssu - 1 - i
+        sus.append(append_crc(bytes([0xC0 | seq, 0x12])
+                              + rest[i * 8: (i + 1) * 8].ljust(8, b"\0")))
+    return b"".join(sus)

@@ -38,6 +38,24 @@ DVB = (
 )
 
 
+# FengYun-3 AHRPT, the NOAA and METEOR HRPT family and Inmarsat: each one's
+# decoder behind a demod the port already had
+HRPT_INMARSAT = (
+    ("FengYun-3.json", "fengyun3_ab_ahrpt", "fengyun_ahrpt_decoder"),
+    ("FengYun-3.json", "fengyun3_c_ahrpt", "fengyun_ahrpt_decoder"),
+    ("FengYun-3.json", "fengyun3_d_ahrpt", "fengyun_ahrpt_decoder"),
+    ("NOAA.json", "noaa_hrpt", "noaa_hrpt_decoder"),
+    ("NOAA.json", "noaa_gac", "noaa_gac_decoder"),
+    ("NOAA.json", "noaa_dsb", "noaa_dsb_decoder"),
+    ("Meteor-M.json", "meteor_hrpt", "meteor_hrpt_decoder"),
+    ("Inmarsat.json", "inmarsat_std_c", "inmarsat_stdc_decoder"),
+    ("Inmarsat.json", "inmarsat_aero_6", "inmarsat_aero_decoder"),
+    ("Inmarsat.json", "inmarsat_aero_12", "inmarsat_aero_decoder"),
+    ("Inmarsat.json", "inmarsat_aero_105", "inmarsat_aero_decoder"),
+    ("Inmarsat.json", "inmarsat_aero_84", "inmarsat_aero_decoder"),
+)
+
+
 def _pipelines():
     """{(file, id): [module ids of its work levels]}."""
     out = {}
@@ -76,8 +94,15 @@ def test_dvb_pipeline_modules(fname, pipe_id, first_missing):
                else mods) <= reg
 
 
+@pytest.mark.parametrize("fname,pipe_id,decoder", HRPT_INMARSAT)
+def test_hrpt_inmarsat_pipeline_has_every_module(fname, pipe_id, decoder):
+    mods = _pipelines()[(fname, pipe_id)]
+    assert decoder in mods
+    assert set(mods) <= _registry(), mods
+
+
 def test_pipelines_with_every_module_registered():
     pipes, reg = _pipelines(), _registry()
     full = [k for k, mods in pipes.items() if set(mods) <= reg]
     assert len(pipes) == 123
-    assert len(full) >= 95, len(full)
+    assert len(full) >= 107, len(full)

@@ -129,11 +129,15 @@ def test_port_registry_holds_only_ported_modules():
     assert sorted(module_registry) == [
         "am_demod", "ccsds_conv_concat_decoder", "ccsds_ldpc_decoder",
         "ccsds_simple_psk_decoder", "ccsds_turbo_decoder", "dvbs2_demod",
-        "dvbs2_ts_extractor", "dvbs_demod", "fm_demod", "fsk_demod",
-        "goes_grb_cadu_extractor", "meteor_lrpt_decoder", "meteor_msumr_lrpt",
-        "metop_ahrpt_decoder", "metop_instruments", "noaa_apt_decoder",
-        "noaa_apt_demod", "pm_demod", "psk_demod", "sdpsk_demod",
-        "ssb_demod"]
+        "dvbs2_ts_extractor", "dvbs_demod", "fengyun_ahrpt_decoder",
+        "fm_demod", "fsk_demod", "fy3_instruments", "goes_grb_cadu_extractor",
+        "inmarsat_aero_decoder", "inmarsat_aero_parser",
+        "inmarsat_stdc_decoder", "inmarsat_stdc_parser",
+        "meteor_hrpt_decoder", "meteor_instruments", "meteor_lrpt_decoder",
+        "meteor_msumr_lrpt", "metop_ahrpt_decoder", "metop_instruments",
+        "noaa_apt_decoder", "noaa_apt_demod", "noaa_dsb_decoder",
+        "noaa_gac_decoder", "noaa_hrpt_decoder", "noaa_instruments",
+        "pm_demod", "psk_demod", "sdpsk_demod", "ssb_demod"]
     with pytest.raises(SatdumpError, match="unknown module 'jpss_instruments'"):
         module_registry.get("jpss_instruments")
 
