@@ -157,7 +157,25 @@ Phases (any failure raises and the script exits non-zero):
     .soft on the CPU to identical .frm and message files, and the block
     Viterbi's wall and device kernels a frame against the frame's air
     time;
- 15. one JSON line describing each kernel, then the card's line and the
+ 15. JPSS HRD, GOES HRIT's products level and the host decoders, each
+    level of each pass on the card with every kernel's count set to 0 just
+    before it and read just after, then on the CPU: the .cadu / .frm / JSON
+    files and the PNGs byte-identical, the products equal. JPSS-2 HRD at
+    its full 40 Msps (OQPSK at 25 Msym/s, sps 1.6; ~2^23 samples, ~500
+    CADUs carrying six VIIRS bands, ATMS scans and an OMPS nadir frame)
+    from baseband to products: every CADU sent decoded (at most 2
+    missing), K2 launched by psk_demod and K1 by the decoder, the VIIRS,
+    ATMS and OMPS products equal to what was sent, the wall against the
+    live 40 Msamp/s; Suomi NPP HRD at 25 Msps (QPSK, sps 5/3) the same on
+    a shorter pass; GOES-R HRIT at 6 Msps carrying a Rice-coded ABI image
+    and an EMWIN file to products, the image and the file equal to those
+    sent; Aqua DB at 15 Msps to MODIS (the strip path), GOES GVAR (K2) to
+    the imager product, GOES-N sensor data (K2) to frames, M10 radiosondes
+    at 96 ksps and Orbcomm STX at 48 ksps behind fsk_demod (the AGC and
+    M&M walkers) to positions and ephemerides, each equal to what was
+    sent; and dvbs2_test's network_server sending a .ts file's packets to
+    a receiver on localhost;
+ 16. one JSON line describing each kernel, then the card's line and the
     result line. No kernel of the port lies on the products level or on
     the FM path.
 
@@ -2880,6 +2898,327 @@ def phase_hrpt_inmarsat(rng, work: Path) -> dict:
     return out
 
 
+# phase 15: JPSS HRD, GOES HRIT's products level and the host decoders.
+# JPSS-2 HRD (JPSS.json jpss_hrd: OQPSK at 25 Msym/s recorded at 40 Msps,
+# sps 1.6, RRC 0.5, k=7 r=1/2, NRZ-M, 1279-byte CADUs, RS(255,223) x5) on
+# ~500 CADUs (~2^23 samples, 0.21 s of signal) carrying one segment of each
+# VIIRS band in JPSS_BANDS, ATMS scans and an OMPS nadir frame; psk_demod
+# takes 2^16-sample blocks there and on Aqua DB (at its default 2^18 the
+# OQPSK rails slip half a symbol after ~3 blocks on JPSS, and Aqua DB's
+# carrier a quarter turn at a seam, in both packages: ROADMAP.md section
+# 3, S5). Suomi NPP HRD (npp_hrd: QPSK at 15 Msym/s, 25 Msps, sps 5/3,
+# RS x4) on one VIIRS band and an ATMS scan. GOES-R HRIT (GOES.json goes_hrit, 6 Msps) carrying a Rice-coded ABI
+# image in XRIT_SEGMENTS segments and an EMWIN text file. Short passes of
+# Aqua DB (EOS.json aqua_db: OQPSK 7.5 Msym/s at 15 Msps, sps 2, the strip
+# path), GOES GVAR (BPSK 2.11 Msym/s at 6 Msps: K2), GOES-N sensor data
+# (BPSK 2.621 Msym/s at 6 Msps: K2), M10 radiosondes (FSK 9600 Bd at 96
+# ksps) and Orbcomm STX (FSK 4800 Bd at 48 ksps): the walkers; and
+# dvbs2_test's network_server on localhost.
+JPSS_RATE, JPSS_BLOCK = 40e6, 1 << 16
+JPSS_BANDS = ("M4", "M6", "M7", "M9", "M10", "M12")
+JPSS_ATMS_SCANS, JPSS_OMPS_FRAMES, JPSS_IDLE = 4, 1, 6
+JPSS_NPP_BANDS, JPSS_NPP_RATE = ("M6",), 25e6
+XRIT_SEGMENTS, XRIT_WIDTH, XRIT_LINES = 4, 400, 20
+XRIT_EMWIN = b"ZCZC TEST EMWIN BULLETIN\r\n" * 40
+EOS_POSITIONS, EOS_RATE = 24, 15e6
+GVAR_VIS_BLOCKS, GVAR_RATE = 2, 6e6
+HOST_SD_FRAMES, HOST_M10_FRAMES, HOST_ORBCOMM_FRAMES = 400, 3, 3
+HOST_TS_PACKETS = 70
+# phase 15 draws from a generator of its own, so that it alone (c.HOST_SEED
+# in the README's command) sees the inputs of the whole script's run
+HOST_SEED = SEED + 15
+
+
+def _card_cpu_levels(label, fname, pipe_id, src: Path, work: Path, stages,
+                     files, need=()) -> dict:
+    """src through `pipe_id` on the card one level at a time (stages:
+    (from level, to level, user params)), each stage timed with every
+    kernel's launches counted (`_staged`; `need` must have launched), then
+    the same stages on the CPU: the files matching `files` (glob patterns)
+    must be byte-identical on both and the products equal. Returns
+    {"cuda": {level: output}, "walls": {level: s}, "cpu_walls": ...,
+    "launches": {level: ...}}."""
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    res = {"walls": {}, "cpu_walls": {}, "launches": {}, "cuda": {}}
+    cur = str(src)
+    for lo, hi, params in stages:
+        o, w, ln = _staged(fname, pipe_id, cur, work / "cuda", params,
+                           (lo, hi))
+        cur = res["cuda"][hi] = o[hi]
+        res["walls"][hi], res["launches"][hi] = w[hi], ln[hi]
+    cur = str(src)
+    for lo, hi, params in stages:
+        t0 = time.perf_counter()
+        cur = run_pipeline(_pipeline(fname, pipe_id, lo, hi), cur,
+                           str(work / "cpu"), user_params=dict(
+                               params, torch_device="cpu"), start_level=lo)
+        res["cpu_walls"][hi] = time.perf_counter() - t0
+    _need({k: sum(ln[k] for ln in res["launches"].values())
+           for k in res["launches"][stages[0][1]]}, need, label)
+    got = {}
+    for pat in files:
+        a, b = _tree(work / "cuda", pat), _tree(work / "cpu", pat)
+        if a != b or not a:
+            raise AssertionError(f"{label}: {pat} differs between cuda and "
+                                 f"cpu or is missing ({sorted(a)} / "
+                                 f"{sorted(b)})")
+        got[pat] = len(a)
+    products = []
+    if (work / "cuda" / "dataset.json").exists():
+        products = _same_products(work / "cuda", work / "cpu", label)
+    log(f"{label}: card {json.dumps(res['walls'])} s, CPU "
+        f"{json.dumps(res['cpu_walls'])} s; {got} and products {products} "
+        f"identical on both; launches {_launched(res['launches'])}")
+    return res
+
+
+def _jpss_truth(out: Path, truth: dict, label: str) -> None:
+    """VIIRS, ATMS and OMPS products under `out` hold what
+    sim.jpss_instrument_cadus sent."""
+    from satdump_tpu_torch.image.geometry import correct_generic_bowtie
+    from satdump_tpu_torch.image.io import load_img
+    from satdump_tpu_torch.models.jpss import VIIRS_CHANNELS
+    from satdump_tpu_torch.products.product import load_product
+    vp = load_product(str(out / "VIIRS"))
+    for band, rows in truth["viirs"].items():
+        h = VIIRS_CHANNELS[band].zone_height
+        want = correct_generic_bowtie(rows, h, 1.0 / 1.9, 0.52333)
+        if not np.array_equal(vp.get_channel(band.lower()).image[:h], want):
+            raise AssertionError(f"{label}: VIIRS {band} differs from the "
+                                 "segment sent")
+    ap = load_product(str(out / "ATMS"))
+    for c in range(22):
+        if not np.array_equal(ap.get_channel(str(c + 1)).image,
+                              truth["atms"][:, c, :96][:, ::-1]):
+            raise AssertionError(f"{label}: ATMS channel {c + 1} differs "
+                                 "from the scans sent")
+    if len(truth["omps"]):
+        omps = load_img(out / "OMPS" / "Nadir" / "OMPS-Nadir-1.png")
+        if not np.array_equal(omps, truth["omps"][:, 0]):
+            raise AssertionError(f"{label}: OMPS nadir differs from the "
+                                 "frames sent")
+
+
+def _jpss_passes(rng, work: Path) -> dict:
+    """15.1 JPSS-2 HRD at 40 Msps and 15.2 Suomi NPP HRD at 25 Msps,
+    baseband -> CADU -> products on the card and the CPU."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.io import write_baseband
+    out = {}
+    for key, pipe_id, bands, npp, rate, sps, cons, block in (
+            ("jpss", "jpss_hrd", JPSS_BANDS, False, JPSS_RATE,
+             sim.JPSS_HRD_SPS, "oqpsk", JPSS_BLOCK),
+            ("npp", "npp_hrd", JPSS_NPP_BANDS, True, JPSS_NPP_RATE,
+             sim.NPP_HRD_SPS, "qpsk", None)):
+        t0 = time.perf_counter()
+        cadus, truth = sim.jpss_instrument_cadus(
+            rng, bands, JPSS_ATMS_SCANS if not npp else 1,
+            JPSS_OMPS_FRAMES if not npp else 0, npp=npp, idle=JPSS_IDLE)
+        bb = sim.ccsds_psk_baseband(cadus, rng, sps, cons, nrzm=True)
+        w = work / pipe_id
+        w.mkdir(parents=True, exist_ok=True)
+        write_baseband(w / "pass.cf32", "cf32", bb)
+        label = f"{pipe_id} {rate / 1e6:g} Msps"
+        log(f"{label}: {len(cadus)} CADUs ({', '.join(bands)}, "
+            f"{len(truth['atms'])} ATMS scans, {len(truth['omps'])} OMPS "
+            f"frames), {len(bb)} samples ({len(bb) / rate:.4f} s), made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        soft = dict(PASS_PARAMS, samplerate=rate)
+        if block:
+            soft["buffer_size"] = block
+        res = _card_cpu_levels(
+            label, "JPSS.json", pipe_id, w / "pass.cf32", w,
+            (("baseband", "soft", soft), ("soft", "cadu", dict(PASS_PARAMS)),
+             ("cadu", "products", {})),
+            (f"{pipe_id}.cadu", "*.png"),
+            need=("viterbi_re", "resample_arith_grid"))
+        _check_cadus(res["cuda"]["cadu"], cadus, f"{label} (cuda)")
+        _jpss_truth(w / "cuda", truth, label)
+        walls = res["walls"]
+        wall = walls["soft"] + walls["cadu"]
+        msps = len(bb) / wall / 1e6
+        log(f"{label}: baseband->CADU on the card {wall:.3f} s = {msps:.3f} "
+            f"Msamp/s (live rate {rate / 1e6:g}: "
+            f"{'met' if msps >= rate / 1e6 else 'not met'}); psk_demod "
+            f"{walls['soft']:.3f} s, decoder {walls['cadu']:.3f} s, "
+            f"jpss_instruments {walls['products']:.3f} s; VIIRS, ATMS and "
+            f"OMPS equal to what was sent")
+        out.update({f"{key}_soft_s": walls["soft"],
+                    f"{key}_cadu_s": walls["cadu"],
+                    f"{key}_products_s": walls["products"],
+                    f"{key}_msamp_s": msps, f"{key}_samples": len(bb),
+                    f"{key}_cadus": len(cadus),
+                    f"{key}_cpu_s": sum(res["cpu_walls"].values()),
+                    f"{key}_k1_launches": res["launches"]["cadu"][
+                        "viterbi_re"],
+                    f"{key}_k2_launches": res["launches"]["soft"][
+                        "resample_arith_grid"]})
+    return out
+
+
+def _xrit_pass(rng, work: Path) -> dict:
+    """15.3 GOES-R HRIT at 6 Msps carrying a Rice-coded ABI image and an
+    EMWIN file, baseband -> products on the card and the CPU."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image.io import load_img
+    from satdump_tpu_torch.io import write_baseband
+    cadus, full = sim.goes_hrit_xrit_cadus(rng, XRIT_SEGMENTS, XRIT_WIDTH,
+                                           XRIT_LINES, XRIT_EMWIN)
+    bb = sim.ccsds_psk_baseband(cadus, rng, sim.GOES_HRIT_SPS, "bpsk",
+                                nrzm=True)
+    w = work / "goes_hrit"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    label = "goes_hrit xRIT 6 Msps"
+    res = _card_cpu_levels(
+        label, "GOES.json", "goes_hrit", w / "pass.cf32", w,
+        (("baseband", "soft", dict(PASS_PARAMS, samplerate=6e6)),
+         ("soft", "cadu", dict(PASS_PARAMS)), ("cadu", "products", {})),
+        ("goes_hrit.cadu", "IMAGES/*.png", "EMWIN/*"),
+        need=("viterbi_re", "resample_arith_grid"))
+    _check_cadus(res["cuda"]["cadu"], cadus, f"{label} (cuda)")
+    img = load_img(w / "cuda" / "IMAGES" / "GOES-16_13_7.png")
+    emwin = (w / "cuda" / "EMWIN" / "A_EMWIN_TEST.txt").read_bytes()
+    if not np.array_equal(img, full) or emwin != XRIT_EMWIN:
+        raise AssertionError(f"{label}: the ABI image or the EMWIN file "
+                             "differs from what was sent")
+    log(f"{label}: {len(cadus)} CADUs, {len(bb)} samples; the ABI image "
+        f"({full.shape[0]} x {full.shape[1]}, {XRIT_SEGMENTS} Rice-coded "
+        f"segments) and the EMWIN file equal to what was sent")
+    return {"xrit_" + k + "_s": v for k, v in res["walls"].items()}
+
+
+def _host_passes(rng, work: Path) -> dict:
+    """15.4 Aqua DB, GOES GVAR, GOES-N sensor data, M10 and Orbcomm, one
+    short pass each from baseband on the card and the CPU; dvbs2_test's
+    network_server on localhost."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.products.product import load_product
+    out = {}
+
+    def bb_pass(key, label, fname, pipe_id, bb, rate, levels, files, need,
+                soft=None):
+        w = work / pipe_id
+        w.mkdir(parents=True, exist_ok=True)
+        write_baseband(w / "pass.cf32", "cf32", bb)
+        stages = [(levels[0], levels[1],
+                   dict(PASS_PARAMS, samplerate=rate, **(soft or {})))]
+        stages += [(lo, hi, dict(PASS_PARAMS))
+                   for lo, hi in zip(levels[1:-1], levels[2:])]
+        res = _card_cpu_levels(label, fname, pipe_id, w / "pass.cf32", w,
+                               stages, files, need)
+        wall = sum(res["walls"].values())
+        out[f"{key}_s"] = wall
+        out[f"{key}_launches"] = _launched(res["launches"])
+        log(f"{label}: {len(bb)} samples ({len(bb) / rate:.4f} s) to "
+            f"{levels[-1]} on the card in {wall:.3f} s")
+        return w / "cuda", res
+
+    # Aqua DB at 15 Msps (sps 2: the strip resampler, no K2) -> MODIS
+    cadus, _ = sim.aqua_modis_cadus(rng, EOS_POSITIONS)
+    d, res = bb_pass("aqua", "aqua_db 15 Msps", "EOS.json", "aqua_db",
+                     sim.aqua_db_baseband(cadus, rng), EOS_RATE,
+                     ("baseband", "soft", "cadu", "products"),
+                     ("aqua_db.cadu",), (), {"buffer_size": JPSS_BLOCK})
+    _check_cadus(res["cuda"]["cadu"], cadus, "aqua_db 15 Msps (cuda)")
+    modis = load_product(str(d / "MODIS"))
+    if modis.get_channel("1").image.shape[1] != 1354 * 4:
+        raise AssertionError("aqua_db: MODIS channel 1 has the wrong width")
+    # GOES GVAR at 6 Msps (sps 2.84: K2) -> frames -> the imager product
+    frames, _, vis = sim.gvar_imager_frames(rng, 3, GVAR_VIS_BLOCKS)
+    d, res = bb_pass("gvar", "goes_gvar 6 Msps", "GOES.json", "goes_gvar",
+                     sim.gvar_baseband(frames, rng), GVAR_RATE,
+                     ("baseband", "soft", "gvar", "products"),
+                     ("goes_gvar.gvar",), ("resample_arith_grid",))
+    img = load_product(str(d / "IMAGER")).images[0].image
+    if not all(np.array_equal(img[3 * 8 + k] >> 6, vis[k])
+               for k in range(GVAR_VIS_BLOCKS)):
+        raise AssertionError("goes_gvar: VIS lines differ from those sent")
+    # GOES-N sensor data at 6 Msps (sps 2.29: K2) -> frames
+    bits, payloads = sim.goesn_sd_bits(rng, HOST_SD_FRAMES)
+    d, res = bb_pass("sd", "goesn_sd 6 Msps", "GOES.json", "goesn_sd",
+                     sim.goesn_sd_baseband(bits, rng), 6e6,
+                     ("baseband", "soft", "frm"), ("goesn_sd.frm",),
+                     ("resample_arith_grid",))
+    # a 14-bit marker with no check on the frame: the random bits around
+    # the frames may hold one, as on the air, so count the frames sent
+    got = {g.tobytes() for g in
+           np.fromfile(d / "goesn_sd.frm", np.uint8).reshape(-1, 60)}
+    found = sum(p.tobytes() in got for p in payloads)
+    log(f"goesn_sd: {found} of {HOST_SD_FRAMES} frames sent found, "
+        f"{len(got) - found} frames from the noise around them")
+    if found < HOST_SD_FRAMES - 2:
+        raise AssertionError(f"goesn_sd: {found} of {HOST_SD_FRAMES} "
+                             "frames sent found")
+    # M10 radiosonde (96 ksps) and Orbcomm STX (48 ksps): fsk_demod's
+    # walkers, then the host decoders
+    d, res = bb_pass("m10", "radiosonde_m10 96 ksps", "Radiosonde.json",
+                     "radiosonde_m10", sim.fsk_baseband(
+                         sim.m10_channel_bits(rng, HOST_M10_FRAMES), 96e3,
+                         9600, rng, 4800.0), 96e3,
+                     ("baseband", "soft", "frames"),
+                     ("radiosonde_m10.frm", "m10_track.json"),
+                     ("agc_walk", "mm_walk"))
+    if len(json.loads((d / "m10_track.json").read_text())) != \
+            HOST_M10_FRAMES:
+        raise AssertionError("radiosonde_m10: positions missing")
+    d, res = bb_pass("orbcomm", "orbcomm_stx 48 ksps", "Orbcomm.json",
+                     "orbcomm_stx", sim.fsk_baseband(
+                         sim.orbcomm_channel_bits(rng, HOST_ORBCOMM_FRAMES),
+                         48e3, 4800, rng, 2400.0), 48e3,
+                     ("baseband", "soft", "frm", "packets"),
+                     ("orbcomm_stx.frm", "orbcomm.json"),
+                     ("agc_walk", "mm_walk"))
+    eph = [p["scid"] for p in json.loads((d / "orbcomm.json").read_text())
+           if p["type"] == "ephemeris"]
+    if eph != list(range(105, 105 + HOST_ORBCOMM_FRAMES)):
+        raise AssertionError(f"orbcomm_stx: ephemerides of {eph}")
+    out["net_s"] = _network_pass(rng, work / "net")
+    return out
+
+
+def _network_pass(rng, work: Path) -> float:
+    """dvbs2_test's last level: a .ts file's packets out of network_server
+    (udp_send) to a receiver on localhost, every byte back."""
+    from satdump_tpu_torch.io.net import UDPFrameReceiver
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    ts = rng.integers(0, 256, (HOST_TS_PACKETS, 188), dtype=np.uint8)
+    ts[:, 0] = 0x47
+    work.mkdir(parents=True, exist_ok=True)
+    ts.tofile(work / "pass.ts")
+    rx = UDPFrameReceiver(0, timeout=5.0)
+    try:
+        t0 = time.perf_counter()
+        run_pipeline(_pipeline("DVB_Test.json", "dvbs2_test", "ts", "net"),
+                     str(work / "pass.ts"), str(work),
+                     user_params={"server_port": rx.port}, start_level="ts")
+        got = b"".join(rx.recv(1316) or b""
+                       for _ in range(HOST_TS_PACKETS // 7))
+        wall = time.perf_counter() - t0
+    finally:
+        rx.close()
+    if got != ts.tobytes():
+        raise AssertionError("dvbs2_test: the packets received differ from "
+                             "the .ts sent")
+    log(f"dvbs2_test network_server (udp_send, localhost): "
+        f"{HOST_TS_PACKETS} TS packets in {HOST_TS_PACKETS // 7} datagrams, "
+        f"every byte received, {wall:.3f} s")
+    return wall
+
+
+def phase_host_decoders(rng, work: Path) -> dict:
+    """JPSS HRD, GOES HRIT to products and the host decoders on the card
+    (phase 15); returns the walls, rates and launches."""
+    t_phase = time.perf_counter()
+    out = _jpss_passes(rng, work)
+    out.update(_xrit_pass(rng, work))
+    out.update(_host_passes(rng, work))
+    log(f"JPSS / xRIT / host decoders phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_products(rng, work: Path) -> None:
     """Products at full width from the cadu level: metop_instruments once,
     then the processor on the card, on the CPU (composites must be
@@ -3001,6 +3340,8 @@ def main() -> int:
         bcjr, fec_walls = phase_deep_space(rng, work / "deep_space")
         dvb_walls = phase_dvb(rng, work / "dvb")
         hrpt = phase_hrpt_inmarsat(rng, work / "hrpt")
+        host = phase_host_decoders(np.random.default_rng(HOST_SEED),
+                                   work / "host")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the classic walkers' launches come from their slice's main path,
@@ -3019,10 +3360,12 @@ def main() -> int:
     for name, src, rep, r in (
             ("viterbi_re", "satdump_tpu_torch/csrc/viterbi_re.cu",
              "satdump_tpu/ops/pallas/viterbi.py:136",
-             dict(k1, fy3d_launches=hrpt["fy3d_k1_launches"])),
+             dict(k1, fy3d_launches=hrpt["fy3d_k1_launches"],
+                  jpss_launches=host["jpss_k1_launches"])),
             ("resample_arith_grid", "satdump_tpu_torch/csrc/resample_arith.cu",
              "satdump_tpu/ops/pallas/resample.py:103",
-             dict(k2, gac_launches=hrpt["gac_k2_launches"])),
+             dict(k2, gac_launches=hrpt["gac_k2_launches"],
+                  jpss_launches=host["jpss_k2_launches"])),
             ("affine_probe", "satdump_tpu_torch/csrc/probe_affine.cu",
              "tools/pallas_smoke.py:10", probe),
             # the classic chain's walkers replace lax.scan loops (no Pallas);
@@ -3055,7 +3398,7 @@ def main() -> int:
         for k in ("call_ms", "latency_bound_ms", "cycles_per_sample",
                   "cycles_per_step", "chain_cycles_per_step",
                   "grb_launches", "fy3d_launches", "gac_launches",
-                  "hrpt_launches"):
+                  "hrpt_launches", "jpss_launches"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
@@ -3064,6 +3407,7 @@ def main() -> int:
     log(f"deep-space walls on the card, s: {json.dumps(fec_walls)}")
     log(f"DVB walls on the card, s: {json.dumps(dvb_walls)}")
     log(f"HRPT / Inmarsat on the card: {json.dumps(hrpt)}")
+    log(f"JPSS / xRIT / host decoders on the card: {json.dumps(host)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

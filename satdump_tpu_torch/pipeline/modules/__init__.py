@@ -4,3 +4,5 @@ import satdump_tpu_torch.pipeline.modules.demod  # noqa: F401
 import satdump_tpu_torch.pipeline.modules.ccsds  # noqa: F401
 import satdump_tpu_torch.pipeline.modules.dvbs2  # noqa: F401
 import satdump_tpu_torch.pipeline.modules.inmarsat  # noqa: F401
+import satdump_tpu_torch.pipeline.modules.network  # noqa: F401
+import satdump_tpu_torch.xrit.goes  # noqa: F401

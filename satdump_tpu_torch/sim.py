@@ -503,23 +503,26 @@ def vcid_frames(packets, vcid: int, scid: int) -> np.ndarray:
     return out
 
 
-def idle_cadus(n: int, scid: int = METOP_B_SCID) -> np.ndarray:
-    """n RS-encoded idle frames (VCID 63, no packet header, zero fill), as
-    a downlink sends between and around its data frames."""
-    frames = np.zeros((n, 896), np.uint8)
+def idle_cadus(n: int, scid: int = METOP_B_SCID, depth: int = 4
+                ) -> np.ndarray:
+    """n idle frames (VCID 63, no packet header, zero fill) RS-encoded at
+    interleave `depth`, as a downlink sends between and around its data
+    frames."""
+    frames = np.zeros((n, 4 + 223 * depth), np.uint8)
     frames[:, 0:4] = [0x1A, 0xCF, 0xFC, 0x1D]
     frames[:, 4] = (1 << 6) | ((scid >> 2) & 0b111111)
     frames[:, 5] = ((scid & 0b11) << 6) | 63
     frames[:, 12:14] = [0x07, 0xFE]          # first header pointer 2046
-    return rs_encode_frames(frames)
+    return rs_encode_frames(frames, depth)
 
 
-def rs_encode_frames(frames: np.ndarray) -> np.ndarray:
-    """(n, 896) frames -> (n, 1024) CADUs: the 892 bytes after the ASM
-    become four interleaved RS(255,223) codewords (dual basis), as
-    `make_cadus` encodes them."""
+def rs_encode_frames(frames: np.ndarray, depth: int = 4) -> np.ndarray:
+    """(n, 4 + 223 * depth) frames -> (n, 4 + 255 * depth) CADUs: the bytes
+    after the ASM become `depth` interleaved RS(255,223) codewords (dual
+    basis), as `make_cadus` encodes them (depth 4: 896 -> 1024 bytes)."""
     rs = ReedSolomon(k=223)
-    payload = rs.encode_interleaved(frames[:, 4:], ccsds_dual=True, depth=4)
+    payload = rs.encode_interleaved(frames[:, 4:], ccsds_dual=True,
+                                    depth=depth)
     return np.concatenate([frames[:, :4], payload], axis=1)
 
 
@@ -999,3 +1002,418 @@ def acars_signal_units(reg: str, label: str, text: str) -> bytes:
         sus.append(append_crc(bytes([0xC0 | seq, 0x12])
                               + rest[i * 8: (i + 1) * 8].ljust(8, b"\0")))
     return b"".join(sus)
+
+
+# ---------------------------------------------------------------------------
+# JPSS HRD (VIIRS, ATMS, OMPS) and GOES-R HRIT xRIT files
+# ---------------------------------------------------------------------------
+
+JPSS_HRD_SPS = (8, 5)   # JPSS-2 HRD: 25 Msym/s OQPSK at 40 Msps
+NPP_HRD_SPS = (5, 3)    # Suomi NPP HRD: 15 Msym/s QPSK at 25 Msps
+JPSS_DAY = 24000        # CDS day of the synthetic passes (2023-09-17)
+
+
+def viirs_segment_packets(name: str, det_lines: np.ndarray,
+                          day: int = JPSS_DAY, ms: int = 0, seq0: int = 0
+                          ) -> list:
+    """One VIIRS segment of band `name`: det_lines (zone_height, oversampled
+    width) 15-bit samples before aggregation, split per zone and
+    Rice-compressed per detector (n 15, J 8, rsi 128). A header packet
+    (sequence flag 1, CDS time, packet count) and one body packet a
+    detector, with channel_reader.cpp's field offsets, as tests/test_jpss.py
+    builds them."""
+    from satdump_tpu_torch.ccsds import CCSDSHeader, CCSDSPacket
+    from satdump_tpu_torch.models.jpss import VIIRS_CHANNELS
+    from satdump_tpu_torch.xrit.rice import rice_encode
+    ch = VIIRS_CHANNELS[name]
+    sync_pattern = 0xDEADBEEF
+    hdr = bytearray(_cds_header(day, ms)) + bytes([ch.zone_height]) \
+        + bytes(20)
+    pkts = [CCSDSPacket(header=CCSDSHeader(
+        apid=ch.apid, sequence_flag=1, packet_sequence_count=seq0 & 0x3FFF),
+        payload=hdr)]
+    for det in range(ch.zone_height):
+        body = bytearray(88)
+        body[19] = det
+        body[20:24] = sync_pattern.to_bytes(4, "big")
+        col = 0
+        for z in range(6):
+            w = ch.zone_width[z] * ch.oversample[z]
+            enc = rice_encode(det_lines[det, col: col + w] & 0x7FFF, 15, 8,
+                              rsi=128)
+            col += w
+            body += bytes([0, 0]) + (4 + len(enc)).to_bytes(2, "big") + enc \
+                + bytes(4) + sync_pattern.to_bytes(4, "big")
+        pkts.append(CCSDSPacket(header=CCSDSHeader(
+            apid=ch.apid, sequence_flag=0,
+            packet_sequence_count=(seq0 + 1 + det) & 0x3FFF), payload=body))
+    return pkts
+
+
+def viirs_rows(name: str, det_lines: np.ndarray) -> np.ndarray:
+    """What VIIRSReader.get_image gives for one segment of det_lines (no
+    differential coding): rows line-reversed, oversampled zones averaged,
+    times the band's scale."""
+    from satdump_tpu_torch.models.jpss import VIIRS_CHANNELS
+    ch = VIIRS_CHANNELS[name]
+    rows = np.zeros((ch.zone_height, ch.total_width), np.uint16)
+    for det in range(ch.zone_height):
+        col, out = 0, []
+        for z in range(6):
+            w, o = ch.zone_width[z], ch.oversample[z]
+            v = det_lines[det, col: col + w * o].astype(np.int64) & 0x7FFF
+            col += w * o
+            out.append(v.reshape(-1, o).sum(axis=1) // o)
+        rows[ch.zone_height - 1 - det] = np.clip(
+            np.concatenate(out) * ch.scale, 0, 65535)
+    return rows
+
+
+def viirs_scene(rng: np.random.Generator, name: str) -> np.ndarray:
+    """(zone_height, oversampled width) uint16 counts for one segment of
+    band `name`: a smooth field plus noise, 12-bit."""
+    from satdump_tpu_torch.models.jpss import VIIRS_CHANNELS
+    ch = VIIRS_CHANNELS[name]
+    w = sum(z * o for z, o in zip(ch.zone_width, ch.oversample))
+    x = np.arange(w)[None, :] / 377.0
+    y = np.arange(ch.zone_height)[:, None] / 5.0
+    field = 2000 + 1200 * np.sin(x + 0.1 * ch.apid) * np.cos(y)
+    return np.clip(field + rng.normal(0, 24, (ch.zone_height, w)), 0,
+                   4095).astype(np.uint16)
+
+
+def atms_scan_packets(chans: np.ndarray, line: int, day: int = JPSS_DAY,
+                      seq0: int = 0) -> list:
+    """One ATMS scan: chans (22, 104) counts (96 earth views, 4 cold, 4
+    warm), one APID-528 packet a view, the first carrying the scan sync
+    flag, as tests/test_jpss.py builds them."""
+    from satdump_tpu_torch.ccsds import CCSDSHeader, CCSDSPacket
+    pkts = []
+    for sp in range(104):
+        payload = bytearray(_cds_header(day, 8000 * line)) + bytes(2) \
+            + bytes([0x80 if sp == 0 else 0, 0]) \
+            + chans[:, sp].astype(">u2").tobytes()
+        pkts.append(CCSDSPacket(header=CCSDSHeader(
+            apid=528, sequence_flag=3,
+            packet_sequence_count=(seq0 + sp) & 0x3FFF), payload=payload))
+    return pkts
+
+
+def omps_nadir_packets(vals: np.ndarray, day: int = JPSS_DAY, ms: int = 0,
+                       seq0: int = 0) -> list:
+    """One OMPS nadir frame: vals (339, 142) counts as 32-bit words at word
+    74, Rice-compressed (n 32, J 32, rsi 8) between 149 header and 149
+    trailer bytes, in a first packet and its continuations on APID 616
+    (omps_nadir_reader.cpp's layout, as tests/test_jpss.py builds it)."""
+    from satdump_tpu_torch.ccsds import CCSDSHeader, CCSDSPacket
+    from satdump_tpu_torch.xrit.rice import rice_encode
+    words = np.zeros(74 + vals.size, np.uint32)
+    words[74:] = vals.reshape(-1)
+    head = bytearray(_cds_header(day, ms)) + bytes(141)
+    frame = head + rice_encode(words, 32, 32, rsi=8) + bytes(149)
+    parts = [frame[i: i + 4000] for i in range(0, len(frame), 4000)]
+    return [CCSDSPacket(header=CCSDSHeader(
+        apid=616, sequence_flag=1 if i == 0 else 0,
+        packet_sequence_count=(seq0 + i) & 0x3FFF), payload=bytearray(p))
+        for i, p in enumerate(parts)]
+
+
+def jpss_instrument_cadus(rng: np.random.Generator, viirs_bands,
+                          atms_scans: int, omps_frames: int,
+                          npp: bool = False, idle: int = 8):
+    """JPSS HRD CADUs carrying one VIIRS segment of each band in
+    `viirs_bands` (VCID 16), `atms_scans` ATMS scans (VCID 1) and
+    `omps_frames` OMPS nadir frames (VCID 11), with `idle` fill frames
+    (VCID 63) ahead and behind. NOAA-21's layout (`npp` False: SCID 177, a
+    9-byte insert zone, 1094-byte M-PDU data, RS(255,223) x5, 1279-byte
+    CADUs) or Suomi NPP's (SCID 157, no insert zone, 884 bytes, x4, 1024).
+    Returns (cadus, truth) with truth = {"viirs": {band: (rows, width)
+    uint16 image rows}, "atms": (scans, 22, 104), "omps": (frames, 339,
+    142)}."""
+    from satdump_tpu_torch.ccsds.mux import make_cadus_for_vcid
+    scid, mpdu, iz, depth = (157, 884, 0, 4) if npp else (177, 1094, 9, 5)
+    width = 4 + 223 * depth
+
+    def frames(pkts, vcid):
+        return make_cadus_for_vcid(pkts, vcid, scid, mpdu, iz > 0, iz or 2,
+                                   total_size=width)
+    truth = {"viirs": {}}
+    viirs = []
+    for i, band in enumerate(viirs_bands):
+        det = viirs_scene(rng, band)
+        truth["viirs"][band] = viirs_rows(band, det)
+        viirs += viirs_segment_packets(band, det, ms=1000 * i,
+                                       seq0=100 * i)
+    truth["atms"] = rng.integers(0, 65536, (atms_scans, 22, 104),
+                                 dtype=np.uint16)
+    atms = [p for ln in range(atms_scans)
+            for p in atms_scan_packets(truth["atms"][ln], ln, seq0=104 * ln)]
+    truth["omps"] = rng.integers(0, 60000, (omps_frames, 339, 142),
+                                 dtype=np.int64)
+    omps = [p for k in range(omps_frames)
+            for p in omps_nadir_packets(truth["omps"][k], ms=8000 * k,
+                                        seq0=16 * k)]
+    if omps_frames:   # the reader finishes a frame at the next one's start
+        omps += omps_nadir_packets(np.zeros((339, 142), np.int64),
+                                   ms=8000 * omps_frames)[:1]
+    body = _interleave([frames(viirs, 16), frames(atms, 1),
+                        frames(omps, 11)])
+    fill = idle_cadus(idle, scid, depth)
+    return np.concatenate([fill, rs_encode_frames(body, depth), fill]), truth
+
+
+GOES_HRIT_SCID = 0x0C
+
+
+def abi_segments(rng: np.random.Generator, nseg: int, width: int,
+                 seg_lines: int) -> np.ndarray:
+    """(nseg * seg_lines, width) uint8: a smooth ABI-like scene."""
+    walk = np.cumsum(rng.normal(0, 2, (nseg * seg_lines, width)), axis=1)
+    return np.clip(120 + walk, 0, 255).astype(np.uint8)
+
+
+def goes_rice_abi_packets(full: np.ndarray, nseg: int, apid0: int = 300,
+                          image_id: int = 7, channel: int = 13) -> list:
+    """GOES-R HRIT transport packets of an ABI image split into `nseg`
+    Rice-compressed segment files (NOAA compression 1): each file's first
+    packet carries its headers, each following packet one Rice-compressed
+    scanline, as tests/test_xrit.py builds them."""
+    from satdump_tpu_torch.ccsds import CCSDSHeader, CCSDSPacket
+    from satdump_tpu_torch.xrit import (ImageStructureRecord, NOAALRITHeader,
+                                        SegmentIdentificationHeader,
+                                        TimeStampRecord, build_xrit_file,
+                                        compute_crc)
+    from satdump_tpu_torch.xrit.rice import rice_encode
+    seg_lines = full.shape[0] // nseg
+    pkts = []
+    for s in range(nseg):
+        records = [
+            ImageStructureRecord(bit_per_pixel=8, columns_count=full.shape[1],
+                                 lines_count=seg_lines, compression_flag=1),
+            SegmentIdentificationHeader(
+                image_identifier=image_id, segment_sequence_number=s,
+                max_segment=nseg, max_column=full.shape[1],
+                max_row=full.shape[0]),
+            NOAALRITHeader(product_id=16, product_subid=channel,
+                           noaa_specific_compression=1),
+            TimeStampRecord(days=25000, milliseconds_of_day=43200)]
+        raw = build_xrit_file(f"OR_ABI-L2-CMIPF-M6C{channel:02d}_G16_s2022{s}"
+                              ".lrit", b"", records)
+        tp = (0).to_bytes(2, "big") + (len(raw) * 8).to_bytes(8, "big")
+        chunks = [tp + raw] + [rice_encode(line) for line in
+                               full[s * seg_lines: (s + 1) * seg_lines]]
+        for i, c in enumerate(chunks):
+            flag = 1 if i == 0 else 2 if i == len(chunks) - 1 else 0
+            pkts.append(CCSDSPacket(
+                header=CCSDSHeader(apid=apid0 + s, sequence_flag=flag,
+                                   packet_sequence_count=i & 0x3FFF),
+                payload=bytearray(c + compute_crc(c).to_bytes(2, "big"))))
+    return pkts
+
+
+def emwin_packets(name: str, text: bytes, apid: int = 400) -> list:
+    """An EMWIN text file (file type 2, NOAA product 9, uncompressed) as
+    GOES-R HRIT transport packets."""
+    from satdump_tpu_torch.xrit import (NOAALRITHeader, build_xrit_file,
+                                        packetize_xrit_file)
+    raw = build_xrit_file(name, text, [NOAALRITHeader(product_id=9)],
+                          file_type_code=2)
+    return packetize_xrit_file(raw, apid=apid)
+
+
+def goes_hrit_xrit_cadus(rng: np.random.Generator, nseg: int, width: int,
+                         seg_lines: int, emwin_text: bytes, idle: int = 8):
+    """GOES-R HRIT CADUs (1024 bytes, RS(255,223) x4) on VCID 13 carrying an
+    ABI image of `nseg` Rice-compressed segments and an EMWIN text file,
+    between `idle` fill frames ahead and behind. Returns (cadus, image)."""
+    from satdump_tpu_torch.ccsds.mux import make_cadus_for_vcid
+    full = abi_segments(rng, nseg, width, seg_lines)
+    pkts = goes_rice_abi_packets(full, nseg) + emwin_packets(
+        "A_EMWIN_TEST.TXT", emwin_text)
+    fill = idle_cadus(idle, GOES_HRIT_SCID)
+    frames = rs_encode_frames(make_cadus_for_vcid(pkts, 13, GOES_HRIT_SCID))
+    return np.concatenate([fill, frames, fill]), full
+
+
+# ---------------------------------------------------------------------------
+# Aqua DB (MODIS), GOES GVAR and sensor data, M10 radiosondes, Orbcomm
+# ---------------------------------------------------------------------------
+
+AQUA_DB_SPS = (2, 1)        # Aqua DB: 7.5 Msym/s OQPSK at 15 Msps
+AQUA_SCID = 154
+GVAR_SPS = (600, 211)       # GOES GVAR: 2.11 Msym/s BPSK at 6 Msps
+GOESN_SD_SPS = (6000, 2621)  # GOES-N sensor data: 2.621 Msym/s at 6 Msps
+
+
+def modis_day_packet(words415: np.ndarray, position: int, seq: int,
+                     scan_count: int = 1, day: int = 20000, ms: int = 0):
+    """One MODIS day-group packet half (APID 64): 415 12-bit words and
+    their checksum at earth-frame count `position` + 1, as
+    tests/test_eos_modis.py builds it."""
+    from satdump_tpu_torch.ccsds import CCSDSHeader, CCSDSPacket
+    from satdump_tpu_torch.models.eos import _modis_crc
+    from satdump_tpu_torch.utils.repack import pack_nbits_to_bytes
+    words = np.zeros(416, np.uint16)
+    words[:415] = words415
+    words[415] = _modis_crc(words[:415])
+    payload = bytearray(12)
+    payload[0:2] = int(day).to_bytes(2, "big")
+    payload[2:6] = int(ms).to_bytes(4, "big")
+    payload[8] = (scan_count & 0b111) << 1
+    efc = position + 1
+    payload[9] = (efc >> 4) & 0x7F
+    payload[10] = (efc & 0xF) << 4
+    payload += bytes(pack_nbits_to_bytes(words, 12))
+    payload += bytes(max(0, 636 - len(payload)))
+    return CCSDSPacket(header=CCSDSHeader(apid=64, sequence_flag=seq),
+                       payload=payload)
+
+
+def aqua_modis_cadus(rng: np.random.Generator, positions: int,
+                     idle: int = 4):
+    """Aqua DB CADUs (VCID 30, 884-byte M-PDU data, RS(255,223) x4) carrying
+    one MODIS day scan of `positions` earth frames (both packet halves),
+    between `idle` fill frames ahead and behind. Returns (cadus, words)
+    with words (positions, 2, 415)."""
+    from satdump_tpu_torch.ccsds.mux import make_cadus_for_vcid
+    words = rng.integers(0, 4096, (positions, 2, 415)).astype(np.uint16)
+    pkts = [modis_day_packet(words[p, s], p, s + 1)
+            for p in range(positions) for s in range(2)]
+    fill = idle_cadus(idle, AQUA_SCID)
+    frames = rs_encode_frames(make_cadus_for_vcid(pkts, 30, AQUA_SCID))
+    return np.concatenate([fill, frames, fill]), words
+
+
+def aqua_db_baseband(cadus: np.ndarray, rng: np.random.Generator,
+                     snr_db: float = 18.0) -> np.ndarray:
+    """Aqua DB downlink of `cadus` at sps 2: randomized, uncoded, each
+    OQPSK rail NRZ-M encoded on its own (module_aqua_db_decoder.cpp's
+    inverse), an idle tail, RRC alpha 0.5 and the channel of
+    `psk_baseband`."""
+    bits = encode_cadu_stream_uncoded(cadus)
+    bits = np.concatenate([bits, rng.integers(0, 2, 2048).astype(np.uint8)])
+    chan = np.empty_like(bits)
+    chan[0::2], _ = differential.nrzm_encode(bits[0::2])
+    chan[1::2], _ = differential.nrzm_encode(bits[1::2])
+    return psk_baseband(chan, rng, AQUA_DB_SPS, "oqpsk", snr_db)
+
+
+def _gvar_words_frame(block_id: int, words_after_98: np.ndarray
+                      ) -> np.ndarray:
+    from satdump_tpu_torch.models import goes_gvar as gv
+    frame = np.zeros(gv.FRAME_BYTES, np.uint8)
+    frame[0:8] = np.frombuffer(gv.ASM_SYNC.to_bytes(8, "big"), np.uint8)
+    for off in (8, 38, 68):
+        frame[off] = block_id
+    packed = np.packbits(((np.asarray(words_after_98, np.uint16)[:, None]
+                           >> np.arange(9, -1, -1)) & 1).astype(np.uint8))
+    frame[98: 98 + len(packed)] = packed[: gv.FRAME_BYTES - 98]
+    return frame
+
+
+def _gvar_linedoc(counter: int, word_count: int, sc_id: int = 13
+                  ) -> np.ndarray:
+    w = np.zeros(16, np.uint16)
+    w[0] = sc_id
+    w[5], w[6] = counter >> 10, counter & 0x3FF
+    w[11], w[12] = word_count >> 10, word_count & 0x3FF
+    return w
+
+
+def gvar_imager_frames(rng: np.random.Generator, counter: int,
+                       vis_blocks: int = 8):
+    """GOES GVAR imager frames of one scan, as tests/test_goes_gvar.py
+    builds them: an IR block (4 lines of 10-bit counts) and `vis_blocks`
+    visible blocks (one line each). Returns (frames (n, FRAME_BYTES),
+    ir (4, IR_WIDTH), vis (vis_blocks, VIS_WIDTH))."""
+    from satdump_tpu_torch.models import goes_gvar as gv
+    ir = rng.integers(0, 1024, (4, gv.IR_WIDTH)).astype(np.uint16)
+    vis = rng.integers(0, 1024, (vis_blocks, gv.VIS_WIDTH)).astype(np.uint16)
+    words = np.zeros(16 + 5240 * 3 + gv.IR_WIDTH, np.uint16)
+    words[:16] = _gvar_linedoc(counter, 5240)
+    for k in range(4):
+        words[16 + 5240 * k: 16 + 5240 * k + gv.IR_WIDTH] = ir[k]
+    frames = [_gvar_words_frame(1, words)]
+    for b in range(vis_blocks):
+        frame = _gvar_words_frame(3 + b, _gvar_linedoc(counter, 6530))
+        # pixel words start at byte 116, bit offset 6; pixel i = word i + 1
+        pw = np.zeros(gv.VIS_WIDTH + 2, np.uint16)
+        pw[1: 1 + gv.VIS_WIDTH] = vis[b]
+        bits = ((pw[:, None] >> np.arange(9, -1, -1)) & 1).astype(np.uint8)
+        packed = np.packbits(np.concatenate(
+            [np.unpackbits(frame[116:118])[:6], bits.reshape(-1)]))
+        frame[116: 116 + len(packed)] = packed[: gv.FRAME_BYTES - 116]
+        frames.append(frame)
+    return np.stack(frames), ir, vis
+
+
+def gvar_baseband(frames: np.ndarray, rng: np.random.Generator,
+                  snr_db: float = 18.0) -> np.ndarray:
+    """GOES GVAR downlink of `frames` at sps 600/211: each frame randomized
+    (rand_frame_tx) to its 262,288 bits, random lead and tail bits, NRZ-S,
+    BPSK, RRC alpha 0.5 and the channel of `psk_baseband`."""
+    from satdump_tpu_torch.models import goes_gvar as gv
+    bits = np.concatenate(
+        [rng.integers(0, 2, 4096).astype(np.uint8)]
+        + [np.unpackbits(gv.rand_frame_tx(f))[:gv.FRAME_BITS]
+           for f in frames] + [rng.integers(0, 2, 4096).astype(np.uint8)])
+    chan, _ = differential.nrzs_encode(bits)
+    return psk_baseband(chan, rng, GVAR_SPS, "bpsk", snr_db)
+
+
+def goesn_sd_bits(rng: np.random.Generator, n: int):
+    """n GOES-N sensor-data frames behind random lead bits, as
+    tests/test_goes_sd.py builds them: the 14-bit ASM over the frame head,
+    PN-randomized 480-bit frames. Returns (stream bits before NRZ-M,
+    expected decoder output (n, 60))."""
+    from satdump_tpu_torch.models.goes_sd import (SD_ASM, SD_ASM_BITS,
+                                                  SD_FRAME_BITS,
+                                                  SD_FRAME_BYTES, SD_PN)
+    payloads = rng.integers(0, 256, (n, SD_FRAME_BYTES), dtype=np.uint8)
+    asm = ((SD_ASM >> np.arange(SD_ASM_BITS - 1, -1, -1)) & 1).astype(
+        np.uint8)
+    out = [rng.integers(0, 2, 2048).astype(np.uint8)]
+    for pl in payloads:
+        bits = np.unpackbits(pl ^ SD_PN)[:SD_FRAME_BITS]
+        bits[:SD_ASM_BITS] = asm
+        pl[:] = np.packbits(bits) ^ SD_PN
+        out.append(bits)
+    out.append(rng.integers(0, 2, 2048).astype(np.uint8))
+    return np.concatenate(out), payloads
+
+
+def goesn_sd_baseband(bits: np.ndarray, rng: np.random.Generator,
+                      snr_db: float = 18.0) -> np.ndarray:
+    """GOES-N sensor data: NRZ-M, BPSK at sps 6000/2621 and the channel of
+    `psk_baseband`."""
+    chan, _ = differential.nrzm_encode(bits)
+    return psk_baseband(chan, rng, GOESN_SD_SPS, "bpsk", snr_db)
+
+
+def m10_channel_bits(rng: np.random.Generator, n: int) -> np.ndarray:
+    """n M10 radiosonde frames (Manchester channel bits at 9600 baud), a
+    position each, behind and between random bits."""
+    from satdump_tpu_torch.models.radiosonde import encode_frame
+    parts = [rng.integers(0, 2, 500).astype(np.uint8)]
+    for i in range(n):
+        parts.append(encode_frame({"timestamp": 1700000000 + i,
+                                   "lat": 45.0 + 0.01 * i, "lon": 7.0,
+                                   "alt": 5000.0 + 10 * i, "sat_count": 8}))
+        parts.append(rng.integers(0, 2, 64).astype(np.uint8))
+    return np.concatenate(parts)
+
+
+def orbcomm_channel_bits(rng: np.random.Generator, n: int) -> np.ndarray:
+    """n Orbcomm STX frames, an ephemeris packet each and random bytes in
+    the unused slots (an all-zero filler droops through fsk_demod's DC
+    blocker), as channel bits at 4800 baud behind random bits."""
+    from satdump_tpu_torch.models.orbcomm import (STX_FRM_BYTES,
+                                                  frame_to_channel_bits,
+                                                  make_ephemeris_packet,
+                                                  make_frame)
+    frames = [make_frame([(2, make_ephemeris_packet(
+        105 + i, 1700000000 + i, (6800.0, 1000.0 * i, 1500.0)))],
+        fill=rng.integers(0, 256, STX_FRM_BYTES))
+        for i in range(n)]
+    return np.concatenate([rng.integers(0, 2, 600).astype(np.uint8)]
+                          + [frame_to_channel_bits(f) for f in frames])

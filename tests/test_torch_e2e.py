@@ -218,12 +218,13 @@ def test_meteor_m2_lrpt_baseband_to_products(tmp_path):
 
 
 def test_cli_pipeline_stops_at_unported_products(metop_12, tmp_path):
-    """A pipeline whose products module is not ported yet (JPSS HRD's
-    `jpss_instruments`) stops there with the registry's unknown-module
-    error."""
+    """A pipeline whose products module is not ported yet (ELEKTRO-L
+    LRIT's `elektro_lrit_data_decoder`) stops there with the registry's
+    unknown-module error."""
     cadus, src = metop_12
     cadu = tmp_path / "in.cadu"
     cadus.tofile(cadu)
-    with pytest.raises(SatdumpError, match="unknown module 'jpss_instruments'"):
-        cli.main(["pipeline", "npp_hrd", "cadu", str(cadu),
+    with pytest.raises(SatdumpError,
+                       match="unknown module 'elektro_lrit_data_decoder'"):
+        cli.main(["pipeline", "elektro_lrit", "cadu", str(cadu),
                   str(tmp_path / "out"), "--torch_device", "cpu"])

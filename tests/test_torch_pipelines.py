@@ -27,13 +27,13 @@ DEEP_SPACE = (
 )
 
 # the DVB pipelines: each one's modules up to the level the port reaches
-# (GOES-R GRB to its CADUs, DVB-S2 Test to its TS; their products decoder
-# and network server are not ported)
+# (GOES-R GRB to its CADUs, HimawariCast to its TS; their data decoders are
+# not ported)
 DVB = (
     ("DVB-S2.json", "dvbs2", None),
     ("Work-In-Progress.json", "eumetcast_africa", None),
     ("GOES.json", "goes_grb", "goes_grb_data_decoder"),
-    ("DVB_Test.json", "dvbs2_test", "network_server"),
+    ("DVB_Test.json", "dvbs2_test", None),
     ("Himawari.json", "himawaricast", "himawaricast_data_decoder"),
 )
 
@@ -53,6 +53,22 @@ HRPT_INMARSAT = (
     ("Inmarsat.json", "inmarsat_aero_12", "inmarsat_aero_decoder"),
     ("Inmarsat.json", "inmarsat_aero_105", "inmarsat_aero_decoder"),
     ("Inmarsat.json", "inmarsat_aero_84", "inmarsat_aero_decoder"),
+)
+
+
+# JPSS HRD, GOES HRIT's products level and the host decoders: each one's
+# decoder or products module behind a demod the port already had
+HOST_DECODERS = (
+    ("JPSS.json", "npp_hrd", "jpss_instruments"),
+    ("JPSS.json", "jpss_hrd", "jpss_instruments"),
+    ("GOES.json", "goes_hrit", "goes_lrit_data_decoder"),
+    ("EOS.json", "aqua_db", "eos_instruments"),
+    ("GOES.json", "goes_gvar", "goes_gvar_image_decoder"),
+    ("GOES.json", "goesn_sd", "goes_sd_image_decoder"),
+    ("GOES.json", "goes_mdl", "goes_mdl_decoder"),
+    ("Orbcomm.json", "orbcomm_stx", "orbcomm_plotter"),
+    ("Radiosonde.json", "radiosonde_m10", "radiosonde_m10_decoder"),
+    ("DVB_Test.json", "dvbs2_test", "network_server"),
 )
 
 
@@ -101,8 +117,15 @@ def test_hrpt_inmarsat_pipeline_has_every_module(fname, pipe_id, decoder):
     assert set(mods) <= _registry(), mods
 
 
+@pytest.mark.parametrize("fname,pipe_id,decoder", HOST_DECODERS)
+def test_host_decoder_pipeline_has_every_module(fname, pipe_id, decoder):
+    mods = _pipelines()[(fname, pipe_id)]
+    assert decoder in mods
+    assert set(mods) <= _registry(), mods
+
+
 def test_pipelines_with_every_module_registered():
     pipes, reg = _pipelines(), _registry()
     full = [k for k, mods in pipes.items() if set(mods) <= reg]
     assert len(pipes) == 123
-    assert len(full) >= 107, len(full)
+    assert len(full) >= 117, len(full)
