@@ -3219,6 +3219,277 @@ def phase_host_decoders(rng, work: Path) -> dict:
     return out
 
 
+# phase 16: the xRIT image decoders and GOES-R GRB's products on the port's
+# own codecs. ELEKTRO-L HRIT at 3 Msps (its file's rate: 1.157 Msym/s QPSK,
+# sps 2.593, so psk_demod picks symbols with K2) and GK-2A HRIT at 6 Msps
+# (its file's: 3 Msym/s QPSK, sps 2, the strip path), both through K1, then
+# their data decoders; GOES-R GRB at 17,331,876 sps (2 sps) to ABI and GLM;
+# HimawariCast's decoder from a .cadu (its pipeline feeds it BBFrames, which
+# it reads as CADUs: ROADMAP S6); every committed J2K fixture; the islow
+# IDCT on the card and the host. Segments are 32 lines of 464 (ELEKTRO) and
+# 256 (GK-2A) columns; GRB's ABI blocks are 32 rows of MESO's 500 columns.
+XRIT2_RATE, XRIT2_SEGMENTS, XRIT2_WIDTH, XRIT2_LINES = 3e6, 4, 464, 32
+XRIT2_GK2A_RATE, XRIT2_GK2A_WIDTH, XRIT2_GK2A_LINES = 6e6, 256, 32
+XRIT2_HIMAWARI_WIDTH, XRIT2_HIMAWARI_LINES = 1100, 11
+GRB2_RATE, GRB2_BLOCKS, GRB2_FLASHES = 2 * 8_665_938, 8, 5
+J2K_REPS = 5
+# an 8-bit JPEG segment at a full-disk product's size for the IDCT's times
+XRIT2_IDCT_SHAPE = (464, 2784)
+XRIT2_SEED = SEED + 16
+
+
+def _xrit2_elektro(rng, work: Path) -> dict:
+    """16.1 ELEKTRO-L HRIT at 3 Msps: 8-bit JPEG and 10-bit wavelet
+    segments, baseband -> products on the card and the CPU."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image.io import load_img
+    from satdump_tpu_torch.image.jpeg import decode_jpeg_gray
+    from satdump_tpu_torch.io import write_baseband
+    files, truth = sim.elektro_xrit_files(rng, XRIT2_SEGMENTS, XRIT2_WIDTH,
+                                          XRIT2_LINES)
+    cadus = sim.xrit_geo_cadus(files)
+    bb = sim.ccsds_psk_baseband(cadus, rng, sim.ELEKTRO_HRIT_SPS, "qpsk")
+    w = work / "elektro_hrit"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    label = "elektro_hrit 3 Msps"
+    res = _card_cpu_levels(
+        label, "Elektro_Arktika.json", "elektro_hrit", w / "pass.cf32", w,
+        (("baseband", "soft", dict(PASS_PARAMS, samplerate=XRIT2_RATE)),
+         ("soft", "cadu", dict(PASS_PARAMS)), ("cadu", "products", {})),
+        ("elektro_hrit.cadu", "*.png"),
+        need=("viterbi_re", "resample_arith_grid"))
+    _check_cadus(res["cuda"]["cadu"], cadus, f"{label} (cuda)")
+    d = w / "cuda" / "IMAGES" / "MSU-GS"
+    jpeg = np.concatenate([decode_jpeg_gray(j, "cpu") for j in truth["jpeg"]])
+    if not (np.array_equal(load_img(d / "MSU-GS_GOMS3_ch9_202601010000.png"),
+                           truth["wt"])
+            and np.array_equal(load_img(d / "MSU-GS_GOMS3_ch5_202601010000"
+                                        ".png"), jpeg)):
+        raise AssertionError(f"{label}: an image differs from what was sent "
+                             "(wavelet) or from the CPU's decode (JPEG)")
+    log(f"{label}: {len(cadus)} CADUs, {len(bb)} samples; {2 * XRIT2_SEGMENTS}"
+        f" segments of {XRIT2_LINES} x {XRIT2_WIDTH}: the wavelet image "
+        f"equals what was sent, the JPEG image the CPU's decode")
+    return res
+
+
+def _xrit2_gk2a(rng, work: Path) -> dict:
+    """16.2 GK-2A HRIT at 6 Msps: encrypted, 8- and 12-bit JPEG and J2K
+    segments (one behind the UHRIT preamble), baseband -> products on the
+    card and the CPU."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image.io import load_img
+    from satdump_tpu_torch.image.j2k import decompress_j2k
+    from satdump_tpu_torch.image.jpeg12 import decompress_jpeg12
+    from satdump_tpu_torch.io import write_baseband
+    files, keyfile, truth = sim.gk2a_xrit_files(rng, XRIT2_GK2A_WIDTH,
+                                                XRIT2_GK2A_LINES)
+    cadus = sim.xrit_geo_cadus(files)
+    bb = sim.ccsds_psk_baseband(cadus, rng, (2, 1), "qpsk")
+    w = work / "gk2a_hrit"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    (w / "keys.bin").write_bytes(keyfile)
+    label = "gk2a_hrit 6 Msps"
+    res = _card_cpu_levels(
+        label, "GK2A.json", "gk2a_hrit", w / "pass.cf32", w,
+        (("baseband", "soft", dict(PASS_PARAMS, samplerate=XRIT2_GK2A_RATE)),
+         ("soft", "cadu", dict(PASS_PARAMS)),
+         ("cadu", "products", {"gk2a_keys": str(w / "keys.bin")})),
+        ("gk2a_hrit.cadu", "*.png", "ADD/*"), need=("viterbi_re",))
+    _check_cadus(res["cuda"]["cadu"], cadus, f"{label} (cuda)")
+    d = w / "cuda" / "IMAGES" / "AMI"
+    want = {"WV069": truth["wv069"],
+            "SW038": np.concatenate([decompress_j2k(c)
+                                     for c in truth["j2k"]]),
+            "VI006": np.concatenate([decompress_jpeg12(j)
+                                     for j in truth["jpeg8"]]),
+            "IR105": np.concatenate([decompress_jpeg12(j)
+                                     for j in truth["jpeg12"]])}
+    for ch, img in want.items():
+        if not np.array_equal(load_img(d / f"AMI_{ch}_20260101000000.png"),
+                              img):
+            raise AssertionError(f"{label}: {ch} differs from what was sent")
+    log(f"{label}: {len(cadus)} CADUs, {len(bb)} samples; 8 segments "
+        f"(DES-encrypted raw, 8- and 12-bit JPEG, J2K with and without the "
+        f"UHRIT preamble) and the additional-data file decoded; the "
+        f"encrypted and J2K images equal what was sent")
+    return res
+
+
+def _xrit2_himawari(rng, work: Path) -> float:
+    """16.3 himawaricast_data_decoder from a .cadu of ten 16-bit segments,
+    on the card's default device and the CPU."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image.io import load_img
+    from satdump_tpu_torch.xrit.geo import HimawariCastDataDecoderModule
+    files, img = sim.himawari_xrit_files(rng, XRIT2_HIMAWARI_WIDTH,
+                                         XRIT2_HIMAWARI_LINES)
+    w = work / "himawaricast"
+    w.mkdir(parents=True, exist_ok=True)
+    sim.xrit_geo_cadus(files).tofile(w / "h.cadu")
+    walls = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        HimawariCastDataDecoderModule(str(w / "h.cadu"), str(w / dev / "x"),
+                                      {"torch_device": dev}).process()
+        walls[dev] = time.perf_counter() - t0
+    got = [load_img(w / dev / "IMAGES" / "AHI" / "AHI_3_202601010000.png")
+           for dev in ("cuda", "cpu")]
+    if not (np.array_equal(got[0], img << 6)
+            and np.array_equal(got[1], got[0])):
+        raise AssertionError("himawaricast: the image differs from what was "
+                             "sent")
+    log(f"himawaricast_data_decoder (.cadu, 10 segments of "
+        f"{XRIT2_HIMAWARI_LINES} x {XRIT2_HIMAWARI_WIDTH}): card "
+        f"{walls['cuda']:.3f} s, CPU {walls['cpu']:.3f} s, the image equal "
+        f"to what was sent on both")
+    return walls["cuda"]
+
+
+def _grb2_pass(rng, work: Path) -> dict:
+    """16.4 GOES-R GRB at 2 sps: ABI MESO-1 channel 13 in J2K blocks of 32
+    rows at 500 columns and a GLM flash frame, baseband -> products on the
+    card and the CPU."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image.io import load_img
+    from satdump_tpu_torch.image.j2k import decompress_j2k
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.models.goes_grb import (ABI_CHANNEL_PARAMS,
+                                                   GLM_FLASH,
+                                                   parse_glm_frame)
+    from satdump_tpu_torch.ops.dvbs2 import tx
+    blocks = []
+    for k in range(GRB2_BLOCKS):
+        cs = sim.j2k_fixture(f"grb_abi_c13_{k % 3}.jp2")
+        blocks.append((cs, decompress_j2k(cs)))
+    cadus, truth = sim.grb_abi_cadus(rng, blocks, glm_flashes=GRB2_FLASHES)
+    # fill behind the data: the extractor's look-ahead ends two BBFrames
+    # before the stream does
+    fill = sim.grb_cadus([], 5, idle=12)
+    syms = tx.bbframes_to_symbols(sim.grb_bbframes(
+        np.concatenate([cadus, fill])), 11, False, False).ravel()
+    bb = sim.dvbs2_baseband(syms, rng)
+    w = work / "goes_grb"
+    w.mkdir(parents=True, exist_ok=True)
+    write_baseband(w / "pass.cf32", "cf32", bb)
+    label = "goes_grb products 17.33 Msps"
+    res = _card_cpu_levels(
+        label, "GOES.json", "goes_grb", w / "pass.cf32", w,
+        (("baseband", "bbframe", dict(PASS_PARAMS, samplerate=GRB2_RATE)),
+         ("bbframe", "cadu", {}), ("cadu", "products", {})),
+        ("goes_grb.cadu", "*.png", "*.json"))
+    depth = ABI_CHANNEL_PARAMS[13][1]
+    png = next((w / "cuda" / "ABI" / "MESO1").rglob("ABI_MESO1_13_*.png"))
+    img = load_img(png)
+    n = len(truth["image"])
+    glm = json.loads(next((w / "cuda" / "GLM" / "Flash").glob("*.json"))
+                     .read_text())
+    want_glm = json.loads(json.dumps(parse_glm_frame(truth["glm"],
+                                                     GLM_FLASH)))
+    if not (np.array_equal(img[:n], truth["image"] << (16 - depth))
+            and not img[n:].any() and glm == want_glm):
+        raise AssertionError(f"{label}: the ABI image or the GLM records "
+                             "differ from what was sent")
+    log(f"{label}: {len(cadus)} data CADUs, {len(bb)} samples; "
+        f"{GRB2_BLOCKS} ABI J2K blocks ({n} x 500) and {GRB2_FLASHES} GLM "
+        f"flashes equal to what was sent")
+    return res
+
+
+def _j2k_fixtures() -> dict:
+    """16.5 every committed J2K codestream decoded, its SHA-256 and its
+    decode's against MANIFEST.json; tier-2, tier-1 and the inverse DWT
+    timed apart on a GRB block (500 x 32, 16-bit, 5/3)."""
+    import hashlib
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image import j2k
+    manifest = json.loads((sim.J2K_TESTDATA / "MANIFEST.json").read_text())
+    for name, m in manifest.items():
+        data = (sim.J2K_TESTDATA / name).read_bytes()
+        img = j2k.decompress_j2k(data)
+        if (hashlib.sha256(data).hexdigest() != m["sha256"]
+                or hashlib.sha256(img.tobytes()).hexdigest()
+                != m["decoded_sha256"]):
+            raise AssertionError(f"J2K fixture {name}: its bytes or its "
+                                 "decode differ from MANIFEST.json")
+    block = sim.j2k_fixture("grb_abi_c13_0.jp2")
+    split = {"tier2": 0.0, "tier1": 0.0, "idwt": 0.0}
+    t0 = time.perf_counter()
+    for _ in range(J2K_REPS):
+        j2k.decompress_j2k(block)
+        for k in split:
+            split[k] += j2k.last_times[k]
+    total = (time.perf_counter() - t0) / J2K_REPS * 1e3
+    split = {k: v / J2K_REPS * 1e3 for k, v in split.items()}
+    log(f"J2K: all {len(manifest)} committed codestreams match "
+        f"MANIFEST.json; a GRB block (500 x 32, 16-bit, 5/3, "
+        f"{len(block)} bytes): {total:.3f} ms a decode, tier-2 "
+        f"{split['tier2']:.3f} ms, tier-1 {split['tier1']:.3f} ms, inverse "
+        f"DWT {split['idwt']:.3f} ms (host, mean of {J2K_REPS})")
+    return dict(split, total=total, fixtures=len(manifest))
+
+
+def _xrit2_idct(rng) -> dict:
+    """16.6 the 8-bit JPEG decoder's islow IDCT on a segment at a
+    full-disk product's size, on the card and on the host: the same
+    pixels, each timed (copies included)."""
+    import torch
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image import jpeg
+    from satdump_tpu_torch.image.jpeg12 import compress_jpeg12
+    img = sim.smooth_scene(rng, *XRIT2_IDCT_SHAPE, 8)
+    data = compress_jpeg12(img, 8, quality_div=4)
+    t0 = time.perf_counter()
+    hdr = jpeg.parse_jfif_gray(data)
+    zz = jpeg.huffman_decode_gray(hdr, data)
+    entropy = time.perf_counter() - t0
+    out = {"blocks": len(zz), "entropy_ms": entropy * 1e3}
+    ref = None
+    for dev in ("cuda", "cpu"):
+        got = jpeg.idct_islow(zz, hdr["q"], dev)         # warm
+        if ref is not None and not np.array_equal(got, ref):
+            raise AssertionError("islow IDCT: the card and the host differ")
+        ref = got
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(J2K_REPS):
+            jpeg.idct_islow(zz, hdr["q"], dev)
+        torch.cuda.synchronize()
+        out[f"{dev}_ms"] = (time.perf_counter() - t0) / J2K_REPS * 1e3
+    log(f"islow IDCT, {len(zz)} blocks ({XRIT2_IDCT_SHAPE[0]} x "
+        f"{XRIT2_IDCT_SHAPE[1]}): card {out['cuda_ms']:.3f} ms, host "
+        f"{out['cpu_ms']:.3f} ms a call (copies included), pixels equal; "
+        f"the host's entropy decoding {out['entropy_ms']:.1f} ms")
+    return out
+
+
+def _xrit2_launches(res: dict, kernel: str) -> dict:
+    """{pass: launches of `kernel`} over the xRIT passes of phase 16."""
+    return {k: sum(ln.get(kernel, 0) for ln in res[f"{k}_launches"].values())
+            for k in ("elektro", "gk2a")}
+
+
+def phase_xrit_grb(rng, work: Path) -> dict:
+    """The xRIT image decoders, GOES-R GRB's products and the port's own
+    codecs on the card (phase 16); returns walls, launches and codec
+    times."""
+    t_phase = time.perf_counter()
+    out = {}
+    for key, fn in (("elektro", _xrit2_elektro), ("gk2a", _xrit2_gk2a),
+                    ("grb", _grb2_pass)):
+        res = fn(rng, work)
+        out[f"{key}_walls"] = res["walls"]
+        out[f"{key}_cpu_walls"] = res["cpu_walls"]
+        out[f"{key}_launches"] = _launched(res["launches"])
+    out["himawari_s"] = _xrit2_himawari(rng, work)
+    out["j2k_ms"] = _j2k_fixtures()
+    out["idct"] = _xrit2_idct(rng)
+    log(f"xRIT / GRB products phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_products(rng, work: Path) -> None:
     """Products at full width from the cadu level: metop_instruments once,
     then the processor on the card, on the CPU (composites must be
@@ -3342,6 +3613,8 @@ def main() -> int:
         hrpt = phase_hrpt_inmarsat(rng, work / "hrpt")
         host = phase_host_decoders(np.random.default_rng(HOST_SEED),
                                    work / "host")
+        xrit2 = phase_xrit_grb(np.random.default_rng(XRIT2_SEED),
+                               work / "xrit_grb")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the classic walkers' launches come from their slice's main path,
@@ -3361,11 +3634,14 @@ def main() -> int:
             ("viterbi_re", "satdump_tpu_torch/csrc/viterbi_re.cu",
              "satdump_tpu/ops/pallas/viterbi.py:136",
              dict(k1, fy3d_launches=hrpt["fy3d_k1_launches"],
-                  jpss_launches=host["jpss_k1_launches"])),
+                  jpss_launches=host["jpss_k1_launches"],
+                  xrit_launches=_xrit2_launches(xrit2, "viterbi_re"))),
             ("resample_arith_grid", "satdump_tpu_torch/csrc/resample_arith.cu",
              "satdump_tpu/ops/pallas/resample.py:103",
              dict(k2, gac_launches=hrpt["gac_k2_launches"],
-                  jpss_launches=host["jpss_k2_launches"])),
+                  jpss_launches=host["jpss_k2_launches"],
+                  xrit_launches=_xrit2_launches(xrit2,
+                                                "resample_arith_grid"))),
             ("affine_probe", "satdump_tpu_torch/csrc/probe_affine.cu",
              "tools/pallas_smoke.py:10", probe),
             # the classic chain's walkers replace lax.scan loops (no Pallas);
@@ -3398,7 +3674,7 @@ def main() -> int:
         for k in ("call_ms", "latency_bound_ms", "cycles_per_sample",
                   "cycles_per_step", "chain_cycles_per_step",
                   "grb_launches", "fy3d_launches", "gac_launches",
-                  "hrpt_launches", "jpss_launches"):
+                  "hrpt_launches", "jpss_launches", "xrit_launches"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
@@ -3408,6 +3684,7 @@ def main() -> int:
     log(f"DVB walls on the card, s: {json.dumps(dvb_walls)}")
     log(f"HRPT / Inmarsat on the card: {json.dumps(hrpt)}")
     log(f"JPSS / xRIT / host decoders on the card: {json.dumps(host)}")
+    log(f"xRIT images / GRB products on the card: {json.dumps(xrit2)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

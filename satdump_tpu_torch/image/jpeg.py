@@ -15,11 +15,12 @@ matmuls) at image-assembly time.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from satdump_tpu_torch.core.exceptions import FormatError
 from satdump_tpu_torch.utils.device import (full_precision_matmul,
                                             resolve_device, to_numpy)
 
@@ -46,6 +47,9 @@ ZIGZAG = np.array([
     20, 22, 33, 38, 46, 51, 55, 60,
     21, 34, 37, 47, 50, 56, 59, 61,
     35, 36, 48, 49, 57, 58, 62, 63], np.int64)
+
+# UNZIGZAG[k] = natural position of the k-th coefficient in zig-zag order
+_UNZIGZAG = np.argsort(ZIGZAG)
 
 # K.3.1 — luminance DC: BITS (codes per length 1..16) and HUFFVAL
 DC_BITS = [0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]
@@ -90,19 +94,27 @@ def _canonical_codes(bits: List[int]) -> List[Tuple[int, int]]:
     return out
 
 
-@lru_cache(maxsize=4)
-def _peek_lut(kind: str) -> Tuple[np.ndarray, np.ndarray]:
-    """16-bit peek LUT: value16 -> (symbol, code_length). symbol==-1 where no
-    code matches (corrupt stream)."""
-    bits, vals = (DC_BITS, DC_VALS) if kind == "dc" else (AC_BITS, AC_VALS)
+def _build_peek_lut(bits, vals) -> Tuple[np.ndarray, np.ndarray]:
+    """16-bit peek LUT of a canonical table: value16 -> (symbol,
+    code_length); symbol -1 where no code matches (corrupt stream)."""
     sym = np.full(1 << 16, -1, np.int32)
     ln = np.zeros(1 << 16, np.int32)
     for (length, code), v in zip(_canonical_codes(list(bits)), vals):
         lo = code << (16 - length)
         hi = (code + 1) << (16 - length)
+        if hi > 1 << 16:
+            raise FormatError("JPEG: Huffman table has more codes than its "
+                              "lengths hold")
         sym[lo:hi] = v
         ln[lo:hi] = length
     return sym, ln
+
+
+@lru_cache(maxsize=4)
+def _peek_lut(kind: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The T.81 Annex K luminance table's peek LUT (see _build_peek_lut)."""
+    bits, vals = (DC_BITS, DC_VALS) if kind == "dc" else (AC_BITS, AC_VALS)
+    return _build_peek_lut(bits, vals)
 
 
 def quantization_table(qf: float) -> np.ndarray:
@@ -239,3 +251,310 @@ def dequantize_idct(coeffs_zz: np.ndarray, qtables: np.ndarray,
         y = torch.matmul(t.transpose(1, 2), C)          # (n, i, j)
     y = torch.clamp(torch.round(y + 128.0), 0, 255)
     return to_numpy(y.to(torch.uint8))
+
+
+# --- baseline grayscale JFIF (xRIT 8-bit segments) -------------------------
+#
+# The JAX package decodes 8-bit xRIT JPEG segments with Pillow (libjpeg),
+# which the card's machine does not have. This decoder takes what libjpeg's
+# default path takes for one 8-bit component: SOF0/SOF1, DQT, DHT (any
+# canonical table, as `optimize=True` writes), DRI and RSTn, and libjpeg's
+# integer "islow" IDCT (jidctint.c: CONST_BITS 13, PASS1_BITS 2, its
+# range-limit table), so the pixels equal Pillow's bit for bit. Progressive,
+# arithmetic-coded, lossless, hierarchical and colour streams raise
+# FormatError.
+
+_SOF_REFUSED = {0xC2: "progressive", 0xC3: "lossless",
+                0xC5: "hierarchical", 0xC6: "hierarchical progressive",
+                0xC7: "hierarchical lossless", 0xC9: "arithmetic-coded",
+                0xCA: "arithmetic-coded progressive",
+                0xCB: "arithmetic-coded lossless", 0xCC: "arithmetic-coded",
+                0xCD: "arithmetic-coded hierarchical",
+                0xCE: "arithmetic-coded hierarchical progressive",
+                0xCF: "arithmetic-coded hierarchical lossless"}
+
+# islow's constants: FIX(x) = round(x * 2^13)
+_F = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433,
+      "0_765366865": 6270, "0_899976223": 7373, "1_175875602": 9633,
+      "1_501321110": 12299, "1_847759065": 15137, "1_961570560": 16069,
+      "2_053119869": 16819, "2_562915447": 20995, "3_072711026": 25172}
+_CONST_BITS, _PASS1_BITS = 13, 2
+
+
+def _segments(data: bytes):
+    """Yield (marker, body offset, body length) of each marker segment up
+    to and including SOS; every length is checked against the buffer."""
+    n = len(data)
+    if n < 4 or data[0] != 0xFF or data[1] != 0xD8:
+        raise FormatError("JPEG: no SOI marker")
+    i = 2
+    while i + 1 < n:
+        if data[i] != 0xFF:
+            raise FormatError(f"JPEG: expected a marker at byte {i}")
+        m = data[i + 1]
+        if m == 0xFF:                      # fill byte
+            i += 1
+            continue
+        if m in (0x01, 0xD8) or 0xD0 <= m <= 0xD7:
+            i += 2
+            continue
+        if m == 0xD9:
+            break
+        if i + 4 > n:
+            raise FormatError("JPEG: truncated marker segment")
+        ln = data[i + 2] << 8 | data[i + 3]
+        if ln < 2 or i + 2 + ln > n:
+            raise FormatError(f"JPEG: marker 0x{m:02X} overruns the stream")
+        yield m, i + 4, ln - 2
+        if m == 0xDA:
+            return
+        i += 2 + ln
+    raise FormatError("JPEG: no SOS marker")
+
+
+def parse_jfif_gray(data: bytes) -> Dict:
+    """The headers of a baseline one-component 8-bit JPEG -> {"width",
+    "height", "q" (64,) natural order, "dc"/"ac": (bits, vals), "restart",
+    "scan": offset of the entropy-coded data}."""
+    data = bytes(data)
+    qt: Dict[int, np.ndarray] = {}
+    huff: Dict[Tuple[int, int], Tuple[List[int], List[int]]] = {}
+    frame = None
+    restart = 0
+    for m, o, ln in _segments(data):
+        body = data[o: o + ln]
+        if m == 0xDB:                                  # DQT
+            k = 0
+            while k < ln:
+                pq, tq = body[k] >> 4, body[k] & 15
+                size = 128 if pq else 64
+                if tq > 3 or pq > 1 or k + 1 + size > ln:
+                    raise FormatError("JPEG: bad DQT segment")
+                raw = np.frombuffer(body[k + 1: k + 1 + size],
+                                    ">u2" if pq else np.uint8)
+                q = np.zeros(64, np.int32)
+                q[_UNZIGZAG] = raw
+                qt[tq] = q
+                k += 1 + size
+        elif m == 0xC4:                                # DHT
+            k = 0
+            while k < ln:
+                if k + 17 > ln:
+                    raise FormatError("JPEG: bad DHT segment")
+                tc, th = body[k] >> 4, body[k] & 15
+                bits = list(body[k + 1: k + 17])
+                nv = sum(bits)
+                if tc > 1 or th > 3 or nv > 256 or k + 17 + nv > ln:
+                    raise FormatError("JPEG: bad DHT segment")
+                huff[(tc, th)] = (bits, list(body[k + 17: k + 17 + nv]))
+                k += 17 + nv
+        elif m in (0xC0, 0xC1):                        # SOF0 / SOF1
+            if ln < 6:
+                raise FormatError("JPEG: bad SOF segment")
+            prec, h, w, nc = body[0], body[1] << 8 | body[2], \
+                body[3] << 8 | body[4], body[5]
+            if nc != 1:
+                raise FormatError(f"JPEG: {nc} components (colour) not "
+                                  "taken")
+            if prec != 8:
+                raise FormatError(f"JPEG: precision {prec} not taken")
+            if ln < 9 or body[8] > 3 or not w or not h:
+                raise FormatError("JPEG: bad SOF segment")
+            frame = (w, h, body[6], body[8])
+        elif m in _SOF_REFUSED:
+            raise FormatError(f"JPEG: {_SOF_REFUSED[m]} stream not taken")
+        elif m == 0xDD:                                # DRI
+            if ln < 2:
+                raise FormatError("JPEG: bad DRI segment")
+            restart = body[0] << 8 | body[1]
+        elif m == 0xDA:                                # SOS
+            if frame is None:
+                raise FormatError("JPEG: SOS before SOF")
+            if ln < 6 or body[0] != 1:
+                raise FormatError("JPEG: scan is not one component")
+            w, h, cid, tq = frame
+            td, ta = body[2] >> 4, body[2] & 15
+            if (body[1] != cid or tq not in qt or (0, td) not in huff
+                    or (1, ta) not in huff):
+                raise FormatError("JPEG: scan names a missing table")
+            if body[3] != 0 or body[4] != 63 or body[5] != 0:
+                raise FormatError("JPEG: scan is not sequential")
+            return {"width": w, "height": h, "q": qt[tq],
+                    "dc": huff[(0, td)], "ac": huff[(1, ta)],
+                    "restart": restart, "scan": o + ln}
+    raise FormatError("JPEG: no SOS marker")
+
+
+def _intervals(data: bytes, start: int) -> List[bytes]:
+    """The entropy-coded data from `start` up to the first marker other
+    than RSTn, split at the RSTn markers, each with its FF00 unstuffed."""
+    out, cur = [], start
+    i = start
+    n = len(data)
+    while True:
+        j = data.find(b"\xff", i)
+        if j < 0 or j + 1 >= n:
+            out.append(data[cur:])
+            break
+        m = data[j + 1]
+        if m == 0x00:
+            i = j + 2
+        elif 0xD0 <= m <= 0xD7:
+            out.append(data[cur:j])
+            cur = i = j + 2
+        elif m == 0xFF:
+            i = j + 1
+        else:
+            out.append(data[cur:j])
+            break
+    return [iv.replace(b"\xff\x00", b"\xff") for iv in out]
+
+
+def _windows16(chunk: bytes) -> List[int]:
+    """The 16 bits at every bit position of chunk (zeros past its end), as
+    a list: a peek is then one index."""
+    bits = np.unpackbits(np.frombuffer(chunk, np.uint8))
+    bits = np.concatenate([bits, np.zeros(32, np.uint8)]).astype(np.int32)
+    n = len(bits) - 16
+    win = np.zeros(n, np.int32)
+    for k in range(16):
+        win |= bits[k: k + n] << (15 - k)
+    return win.tolist()
+
+
+def huffman_decode_gray(hdr: Dict, data: bytes) -> np.ndarray:
+    """Entropy-decode every block of a parsed baseline scan -> (N, 64)
+    int32 coefficients in zig-zag order (host; sequential by nature)."""
+    w, h = hdr["width"], hdr["height"]
+    nblocks = -(-w // 8) * -(-h // 8)
+    restart = hdr["restart"] or nblocks
+    dcs, dcl = (x.tolist() for x in _build_peek_lut(*hdr["dc"]))
+    acs, acl = (x.tolist() for x in _build_peek_lut(*hdr["ac"]))
+    out = np.zeros((nblocks, 64), np.int32)
+    try:
+        b = _decode_intervals(_intervals(bytes(data), hdr["scan"]), out,
+                              restart, dcs, dcl, acs, acl)
+    except IndexError:          # a corrupt code ran past the padded end
+        raise FormatError("JPEG: entropy-coded data ends early") from None
+    if b < len(out):
+        raise FormatError(f"JPEG: {b} of {len(out)} blocks in the stream")
+    return out
+
+
+def _decode_intervals(ivs, out, restart, dcs, dcl, acs, acl) -> int:
+    """Decode the restart intervals into out's rows; returns the count."""
+    nblocks = len(out)
+    b = 0
+    for iv in ivs:
+        if b >= nblocks:
+            break
+        win = _windows16(iv)
+        end = len(iv) * 8
+        pos, pred = 0, 0
+        for _ in range(min(restart, nblocks - b)):
+            row = out[b]
+            p16 = win[pos]
+            t = dcs[p16]
+            if t < 0 or t > 16:
+                raise FormatError("JPEG: bad DC Huffman code")
+            pos += dcl[p16]
+            if t:
+                v = win[pos] >> (16 - t)
+                pos += t
+                pred += v - (1 << t) + 1 if v < 1 << (t - 1) else v
+            row[0] = pred
+            k = 1
+            while k < 64:
+                p16 = win[pos]
+                rs = acs[p16]
+                if rs < 0:
+                    raise FormatError("JPEG: bad AC Huffman code")
+                pos += acl[p16]
+                r, sz = rs >> 4, rs & 15
+                if not sz:
+                    if r != 15:
+                        break                       # EOB
+                    k += 16
+                    continue
+                k += r
+                v = win[pos] >> (16 - sz)
+                pos += sz
+                if k < 64:
+                    row[k] = v - (1 << sz) + 1 if v < 1 << (sz - 1) else v
+                k += 1
+            if pos > end:
+                raise FormatError("JPEG: entropy-coded data ends early")
+            b += 1
+    return b
+
+
+def idct_islow(coeffs_zz: np.ndarray, q: np.ndarray,
+               device: str | torch.device | None = None) -> np.ndarray:
+    """libjpeg's jpeg_idct_islow on (N, 64) zig-zag coefficients with a
+    (64,) natural-order table -> (N, 8, 8) uint8, as int64 torch ops on
+    `device` (default ``cuda``): integer arithmetic, so every device gives
+    the same pixels. Columns first, then rows, each with the even / odd
+    split of jidctint.c; DESCALE rounds half up by an arithmetic shift."""
+    dev = resolve_device(device)
+    if len(coeffs_zz) == 0:
+        return np.zeros((0, 8, 8), np.uint8)
+    zz = torch.from_numpy(np.ascontiguousarray(coeffs_zz, np.int32)).to(dev)
+    order = torch.from_numpy(ZIGZAG).to(dev)
+    qt = torch.from_numpy(np.asarray(q, np.int64)).to(dev)
+    b = (zz[:, order].to(torch.int64) * qt).reshape(-1, 8, 8)
+    f = _F
+
+    def pass_(x, shift):
+        """One 1-D islow pass over x[..., k] (k = the 8 inputs)."""
+        z2, z3 = x[..., 2], x[..., 6]
+        z1 = (z2 + z3) * f["0_541196100"]
+        tmp2 = z1 - z3 * f["1_847759065"]
+        tmp3 = z1 + z2 * f["0_765366865"]
+        tmp0 = (x[..., 0] + x[..., 4]) << _CONST_BITS
+        tmp1 = (x[..., 0] - x[..., 4]) << _CONST_BITS
+        t10, t13 = tmp0 + tmp3, tmp0 - tmp3
+        t11, t12 = tmp1 + tmp2, tmp1 - tmp2
+        o0, o1, o2, o3 = x[..., 7], x[..., 5], x[..., 3], x[..., 1]
+        z1, z2 = o0 + o3, o1 + o2
+        z3, z4 = o0 + o2, o1 + o3
+        z5 = (z3 + z4) * f["1_175875602"]
+        o0 = o0 * f["0_298631336"]
+        o1 = o1 * f["2_053119869"]
+        o2 = o2 * f["3_072711026"]
+        o3 = o3 * f["1_501321110"]
+        z1 = z1 * -f["0_899976223"]
+        z2 = z2 * -f["2_562915447"]
+        z3 = z3 * -f["1_961570560"] + z5
+        z4 = z4 * -f["0_390180644"] + z5
+        o0 = o0 + z1 + z3
+        o1 = o1 + z2 + z4
+        o2 = o2 + z2 + z3
+        o3 = o3 + z1 + z4
+        rnd = 1 << (shift - 1)
+        return torch.stack([t10 + o3, t11 + o2, t12 + o1, t13 + o0,
+                            t13 - o0, t12 - o1, t11 - o2, t10 - o3],
+                           -1).add(rnd) >> shift
+
+    # pass 1: each column (inputs down the rows) -> workspace columns
+    ws = pass_(b.transpose(1, 2), _CONST_BITS - _PASS1_BITS).transpose(1, 2)
+    # pass 2: each row of the workspace
+    v = pass_(ws, _CONST_BITS + _PASS1_BITS + 3)
+    # libjpeg's range_limit[v & 1023]: v as a 10-bit signed value + 128,
+    # clamped to [0, 255]
+    u = v & 1023
+    u = torch.where(u >= 512, u - 1024, u)
+    return to_numpy(torch.clamp(u + 128, 0, 255).to(torch.uint8))
+
+
+def decode_jpeg_gray(data: bytes, device: str | torch.device | None = None
+                     ) -> np.ndarray:
+    """A baseline 8-bit one-component JPEG -> (H, W) uint8, equal to
+    libjpeg's default decode. Entropy decoding on the host, the IDCT on
+    `device`. Raises FormatError on any stream it does not take."""
+    hdr = parse_jfif_gray(data)
+    zz = huffman_decode_gray(hdr, data)
+    blocks = idct_islow(zz, hdr["q"], device)
+    w, h = hdr["width"], hdr["height"]
+    bw, bh = -(-w // 8), -(-h // 8)
+    img = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3)
+    return np.ascontiguousarray(img.reshape(bh * 8, bw * 8)[:h, :w])

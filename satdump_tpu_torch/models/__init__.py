@@ -2,7 +2,7 @@
 
 Importing this package registers the mission modules the port carries:
 `metop_instruments`, `meteor_msumr_lrpt`, `noaa_apt_decoder`,
-`goes_grb_cadu_extractor`, `fengyun_ahrpt_decoder` and `fy3_instruments`,
+`goes_grb_cadu_extractor`, `goes_grb_data_decoder`, `fengyun_ahrpt_decoder` and `fy3_instruments`,
 the NOAA HRPT / GAC / DSB decoders and `noaa_instruments`,
 `meteor_hrpt_decoder` and `meteor_instruments`, `jpss_instruments`,
 `aqua_db_decoder` and `eos_instruments`, the GOES GVAR, sensor-data and

@@ -1,8 +1,10 @@
 """Native (C) codecs for host-side bit-serial work, loaded with ctypes.
 
-The Rice decoder's restore loop is sample-serial and too hot for Python, so
-it is a small C file (`rice.c`, a copy of the JAX package's) compiled with
-the system C compiler at first use, never at import. It builds as the CUDA
+The codecs whose inner loops are sample-serial and too hot for Python are
+small C files compiled with the system C compiler at first use, never at
+import: the Rice decoder (`rice.c`), the 12-bit JPEG and the wavelet codecs
+(`jpeg12.c`, `decompwt.c`; hardened copies of the JAX package's) and the
+port's own JPEG 2000 decoder (`j2k.c`). It builds as the CUDA
 sources do (`ops/cuda/_build.py`): into `_build/lib<name>-<hash>.so`, the
 hash covering the source and the flags, so an edited source is rebuilt. A
 missing compiler or a failed compile raises: there is no fallback.
@@ -22,7 +24,9 @@ from satdump_tpu_torch.core.exceptions import SatdumpError
 
 NATIVE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = NATIVE_DIR.parent / "_build"
-CC_FLAGS = ["-O2", "-shared", "-fPIC"]
+# no fused multiply-adds: the float code (jpeg12.c's IDCT, j2k.c's 9/7)
+# rounds the same on every host the card's machine may have
+CC_FLAGS = ["-O2", "-ffp-contract=off", "-shared", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

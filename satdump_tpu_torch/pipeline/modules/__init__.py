@@ -5,4 +5,6 @@ import satdump_tpu_torch.pipeline.modules.ccsds  # noqa: F401
 import satdump_tpu_torch.pipeline.modules.dvbs2  # noqa: F401
 import satdump_tpu_torch.pipeline.modules.inmarsat  # noqa: F401
 import satdump_tpu_torch.pipeline.modules.network  # noqa: F401
+import satdump_tpu_torch.xrit.geo  # noqa: F401
+import satdump_tpu_torch.xrit.gk2a  # noqa: F401
 import satdump_tpu_torch.xrit.goes  # noqa: F401

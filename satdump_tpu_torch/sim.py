@@ -9,6 +9,7 @@ inverse of the decode chain, modulate, impair, and assert bit-exact recovery.
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
@@ -1417,3 +1418,265 @@ def orbcomm_channel_bits(rng: np.random.Generator, n: int) -> np.ndarray:
         for i in range(n)]
     return np.concatenate([rng.integers(0, 2, 600).astype(np.uint8)]
                           + [frame_to_channel_bits(f) for f in frames])
+
+
+# ---------------------------------------------------------------------------
+# xRIT imagery of ELEKTRO-L, GK-2A and HimawariCast; GOES-R GRB's products
+# ---------------------------------------------------------------------------
+
+ELEKTRO_HRIT_SPS = (3000, 1157)   # ELEKTRO-L HRIT: 1.157 Msym/s at 3 Msps
+GK2A_LRIT_SPS = (125, 16)         # GK-2A LRIT: 128 ksym/s BPSK at 1 Msps
+XRIT_GEO_SCID = 0x2A
+J2K_TESTDATA = Path(__file__).resolve().parent / "testdata" / "j2k"
+
+
+class RawHeaderRecord:
+    """An xRIT header record of any type: type, 16-bit length, body."""
+
+    def __init__(self, rtype: int, body: bytes):
+        self.rtype = rtype
+        self.body = bytes(body)
+
+    def encode(self) -> bytes:
+        n = 3 + len(self.body)
+        return bytes([self.rtype, n >> 8, n & 0xFF]) + self.body
+
+
+def msg_segment_record(channel_id: int, seq: int, start: int, end: int
+                       ) -> RawHeaderRecord:
+    """The MSG-style segment identification header (type 128) of ELEKTRO
+    and MSG: spacecraft id, channel id, sequence, planned start and end."""
+    return RawHeaderRecord(128, bytes([0, 16, channel_id, seq >> 8, seq & 255,
+                                       start >> 8, start & 255, end >> 8,
+                                       end & 255, 0]))
+
+
+def gk2a_segment_record(seq: int, total: int, line: int = 0
+                        ) -> RawHeaderRecord:
+    """GK-2A's image segmentation identification (type 128)."""
+    return RawHeaderRecord(128, bytes([seq, total, line >> 8, line & 255]))
+
+
+def gk2a_key_record(index: int) -> RawHeaderRecord:
+    """GK-2A's key header (type 7): the index of the file's DES key."""
+    return RawHeaderRecord(7, index.to_bytes(4, "big"))
+
+
+def smooth_scene(rng: np.random.Generator, lines: int, width: int,
+                 depth: int = 8) -> np.ndarray:
+    """(lines, width) uint8 (depth 8) or uint16 (up to 16): a smooth
+    imager-like scene that compresses, with a little noise."""
+    y, x = np.mgrid[0:lines, 0:width]
+    f = (0.5 + 0.22 * np.sin(x / rng.uniform(9, 40) + rng.uniform(0, 6))
+         + 0.18 * np.cos(y / rng.uniform(7, 30) + rng.uniform(0, 6))
+         + rng.normal(0, 0.01, (lines, width)))
+    v = np.clip(f, 0, 1) * ((1 << depth) - 1)
+    return np.round(v).astype(np.uint8 if depth <= 8 else np.uint16)
+
+
+def xrit_geo_cadus(files, vcid: int = 0, scid: int = XRIT_GEO_SCID,
+                   idle: int = 8) -> np.ndarray:
+    """xRIT files (raw bytes, one APID each) as 1024-byte CADUs, RS(255,223)
+    x4 (the ccsds_conv_concat_decoder pipelines' framing), between `idle`
+    fill frames ahead and behind."""
+    from satdump_tpu_torch.ccsds.mux import make_cadus_for_vcid
+    from satdump_tpu_torch.xrit import packetize_xrit_file
+    pkts = []
+    for k, raw in enumerate(files):
+        pkts += packetize_xrit_file(raw, apid=100 + k, seq_start=k * 97)
+    fill = idle_cadus(idle, scid)
+    frames = rs_encode_frames(make_cadus_for_vcid(pkts, vcid, scid))
+    return np.concatenate([fill, frames, fill])
+
+
+def elektro_xrit_files(rng: np.random.Generator, nseg: int, width: int,
+                       seg_lines: int):
+    """ELEKTRO-L MSU-GS segment files in EUMETSAT naming with MSG-style
+    segment headers: channel 4 (ch5) as 8-bit JPEG (the port's NumPy
+    encoder, SOF1 at precision 8) and channel 8 (ch9) as 10-bit lossless
+    wavelet (DecompWT), `nseg` segments each. Returns (files, {"jpeg":
+    [payload per segment], "wt": 10-bit image})."""
+    from satdump_tpu_torch.image.jpeg12 import compress_jpeg12
+    from satdump_tpu_torch.xrit import ImageStructureRecord, build_xrit_file
+    from satdump_tpu_torch.xrit.decompwt import wt_compress
+    jimg = smooth_scene(rng, nseg * seg_lines, width, 8)
+    wimg = smooth_scene(rng, nseg * seg_lines, width, 10)
+    files, jpegs = [], []
+    for kind, ch, img, bpp, flag in (("jpeg", 4, jimg, 8, 2),
+                                     ("wt", 8, wimg, 10, 1)):
+        for s in range(nseg):
+            part = img[s * seg_lines: (s + 1) * seg_lines]
+            if kind == "jpeg":
+                payload = compress_jpeg12(part, 8, quality_div=4)
+                jpegs.append(payload)
+            else:
+                payload = wt_compress(part, 10)
+            name = (f"H-000-GOMS3_-GOMS3________-{ch:02d}_9_076E-"
+                    f"00000{s}___-202601010000-__")
+            files.append(build_xrit_file(name, payload, [
+                ImageStructureRecord(bit_per_pixel=bpp, columns_count=width,
+                                     lines_count=seg_lines,
+                                     compression_flag=flag),
+                msg_segment_record(ch, s, 0, nseg - 1)]))
+    return files, {"jpeg": jpegs, "wt": wimg}
+
+
+def j2k_fixture(name: str) -> bytes:
+    """A committed JPEG 2000 codestream of testdata/j2k/."""
+    return (J2K_TESTDATA / name).read_bytes()
+
+
+def gk2a_xrit_files(rng: np.random.Generator, width: int, seg_lines: int,
+                    key_index: int = 3):
+    """GK-2A AMI segment files, two segments a channel: VI006 as 8-bit JPEG,
+    IR105 as 12-bit JPEG (both through jpeg12.c in the decoder), SW038 as
+    J2K (committed codestreams of `seg_lines` x `width`, the second behind
+    an 85-byte UHRIT preamble), WV069 uncompressed and DES-encrypted, and
+    one additional-data file. Returns (files, key file bytes (the
+    decrypted xrit-rx format), {"jpeg8", "jpeg12": [payloads], "wv069":
+    image, "j2k": [codestreams]})."""
+    from satdump_tpu_torch.image.jpeg12 import compress_jpeg12
+    from satdump_tpu_torch.utils.des import DES
+    from satdump_tpu_torch.xrit import ImageStructureRecord, build_xrit_file
+    key = bytes(rng.integers(0, 256, 8).astype(np.uint8))
+    des = DES(key)
+    vis = smooth_scene(rng, 2 * seg_lines, width, 8)
+    ir = smooth_scene(rng, 2 * seg_lines, width, 12)
+    wv = rng.integers(0, 256, (2 * seg_lines, width)).astype(np.uint8)
+    j2k = [j2k_fixture(f"gk2a_sw038_{s}.j2k") for s in range(2)]
+    files, truth = [], {"jpeg8": [], "jpeg12": [], "wv069": wv, "j2k": j2k}
+
+    def isr(bpp, flag):
+        return ImageStructureRecord(bit_per_pixel=bpp, columns_count=width,
+                                    lines_count=seg_lines,
+                                    compression_flag=flag)
+
+    for s in range(2):
+        rows = slice(s * seg_lines, (s + 1) * seg_lines)
+        j8 = compress_jpeg12(vis[rows], 8, quality_div=4)
+        j12 = compress_jpeg12(ir[rows], 12, quality_div=8)
+        truth["jpeg8"].append(j8)
+        truth["jpeg12"].append(j12)
+        raw = wv[rows].tobytes()
+        enc = b"".join(des.encrypt_block(raw[i: i + 8])
+                       for i in range(0, len(raw), 8))
+        for ch, payload, rec, extra in (
+                ("VI006", j8, isr(8, 2), []),
+                ("IR105", j12, isr(12, 2), []),
+                ("SW038", (bytes(85) if s else b"") + j2k[s], isr(8, 1), []),
+                ("WV069", enc, isr(8, 0), [gk2a_key_record(key_index)])):
+            files.append(build_xrit_file(
+                f"IMG_FD_xx_{ch}_20260101_000000_{s:03d}.lrit", payload,
+                [rec, gk2a_segment_record(s, 2)] + extra))
+    files.append(build_xrit_file("ANT_20260101_000000.txt",
+                                 b"GK-2A additional data\n" * 8, []))
+    keyfile = bytes([0, 1]) + key_index.to_bytes(2, "little") + key
+    return files, keyfile, truth
+
+
+def himawari_xrit_files(rng: np.random.Generator, width: int,
+                        seg_lines: int, channel: str = "DK01VIS"):
+    """HimawariCast's ten 16-bit big-endian segments of one channel (10-bit
+    samples). Returns (files, the image)."""
+    from satdump_tpu_torch.xrit import ImageStructureRecord, build_xrit_file
+    img = smooth_scene(rng, 10 * seg_lines, width, 10)
+    files = [build_xrit_file(
+        f"IMG_{channel}_202601010000_{s + 1:03d}",
+        img[s * seg_lines: (s + 1) * seg_lines].astype(">u2").tobytes(),
+        [ImageStructureRecord(bit_per_pixel=16, columns_count=width,
+                              lines_count=seg_lines, compression_flag=0)])
+        for s in range(10)]
+    return files, img
+
+
+GRB_ABI_MESO1_C13 = 0xDC      # mode 6, MESO-1, channel 13 (2 km: 500 x 500)
+GRB_GLM_FLASH = 0x302
+
+
+def grb_packet(apid: int, variant: int, body: bytes, seq: int = 0):
+    """A standalone GRB CCSDS packet: the 8-byte GRB secondary header, the
+    body and its CRC-32."""
+    import zlib
+    from satdump_tpu_torch.ccsds import CCSDSHeader, CCSDSPacket
+    payload = bytes([0, 0, 0, 0, 0, 0, (1 << 3) | (variant >> 2),
+                     (variant & 0b11) << 6]) + bytes(body)
+    h = CCSDSHeader(apid=apid, sequence_flag=3,
+                    packet_sequence_count=seq & 0x3FFF, packet_length=0)
+    h.packet_length = len(payload) + 4 - 1
+    h.raw = h.encode()
+    crc = zlib.crc32(h.raw + payload) & 0xFFFFFFFF
+    return CCSDSPacket(header=h, payload=bytearray(payload
+                                                   + crc.to_bytes(4, "big")))
+
+
+def grb_image_header(ts: int, width: int, height: int, x: int, y: int,
+                     comp: int, dqf_off: int) -> bytes:
+    """The 34-byte GRB image payload header."""
+    return (bytes([comp]) + ts.to_bytes(4, "big") + bytes(4) + bytes(2)
+            + bytes(3) + x.to_bytes(4, "big") + y.to_bytes(4, "big")
+            + height.to_bytes(4, "big") + width.to_bytes(4, "big")
+            + dqf_off.to_bytes(4, "big"))
+
+
+def grb_glm_flash_frame(rng: np.random.Generator, n: int) -> bytes:
+    """A GLM flash frame: a little-endian count and n 24-byte records."""
+    import struct
+    out = struct.pack("<Q", n)
+    for i in range(n):
+        out += struct.pack("<5H2f3H", i + 1, 1, 2, 3, 4,
+                           float(rng.uniform(-60, 60)),
+                           float(rng.uniform(-140, -20)), 100, 200, 0)
+    return out
+
+
+def grb_cadus(pkts, vcid: int, idle: int = 4) -> np.ndarray:
+    """GRB packets as 2048-byte CADUs (M-PDU data zone 2034 at byte 12) on
+    `vcid`, the last zone filled by an idle packet (APID 2047), then `idle`
+    fill CADUs (VCID 63)."""
+    from satdump_tpu_torch.ccsds import CCSDSHeader, CCSDSPacket
+    from satdump_tpu_torch.ccsds.mux import mux_packets
+    pkts = list(pkts)
+    used = sum(6 + len(p.payload) for p in pkts) % 2034
+    if pkts and used:
+        n = 2034 - used - 6 if 2034 - used > 6 else 2 * 2034 - used - 6
+        h = CCSDSHeader(apid=2047, sequence_flag=3, packet_length=n - 1)
+        h.raw = h.encode()
+        pkts.append(CCSDSPacket(header=h, payload=bytearray(n)))
+    zones = mux_packets(pkts, mpdu_data_size=2034)
+    out = np.zeros((len(zones) + idle, 2048), np.uint8)
+    out[:, 0:4] = [0x1A, 0xCF, 0xFC, 0x1D]
+    out[:, 4] = 1 << 6
+    out[:, 5] = vcid
+    out[len(zones):, 5] = 63
+    for i, (fhp, data) in enumerate(zones):
+        out[i, 6:9] = [(i >> 16) & 0xFF, (i >> 8) & 0xFF, i & 0xFF]
+        out[i, 10] = (fhp >> 8) & 0b111
+        out[i, 11] = fhp & 0xFF
+        out[i, 12:12 + 2034] = np.frombuffer(data, np.uint8)
+    return out
+
+
+def grb_abi_cadus(rng: np.random.Generator, blocks, ts: int = 800000000,
+                  glm_flashes: int = 3):
+    """GOES-R GRB CADUs of an ABI MESO-1 channel-13 image (500 columns at
+    2 km) built from `blocks`: each (codestream or None, raw rows) is one
+    image payload at the next row offset, J2K (compression 1) when a
+    codestream is given, else the rows raw (compression 0); then one GLM
+    flash frame on LHCP. Returns (cadus, {"image": the rows sent, stacked,
+    "glm": frame bytes, "blocks": count})."""
+    pkts, rows, y = [], [], 0
+    for seq, (cs, blk) in enumerate(blocks):
+        comp = 1 if cs is not None else 0
+        data = cs if cs is not None else blk.astype("<u2").tobytes()
+        hdr = grb_image_header(ts, blk.shape[1], blk.shape[0], 0, y, comp,
+                               len(data))
+        pkts.append(grb_packet(GRB_ABI_MESO1_C13, 2, hdr + data, seq))
+        rows.append(blk)
+        y += blk.shape[0]
+    glm = grb_glm_flash_frame(rng, glm_flashes)
+    gen = bytes([0]) + (ts + 20).to_bytes(4, "big") + bytes(16)
+    cadus = np.concatenate([grb_cadus(pkts, 5, idle=0),
+                            grb_cadus([grb_packet(GRB_GLM_FLASH, 0,
+                                                  gen + glm)], 6)])
+    return cadus, {"image": np.concatenate(rows), "glm": glm,
+                   "blocks": len(blocks)}

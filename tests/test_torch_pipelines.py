@@ -26,15 +26,14 @@ DEEP_SPACE = (
     ("Peregrine.json", "peregrine_x_tlm"),
 )
 
-# the DVB pipelines: each one's modules up to the level the port reaches
-# (GOES-R GRB to its CADUs, HimawariCast to its TS; their data decoders are
-# not ported)
+# the DVB pipelines: every module of each is ported, GOES-R GRB's and
+# HimawariCast's data decoders included
 DVB = (
     ("DVB-S2.json", "dvbs2", None),
     ("Work-In-Progress.json", "eumetcast_africa", None),
-    ("GOES.json", "goes_grb", "goes_grb_data_decoder"),
+    ("GOES.json", "goes_grb", None),
     ("DVB_Test.json", "dvbs2_test", None),
-    ("Himawari.json", "himawaricast", "himawaricast_data_decoder"),
+    ("Himawari.json", "himawaricast", None),
 )
 
 
@@ -69,6 +68,17 @@ HOST_DECODERS = (
     ("Orbcomm.json", "orbcomm_stx", "orbcomm_plotter"),
     ("Radiosonde.json", "radiosonde_m10", "radiosonde_m10_decoder"),
     ("DVB_Test.json", "dvbs2_test", "network_server"),
+)
+
+# the xRIT image decoders and GOES-R GRB's data decoder, on the port's own
+# JPEG, wavelet and JPEG 2000 codecs: the last six pipelines
+XRIT_PRODUCTS = (
+    ("Elektro_Arktika.json", "elektro_lrit", "elektro_lrit_data_decoder"),
+    ("Elektro_Arktika.json", "elektro_hrit", "elektro_lrit_data_decoder"),
+    ("GK2A.json", "gk2a_lrit", "gk2a_lrit_data_decoder"),
+    ("GK2A.json", "gk2a_hrit", "gk2a_lrit_data_decoder"),
+    ("GOES.json", "goes_grb", "goes_grb_data_decoder"),
+    ("Himawari.json", "himawaricast", "himawaricast_data_decoder"),
 )
 
 
@@ -124,8 +134,15 @@ def test_host_decoder_pipeline_has_every_module(fname, pipe_id, decoder):
     assert set(mods) <= _registry(), mods
 
 
+@pytest.mark.parametrize("fname,pipe_id,decoder", XRIT_PRODUCTS)
+def test_xrit_products_pipeline_has_every_module(fname, pipe_id, decoder):
+    mods = _pipelines()[(fname, pipe_id)]
+    assert decoder in mods
+    assert set(mods) <= _registry(), mods
+
+
 def test_pipelines_with_every_module_registered():
     pipes, reg = _pipelines(), _registry()
     full = [k for k, mods in pipes.items() if set(mods) <= reg]
     assert len(pipes) == 123
-    assert len(full) >= 117, len(full)
+    assert len(full) >= 123, len(full)

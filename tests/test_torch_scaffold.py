@@ -130,23 +130,25 @@ def test_port_registry_holds_only_ported_modules():
         "am_demod", "aqua_db_decoder", "ccsds_conv_concat_decoder",
         "ccsds_ldpc_decoder", "ccsds_simple_psk_decoder",
         "ccsds_turbo_decoder", "dvbs2_demod", "dvbs2_ts_extractor",
-        "dvbs_demod", "eos_instruments", "fengyun_ahrpt_decoder",
-        "fm_demod", "fsk_demod", "fy3_instruments", "goes_grb_cadu_extractor",
-        "goes_gvar_decoder", "goes_gvar_image_decoder",
-        "goes_lrit_data_decoder", "goes_mdl_decoder",
-        "goes_sd_image_decoder", "goesn_sd_decoder",
-        "inmarsat_aero_decoder", "inmarsat_aero_parser",
-        "inmarsat_stdc_decoder", "inmarsat_stdc_parser", "jpss_instruments",
-        "meteor_hrpt_decoder", "meteor_instruments", "meteor_lrpt_decoder",
-        "meteor_msumr_lrpt", "metop_ahrpt_decoder", "metop_instruments",
+        "dvbs_demod", "elektro_lrit_data_decoder", "eos_instruments",
+        "fengyun_ahrpt_decoder", "fm_demod", "fsk_demod", "fy3_instruments",
+        "gk2a_lrit_data_decoder", "goes_grb_cadu_extractor",
+        "goes_grb_data_decoder", "goes_gvar_decoder",
+        "goes_gvar_image_decoder", "goes_lrit_data_decoder",
+        "goes_mdl_decoder", "goes_sd_image_decoder", "goesn_sd_decoder",
+        "himawaricast_data_decoder", "inmarsat_aero_decoder",
+        "inmarsat_aero_parser", "inmarsat_stdc_decoder",
+        "inmarsat_stdc_parser", "jpss_instruments", "meteor_hrpt_decoder",
+        "meteor_instruments", "meteor_lrpt_decoder", "meteor_msumr_lrpt",
+        "metop_ahrpt_decoder", "metop_instruments", "msg_lrit_data_decoder",
         "network_client", "network_server", "noaa_apt_decoder",
         "noaa_apt_demod", "noaa_dsb_decoder", "noaa_gac_decoder",
         "noaa_hrpt_decoder", "noaa_instruments", "orbcomm_plotter",
         "orbcomm_stx_deframer", "pm_demod", "psk_demod",
         "radiosonde_m10_decoder", "sdpsk_demod", "ssb_demod"]
     with pytest.raises(SatdumpError,
-                       match="unknown module 'elektro_lrit_data_decoder'"):
-        module_registry.get("elektro_lrit_data_decoder")
+                       match="unknown module 'sstv_decoder'"):
+        module_registry.get("sstv_decoder")
 
 
 class _CudaLike:
