@@ -4,15 +4,18 @@ Counterpart of satdump_tpu/image/j2k.py::decompress_j2k, which decodes
 through Pillow and OpenJPEG; the card's machine has neither. The decoder is
 `native/j2k.c`, written from ITU-T T.800 and built with `cc` at first use
 into `_build/` (`native.get_lib`). It runs on the host: tier-2 (packet
-headers) and tier-1 (the MQ coder and EBCOT's passes) are bit-serial, and
-the inverse DWT is timed apart (`last_times`) so that moving it to the card
-can be decided from a profile.
+headers) and tier-1 (the MQ coder and EBCOT's passes) are bit-serial;
+`decompress_j2k_timed` also returns the seconds of tier-2, tier-1 and the
+inverse DWT, so that moving the DWT to the card can be decided from a
+profile.
 
 Scope: a raw codestream or a JP2 file, one component of up to 16 bits, any
 tiling, quality layers, 1-33 resolutions, precincts, code-block sizes, the
 five progression orders, 5/3 and 9/7. Several components, ROI, POC, packed
 packet headers and the BYPASS, TERMALL and HT code-block styles raise
-FormatError, as does a corrupt stream.
+FormatError, as does a corrupt stream or one that claims more than 2^26
+pixels (above any product's segment or block; the output is allocated
+from the claim).
 
 Samples come back as the codestream holds them after the DC level shift
 (signed ones offset by half their range): (H, W) uint8 up to 8 bits,
@@ -23,7 +26,7 @@ the same for those; for other precisions it scales to its mode's range.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -31,8 +34,6 @@ from satdump_tpu_torch.core.exceptions import FormatError
 from satdump_tpu_torch.native import get_lib
 
 _lib = None
-# seconds of the last decode_j2k call in tier-2, tier-1 and the inverse DWT
-last_times: Dict[str, float] = {}
 
 
 def _j2k():
@@ -55,6 +56,12 @@ def _j2k():
 def decompress_j2k(data: bytes) -> np.ndarray:
     """Decode a raw J2K/JP2 codestream -> (H, W) uint8/uint16 array.
     Raises FormatError on a stream it does not take or a corrupt one."""
+    return decompress_j2k_timed(data)[0]
+
+
+def decompress_j2k_timed(data: bytes) -> Tuple[np.ndarray, Dict[str, float]]:
+    """decompress_j2k, and the seconds this decode spent in tier-2, tier-1
+    and the inverse DWT: (image, {"tier2", "tier1", "idwt"})."""
     data = bytes(data)
     lib = _j2k()
     err = ctypes.create_string_buffer(256)
@@ -70,8 +77,7 @@ def decompress_j2k(data: bytes) -> np.ndarray:
                         out.size, times, err, 256)
     if rc:
         raise FormatError(f"J2K: {err.value.decode(errors='replace')}")
-    last_times.clear()
-    last_times.update(tier2=times[0], tier1=times[1], idwt=times[2])
     if sgnd.value:
         out += 1 << (prec.value - 1)
-    return out.astype(np.uint8 if prec.value <= 8 else np.uint16)
+    return (out.astype(np.uint8 if prec.value <= 8 else np.uint16),
+            dict(tier2=times[0], tier1=times[1], idwt=times[2]))

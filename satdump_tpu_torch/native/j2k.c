@@ -40,6 +40,9 @@
 #include <string.h>
 #include <time.h>
 
+/* 2^26 pixels (a 256 MB int32 plane): well above an xRIT segment's or a
+   GRB block's size */
+#define J2K_MAX_PIXELS ((int64_t)1 << 26)
 #define MAXRES 33
 #define MAXBANDS (1 + 3 * (MAXRES - 1))
 
@@ -1185,8 +1188,14 @@ static int parse_main(const uint8_t *d, size_t n, Image *im, size_t *first,
                 || im->tx0 > im->x0 || im->ty0 > im->y0
                 || im->tx0 + im->tw <= im->x0 || im->ty0 + im->th <= im->y0)
                 return fail(e, -2, "bad image or tile geometry");
-            if ((im->x1 - im->x0) * (im->y1 - im->y0) > ((int64_t)1 << 31))
-                return fail(e, -2, "image too large");
+            /* the output is allocated from these before any tile is read:
+               a claim above a product's size is refused, so a corrupt SIZ
+               cannot exhaust memory (each side then also fits an int) */
+            if ((im->x1 - im->x0) * (im->y1 - im->y0) > J2K_MAX_PIXELS)
+                return fail(e, -2, "image of %lld x %lld above the %lld "
+                            "pixels taken", (long long)(im->x1 - im->x0),
+                            (long long)(im->y1 - im->y0),
+                            (long long)J2K_MAX_PIXELS);
             im->ntx = (int)ceildiv(im->x1 - im->tx0, im->tw);
             im->nty = (int)ceildiv(im->y1 - im->ty0, im->th);
             if ((int64_t)im->ntx * im->nty > 65535)

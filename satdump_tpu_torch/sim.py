@@ -9,6 +9,7 @@ inverse of the decode chain, modulate, impair, and assert bit-exact recovery.
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -1528,11 +1529,11 @@ def j2k_fixture(name: str) -> bytes:
 
 def gk2a_xrit_files(rng: np.random.Generator, width: int, seg_lines: int,
                     key_index: int = 3):
-    """GK-2A AMI segment files, two segments a channel: VI006 as 8-bit JPEG,
-    IR105 as 12-bit JPEG (both through jpeg12.c in the decoder), SW038 as
-    J2K (committed codestreams of `seg_lines` x `width`, the second behind
-    an 85-byte UHRIT preamble), WV069 uncompressed and DES-encrypted, and
-    one additional-data file. Returns (files, key file bytes (the
+    """GK-2A AMI segment files, two segments a channel of `seg_lines` x
+    `width`: VI006 as 8-bit JPEG, IR105 as 12-bit JPEG (both through
+    jpeg12.c in the decoder), WV069 uncompressed and DES-encrypted; SW038
+    as J2K at the committed codestreams' own size (32 x 256; the second
+    behind an 85-byte UHRIT preamble); and one additional-data file. Returns (files, key file bytes (the
     decrypted xrit-rx format), {"jpeg8", "jpeg12": [payloads], "wv069":
     image, "j2k": [codestreams]})."""
     from satdump_tpu_torch.image.jpeg12 import compress_jpeg12
@@ -1544,12 +1545,14 @@ def gk2a_xrit_files(rng: np.random.Generator, width: int, seg_lines: int,
     ir = smooth_scene(rng, 2 * seg_lines, width, 12)
     wv = rng.integers(0, 256, (2 * seg_lines, width)).astype(np.uint8)
     j2k = [j2k_fixture(f"gk2a_sw038_{s}.j2k") for s in range(2)]
+    j2k_lines, j2k_width = json.loads(
+        (J2K_TESTDATA / "MANIFEST.json").read_text())["gk2a_sw038_0.j2k"][
+            "shape"]
     files, truth = [], {"jpeg8": [], "jpeg12": [], "wv069": wv, "j2k": j2k}
 
-    def isr(bpp, flag):
-        return ImageStructureRecord(bit_per_pixel=bpp, columns_count=width,
-                                    lines_count=seg_lines,
-                                    compression_flag=flag)
+    def isr(bpp, flag, lines=seg_lines, columns=width):
+        return ImageStructureRecord(bit_per_pixel=bpp, columns_count=columns,
+                                    lines_count=lines, compression_flag=flag)
 
     for s in range(2):
         rows = slice(s * seg_lines, (s + 1) * seg_lines)
@@ -1563,7 +1566,8 @@ def gk2a_xrit_files(rng: np.random.Generator, width: int, seg_lines: int,
         for ch, payload, rec, extra in (
                 ("VI006", j8, isr(8, 2), []),
                 ("IR105", j12, isr(12, 2), []),
-                ("SW038", (bytes(85) if s else b"") + j2k[s], isr(8, 1), []),
+                ("SW038", (bytes(85) if s else b"") + j2k[s],
+                 isr(8, 1, j2k_lines, j2k_width), []),
                 ("WV069", enc, isr(8, 0), [gk2a_key_record(key_index)])):
             files.append(build_xrit_file(
                 f"IMG_FD_xx_{ch}_20260101_000000_{s:03d}.lrit", payload,

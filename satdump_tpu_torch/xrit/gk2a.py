@@ -198,7 +198,7 @@ class GK2ALRITDataDecoderModule(ProcessingModule):
             if isr.compression_flag == 2:      # JPEG
                 # GK-2A ships 12-bit JPEGs that 8-bit libraries refuse
                 # (ref jpeg12_utils.cpp); try the native 12-bit decoder
-                # first, fall back to PIL for plain 8-bit streams
+                # first, then decode_jpeg_gray for plain 8-bit streams
                 img = decompress_jpeg12(payload)
                 if img is not None:
                     return img

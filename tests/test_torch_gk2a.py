@@ -74,8 +74,8 @@ def test_key_files_equal_jax(tmp_path, rng):
     assert tgk2a.load_key_file(str(p)) == jgk2a.load_key_file(str(p))
 
 
-def _pass(tmp: Path, rng, with_keys: bool):
-    files, keyfile, truth = sim.gk2a_xrit_files(rng, 256, 32)
+def _pass(tmp: Path, rng, with_keys: bool, width: int = 256):
+    files, keyfile, truth = sim.gk2a_xrit_files(rng, width, 32)
     (tmp / "keys.bin").write_bytes(keyfile)
     cadus = sim.xrit_geo_cadus(files)
     cadus.tofile(tmp / "x.cadu")
@@ -108,6 +108,19 @@ def test_gk2a_pass_equals_jax(tmp_path, rng):
     np.testing.assert_array_equal(
         load_img(d / "AMI_IR105_20260101000000.png"),
         np.concatenate([decompress_jpeg12(j) for j in truth["jpeg12"]]))
+
+
+def test_gk2a_channels_wider_than_the_j2k_segments(tmp_path, rng):
+    """The JPEG and raw channels at 600 columns, SW038 at its codestreams'
+    256: each channel's image takes its own segments' width."""
+    mods, truth = _pass(tmp_path, rng, True, width=600)
+    assert mods["torch"].stats == {"files": 9, "images": 4}
+    _trees_equal(tmp_path / "jax", tmp_path / "torch")
+    d = tmp_path / "torch" / "IMAGES" / "AMI"
+    assert load_img(d / "AMI_SW038_20260101000000.png").shape == (64, 256)
+    np.testing.assert_array_equal(load_img(d / "AMI_WV069_20260101000000.png"),
+                                  truth["wv069"])
+    assert truth["wv069"].shape == (64, 600)
 
 
 def test_gk2a_without_keys_keeps_encrypted_files(tmp_path, rng):

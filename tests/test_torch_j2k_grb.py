@@ -126,7 +126,10 @@ def test_decode_equals_jax(name, shape, depth, kw):
         if "quality_layers" not in kw and not (depth > 8 and "tile_size"
                                                in kw):
             np.testing.assert_array_equal(got, img)
-    assert set(tj2k.last_times) == {"tier1", "tier2", "idwt"}
+    timed, times = tj2k.decompress_j2k_timed(data)
+    np.testing.assert_array_equal(timed, got)
+    assert set(times) == {"tier1", "tier2", "idwt"}
+    assert all(t >= 0 for t in times.values())
 
 
 # -- the committed fixtures ---------------------------------------------------
@@ -221,6 +224,19 @@ def test_refuses_roi_and_poc():
     poc = b"\xff\x5f" + struct.pack(">HBBHBBB", 9, 0, 0, 1, 6, 1, 0)
     with pytest.raises(FormatError, match="POC"):
         tj2k.decompress_j2k(_with_main_marker(data, poc))
+
+
+@pytest.mark.parametrize("width,height", [
+    (1 << 31, 1), ((1 << 32) - 1, 1), (1 << 16, 1 << 16),
+    ((1 << 14) + 1, 1 << 12)])
+def test_refuses_a_size_above_a_product(width, height):
+    """A SIZ that claims more than 2^26 pixels (port only) is refused before
+    anything is allocated for it, a width past an int's range included."""
+    data = bytearray((FIXTURES / "rlcp_rev8_raw.j2k").read_bytes())
+    assert data[:4] == b"\xff\x4f\xff\x51"
+    data[8:16] = struct.pack(">II", width, height)      # Xsiz, Ysiz
+    with pytest.raises(FormatError, match="pixels taken"):
+        tj2k.decompress_j2k(bytes(data))
 
 
 def test_corrupt_streams_return_an_error(rng):
