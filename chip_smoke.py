@@ -175,7 +175,30 @@ Phases (any failure raises and the script exits non-zero):
     M&M walkers) to positions and ephemerides, each equal to what was
     sent; and dvbs2_test's network_server sending a .ts file's packets to
     a receiver on localhost;
- 16. one JSON line describing each kernel, then the card's line and the
+ 16. the xRIT image decoders and GOES-R GRB's products on the port's own
+    codecs: ELEKTRO-L HRIT (K2 then K1) and GK-2A HRIT from baseband to
+    their images, GRB at 17.33 Msps to ABI and GLM products,
+    HimawariCast's decoder from a .cadu, every committed J2K fixture and
+    the islow IDCT, each on the card and the CPU, identical;
+ 17. the live path, on its own generator: MetOp AHRPT (6 Msps, sps 18/7;
+    2^23 samples, 32 blocks) served unpaced by a RemoteIQServer thread at
+    16 bits and decoded through the CLI's `live metop_ahrpt tcp://...`,
+    /status polled mid-pass: every CADU sent decoded (at most 2 missing),
+    K1 and K2 launched (counts set to 0 just before and read just after),
+    the .soft and .cadu byte-identical to run_pipeline's on the same
+    samples; its wall against the live 6 Msamp/s, host ms a block of
+    decode_iq_pkt, the rebuffer, the FFT tap, psk_demod, the decoder and
+    the .soft write, and a profiled run's idle share, launches and copies
+    a block. Two METEOR LRPT VFOs of one 2.048 Msps stream (2^25 samples;
+    METEOR-M2-x OQPSK at +400 kHz, METEOR-M2 QPSK at -400 kHz, 72 ksym/s,
+    each VFO at 256 ksps) through `live --vfo` from a file: every CADU of
+    each carrier decoded, K1 and K2 launched in each VFO, the first 8
+    channelizer blocks on the card within 2e-5 of the CPU's, the
+    channelizer's device ms and copies a block, the path's idle share.
+    METEOR-M2 LRPT at 1 Msps carrying NOAA 19's predicted Doppler at
+    137.1 MHz, live with set_doppler on the tracker, on the card and the
+    CPU: every CADU decoded, the .cadu byte-identical;
+ 18. one JSON line describing each kernel, then the card's line and the
     result line. No kernel of the port lies on the products level or on
     the FM path.
 
@@ -557,6 +580,34 @@ def kernel_ms_cold(fn, kernel: str, reps: int) -> float:
     return kernel_ms(cold, kernel, reps)
 
 
+def _k2_case(rng, label: str, n_ext: int, sps: float, skew: float,
+             cap, bank):
+    """K2 against its plain version on random samples of one K2_CASES
+    shape (cap None: psk_demod's out_cap); returns (max |err|, ext,
+    start, omega, cap)."""
+    import torch
+    from satdump_tpu_torch.ops.cuda.resample import (
+        resample_arith_grid, resample_arith_grid_plain)
+    ext_np = (rng.standard_normal(n_ext)
+              + 1j * rng.standard_normal(n_ext)).astype(np.complex64)
+    ext = torch.from_numpy(ext_np).cuda()
+    start = torch.tensor(0.37, dtype=torch.float32, device="cuda")
+    omega = torch.tensor(sps * (1 + skew), dtype=torch.float32,
+                         device="cuda")
+    if cap is None:
+        cap = int(np.ceil((n_ext - 7) / (sps * 0.99))) + 2  # psk_demod's
+    got = resample_arith_grid(ext, start, omega, bank, out_cap=cap)
+    ref = resample_arith_grid_plain(ext, start, omega, bank, out_cap=cap)
+    err = float((got - ref).abs().max())
+    n_bad = int(((got - ref).abs() > K2_ATOL).sum())
+    log(f"K2 {label}: max |err| {err:.3e} over {cap} symbols, {n_bad} "
+        f"above {K2_ATOL}")
+    if not np.isfinite(err) or err > K2_ATOL:
+        raise AssertionError(f"K2 {label} differs from its plain "
+                             f"version: max |err| {err}")
+    return err, ext, start, omega, cap
+
+
 def phase_k2(rng):
     """K2 against its plain version on the card."""
     import torch
@@ -566,23 +617,8 @@ def phase_k2(rng):
     bank = torch.as_tensor(mm_interpolator_bank()).cuda()
     res = {"max_abs_err": 0.0}
     for label, n_ext, sps, skew, cap in K2_CASES:
-        ext_np = (rng.standard_normal(n_ext)
-                  + 1j * rng.standard_normal(n_ext)).astype(np.complex64)
-        ext = torch.from_numpy(ext_np).cuda()
-        start = torch.tensor(0.37, dtype=torch.float32, device="cuda")
-        omega = torch.tensor(sps * (1 + skew), dtype=torch.float32,
-                             device="cuda")
-        if cap is None:
-            cap = int(np.ceil((n_ext - 7) / (sps * 0.99))) + 2  # psk_demod's
-        got = resample_arith_grid(ext, start, omega, bank, out_cap=cap)
-        ref = resample_arith_grid_plain(ext, start, omega, bank, out_cap=cap)
-        err = float((got - ref).abs().max())
-        n_bad = int(((got - ref).abs() > K2_ATOL).sum())
-        log(f"K2 {label}: max |err| {err:.3e} over {cap} symbols, {n_bad} "
-            f"above {K2_ATOL}")
-        if not np.isfinite(err) or err > K2_ATOL:
-            raise AssertionError(f"K2 {label} differs from its plain "
-                                 f"version: max |err| {err}")
+        err, ext, start, omega, cap = _k2_case(rng, label, n_ext, sps, skew,
+                                               cap, bank)
         res["max_abs_err"] = max(res["max_abs_err"], err)
         if label not in K2_TIMED:
             continue
@@ -3493,6 +3529,490 @@ def phase_xrit_grb(rng, work: Path) -> dict:
     return out
 
 
+# phase 17: the live path (pipeline/live.py, pipeline/multivfo.py, the
+# CLI's `live`), on its own generator. 17.1: MetOp AHRPT (its file's 6 Msps,
+# QPSK at 2,333,333 sym/s, sps 18/7: K2 then K1), 2^23 samples (32 blocks:
+# the stream ends on a block boundary) served unpaced by a RemoteIQServer
+# thread at 16 bits, decoded through `live metop_ahrpt tcp://...`, /status
+# polled mid-pass, the .soft and .cadu held to run_pipeline's on the same
+# samples. 17.2: one RTL-SDR class capture of the 137 MHz band, 2.048 Msps
+# centred at 137.5 MHz, 2^25 samples (16.4 s), carrying METEOR-M2-x (OQPSK,
+# NRZ-M) at +400 kHz and METEOR-M2 (QPSK) at -400 kHz, Meteor-M.json's
+# 137.9 and 137.1 MHz, both 72 ksym/s, through `live --vfo`: the default
+# VFO rate (2.4 x 72k) snaps the decimation from 12 to 8, so each VFO runs
+# at 256 ksps (sps 3.556; METEOR-M2-x resampled to 168 ksps, sps 2.333),
+# both on K2, which is then held to its plain version at each VFO demod's
+# shape. 17.3: METEOR-M2 LRPT at its file's 1 Msps carrying NOAA 19's
+# predicted Doppler at 137.1 MHz around its highest point, over two block
+# seams, corrected by set_doppler on the tracker, on the card and the CPU,
+# with a control pass without the correction that must lose CADUs.
+LIVE_SEED = SEED + 17
+LIVE_METOP_SAMPLES = 1 << 23
+LIVE_CHUNK = 1 << 16           # samples a remote-IQ packet
+LIVE_BIT_DEPTH = 16
+LIVE_PROFILE_BLOCKS = 4        # blocks of a profiled live run
+# 2.5 of psk_demod's blocks (6,553,600 samples at METEOR-M2's 1 Msps)
+LIVE_DOP_SAMPLES = 16_384_000
+LIVE_DOP_FREQ = 137.1e6
+# NOAA 19 (tests/test_torch_tracking.py's element set), the QTH and a time
+# near the element set's epoch
+LIVE_TLE = ("1 33591U 09005A   21100.47420639  .00000090  00000-0  74103-4 "
+            "0  9998",
+            "2 33591  99.1922 114.0067 0013577 245.5357 114.4418 "
+            "14.12500029627277")
+LIVE_QTH = (48.0, 2.0)
+LIVE_T0 = 1618232411.0
+VFO_FS = 2.048e6
+VFO_SAMPLES = 1 << 25
+VFO_BLOCK = 1 << 18
+VFO_UP = 8                     # each carrier made at 256 ksps, then x8
+VFO_NOISE = 0.02               # the wideband noise floor, each component
+VFO_CARRIERS = (("a", 400e3, "meteor_m2x_lrpt", "oqpsk", True),
+                ("b", -400e3, "meteor_m2_lrpt", "qpsk", False))
+VFO_CPU_BLOCKS = 8
+# tests/test_torch_vfo.py's tolerance for the FFT forms (cuFFT against
+# pocketfft here, XLA's FFT there)
+VFO_ATOL = 2e-5
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _cli_json(argv) -> dict:
+    """The port's CLI in this process; its last stdout line as JSON."""
+    import io
+    from satdump_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv[0]}: exit code {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _per_block_ms(stats: dict, extra: dict) -> dict:
+    """A live run's host seconds by part as ms a block."""
+    parts = dict(stats["host_s"], **extra)
+    return {k: round(v / stats["blocks"] * 1e3, 3) for k, v in parts.items()}
+
+
+def _live_metop(rng, work: Path) -> dict:
+    """17.1: MetOp AHRPT over the remote-IQ protocol through `live`."""
+    import threading
+    import urllib.request
+    import torch
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.io import net, write_baseband
+    from satdump_tpu_torch.pipeline.live import LivePipeline
+    from satdump_tpu_torch.pipeline.runner import run_pipeline
+    t0 = time.perf_counter()
+    up, down = sim.METOP_SPS
+    n_cadus = (LIVE_METOP_SAMPLES - 2048 * up // down) // (8192 * up // down)
+    cadus = sim.make_cadus(n_cadus, rng)
+    bb = sim.ccsds_qpsk_baseband(cadus, rng, sim.METOP_SPS)
+    pad = LIVE_METOP_SAMPLES - len(bb)
+    bb = np.concatenate([bb, (0.05 * (rng.standard_normal(pad) + 1j *
+                                      rng.standard_normal(pad)))
+                         .astype(np.complex64)])
+    # the packets, made before the server starts so that its thread only
+    # sends bytes; what the client decodes off them is run_pipeline's input
+    pkts = [net.encode_iq_pkt(bb[o: o + LIVE_CHUNK], LIVE_BIT_DEPTH)
+            for o in range(0, len(bb), LIVE_CHUNK)]
+    wire = np.concatenate([net.decode_iq_pkt(pk) for pk in pkts])
+    work.mkdir(parents=True, exist_ok=True)
+    write_baseband(work / "wire.cf32", "cf32", wire)
+    log(f"live MetOp: {n_cadus} CADUs in {len(bb)} samples "
+        f"({len(bb) / 6e6:.3f} s of air), {-(-len(bb) // LIVE_CHUNK)} "
+        f"packets of {LIVE_CHUNK} samples at {LIVE_BIT_DEPTH} bits, made "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    srv = net.RemoteIQServer(port=0, bit_depth=LIVE_BIT_DEPTH)
+    http_port = _free_port()
+    polled = {}
+
+    def serve():
+        try:
+            srv.wait_client(timeout=60)
+            for i, pk in enumerate(pkts):
+                srv.send_pkt(pk)
+                # mid-pass, until the pipeline has run a block
+                url = f"http://127.0.0.1:{http_port}/status"
+                deadline = time.monotonic() + 30
+                while i == len(pkts) // 2 and not polled.get("blocks") \
+                        and time.monotonic() < deadline:
+                    with urllib.request.urlopen(url, timeout=30) as r:
+                        polled.update(json.loads(r.read()))
+                    time.sleep(0.05)
+        except Exception as e:  # reported by the check after the pass
+            polled["error"] = repr(e)
+        finally:
+            srv.end()
+
+    server = threading.Thread(target=serve, daemon=True)
+    server.start()
+    try:
+        res, wall, launches = _run_counted(lambda: _cli_json([
+            "live", "metop_ahrpt", f"tcp://127.0.0.1:{srv.port}",
+            str(work / "live"), "--http-port", str(http_port)]),
+            "live MetOp")
+    finally:
+        server.join(timeout=60)
+        srv.close()
+    if server.is_alive() or not polled.get("samples"):
+        raise AssertionError(f"live MetOp: /status not answered mid-pass "
+                             f"({polled})")
+    soft, cadu = res["outputs"][:2]
+    got = _check_cadus(cadu, cadus, "live MetOp (cuda, tcp)")
+    stats = res["stats"]
+    blocks = stats["blocks"]
+    decode_s = stats["source"]["decode_s"]
+    host_ms = _per_block_ms(stats, {"decode_iq_pkt": decode_s})
+    # the CLI's wall holds the registry load, the modules' set-up, the
+    # socket's waits and the mid-pass /status poll besides the pipeline's
+    # own time (LivePipeline.push) and the client's packet decode
+    push_s = sum(stats["host_s"].values())
+    log(f"live MetOp: {len(bb)} samples in {wall:.3f} s = "
+        f"{len(bb) / wall / 1e6:.3f} Msamp/s on the card through the CLI "
+        f"(live limit 6 Msamp/s); in LivePipeline.push {push_s:.3f} s = "
+        f"{len(bb) / push_s / 1e6:.3f} Msamp/s, decode_iq_pkt "
+        f"{decode_s:.3f} s, the rest {wall - push_s - decode_s:.3f} s; "
+        f"{blocks} blocks; launches {launches} "
+        f"({ {k: v / blocks for k, v in launches.items()} } a block); "
+        f"/status mid-pass: {polled['samples']} samples, "
+        f"{polled['blocks']} blocks; host ms a block {host_ms}")
+    # offline on the same samples: the same blocks into stream_work
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    off = run_pipeline(_pipeline("MetOp.json", "metop_ahrpt"),
+                       str(work / "wire.cf32"), str(work / "offline"))
+    torch.cuda.synchronize()
+    off_wall = time.perf_counter() - t
+    same = {ext: Path(o).read_bytes() == Path(p).read_bytes()
+            for ext, o, p in (("soft", soft, work / "offline" /
+                                                 "metop_ahrpt.soft"),
+                              ("cadu", cadu, off))}
+    log(f"live MetOp against run_pipeline on the card ({off_wall:.3f} s): "
+        f"byte-identical {same}")
+    if not all(same.values()):
+        raise AssertionError(f"live MetOp differs from offline: {same}")
+    # the steady state: LIVE_PROFILE_BLOCKS blocks to lock, then as many
+    # timed, then as many under the profiler (idle share, launches, copies)
+    lp = LivePipeline(_pipeline("MetOp.json", "metop_ahrpt"),
+                      str(work / "profiled"))
+    lp.start()
+    n = LIVE_PROFILE_BLOCKS << 18
+    parts = [wire[i * n: (i + 1) * n] for i in range(3)]
+
+    def push(x):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for o in range(0, len(x), LIVE_CHUNK):
+            lp.push(x[o: o + LIVE_CHUNK])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    push(parts[0])
+    timed = push(parts[1])
+    with profiled() as prof:
+        pwall = push(parts[2])
+    lp.stop()
+    prof_res = report_profile(
+        f"profile live MetOp ({LIVE_PROFILE_BLOCKS} blocks after "
+        f"{2 * LIVE_PROFILE_BLOCKS})", prof, timed, pwall)
+    per_block = {k: prof_res[k] / LIVE_PROFILE_BLOCKS
+                 for k in ("launches", "copies", "h2d")}
+    log(f"live MetOp profiled: idle share {prof_res['idle_share']:.3f}, a "
+        f"block {per_block}")
+    return {"wall_s": wall, "msamp_s": len(bb) / wall, "blocks": blocks,
+            "push_s": push_s, "decode_s": decode_s,
+            "cadus": len(got), "launches": launches, "host_ms": host_ms,
+            "offline_s": off_wall, "idle_share": prof_res["idle_share"],
+            "per_block": per_block}
+
+
+def _vfo_wideband(rng):
+    """The two METEOR carriers of VFO_CARRIERS, each made at 256 ksps
+    (sim.ccsds_psk_baseband: RRC 0.5, 18 dB, a carrier offset), then on
+    the card interpolated by VFO_UP (zero-stuffed, a 53 dB low-pass),
+    mixed to its offset and summed over a noise floor of VFO_NOISE; returns
+    (2.048 Msps complex64 samples, {name: CADUs sent})."""
+    import torch
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.ops import fir, firdes
+    from satdump_tpu_torch.utils.device import resolve_device
+    dev = resolve_device("cuda")
+    up, down = 32, 9                        # 256 ksps / 72 ksym/s
+    n_cadus = (VFO_SAMPLES // VFO_UP - 2048 * up // down) // \
+        (8192 * up // down)
+    taps = firdes.low_pass(float(VFO_UP), VFO_FS, 100e3, 40e3)
+    k = torch.arange(VFO_SAMPLES, dtype=torch.float64, device=dev)
+    wide = torch.zeros(VFO_SAMPLES, dtype=torch.complex128, device=dev)
+    truth = {}
+    for name, off, _, const, nrzm in VFO_CARRIERS:
+        cadus = sim.make_cadus(n_cadus, rng)
+        bb = sim.ccsds_psk_baseband(cadus, rng, (up, down), const, nrzm=nrzm)
+        x = torch.zeros(len(bb) * VFO_UP, dtype=torch.complex64, device=dev)
+        x[::VFO_UP] = torch.from_numpy(bb).to(dev)
+        _, y = fir.fir_apply(fir.fir_init(len(taps), device=dev), x, taps)
+        ph = k[: len(y)] * (2 * np.pi * off / VFO_FS)
+        wide[: len(y)] += y.to(torch.complex128) * torch.polar(
+            torch.ones_like(ph), ph)
+        truth[name] = cadus
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    noise = torch.randn((VFO_SAMPLES, 2), generator=g, device=dev)
+    wide += torch.view_as_complex(noise * VFO_NOISE)
+    return wide.to(torch.complex64).cpu().numpy(), truth
+
+
+def _live_vfos(rng, work: Path) -> dict:
+    """17.2: two METEOR LRPT VFOs of one 2.048 Msps stream through
+    `live --vfo` from a file; the channelizer against the CPU's, its
+    device time and copies, the idle share of the two-VFO path, and K2
+    against its plain version at each VFO demod's shape."""
+    import torch
+    from torch.autograd import DeviceType
+    from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
+    from satdump_tpu_torch.ops.vfo import VFOChannelizer
+    from satdump_tpu_torch.pipeline.multivfo import MultiVFOLive
+    t0 = time.perf_counter()
+    wide, truth = _vfo_wideband(rng)
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "wide.cf32"
+    write_baseband(src, "cf32", wide)
+    log(f"two VFOs: {len(wide)} samples at {VFO_FS / 1e6} Msps "
+        f"({len(wide) / VFO_FS:.1f} s), "
+        f"{ {k: len(v) for k, v in truth.items()} } CADUs, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    res, wall, launches = _run_counted(lambda: _cli_json(
+        ["live", "-", f"file://{src}", str(work / "live"),
+         "--samplerate", str(VFO_FS)]
+        + [a for name, off, pid, _, _ in VFO_CARRIERS
+           for a in ("--vfo", f"{name}:{off:.0f}:{pid}")]),
+        "live two VFOs")
+    # each VFO's launches: its LivePipeline's, counted around its blocks
+    path = [k.__name__ for k in _path_kernels()]
+    per_vfo = {name: {k: res["stats"][name]["launches"][k] for k in path}
+               for name, *_ in VFO_CARRIERS}
+    for name, *_ in VFO_CARRIERS:
+        if not all(per_vfo[name].values()):
+            raise AssertionError(f"VFO {name}: a kernel of the path never "
+                                 f"launched: {per_vfo[name]}")
+        cadu = [o for o in res["outputs"][name] if o.endswith(".cadu")][0]
+        _check_cadus(cadu, truth[name], f"live VFO {name} (cuda)")
+    host_ms = {name: _per_block_ms(res["stats"][name], {})
+               for name, *_ in VFO_CARRIERS}
+    chan_ms = res["channelizer"]["host_s"] / res["channelizer"]["blocks"] \
+        * 1e3
+    log(f"live two VFOs: {len(wide)} samples in {wall:.3f} s = "
+        f"{len(wide) / wall / 1e6:.3f} Msamp/s on the card (live limit "
+        f"{VFO_FS / 1e6} Msamp/s); channelizer {res['channelizer']['blocks']}"
+        f" blocks, {chan_ms:.3f} host ms a block; launches {per_vfo}; each "
+        f"VFO's host ms a demod block {host_ms}")
+    # the channelizer on the card against the CPU, block by block
+    chans = {d: VFOChannelizer(VFO_FS, VFO_BLOCK, device=d)
+             for d in ("cuda", "cpu")}
+    for c in chans.values():
+        for name, off, *_ in VFO_CARRIERS:
+            c.add_vfo(name, off, 2.4 * 72e3)
+    err = 0.0
+    for b in range(VFO_CPU_BLOCKS):
+        x = wide[b * VFO_BLOCK: (b + 1) * VFO_BLOCK]
+        got, ref = chans["cuda"].work(x), chans["cpu"].work(x)
+        err = max(err, max(float(np.abs(got[n] - ref[n]).max())
+                           for n in got))
+    log(f"channelizer: {VFO_CPU_BLOCKS} blocks of {VFO_BLOCK}, decim "
+        f"{chans['cuda'].vfos['a'].decim}, card against CPU max |diff| "
+        f"{err:.3g} (tolerance {VFO_ATOL})")
+    if err > VFO_ATOL:
+        raise AssertionError(f"channelizer card and CPU differ by {err}")
+    # its device time and copies a block
+    x = wide[:VFO_BLOCK]
+    chans["cuda"].work(x)
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        for _ in range(VFO_CPU_BLOCKS):
+            chans["cuda"].work(x)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        raise AssertionError("channelizer: the profiler saw no device work")
+    chan = {"device_ms": sum(e.time_range.elapsed_us() for e in ev)
+            / VFO_CPU_BLOCKS / 1e3,
+            "h2d": sum("HtoD" in e.name for e in ev) / VFO_CPU_BLOCKS,
+            "d2h": sum("DtoH" in e.name for e in ev) / VFO_CPU_BLOCKS,
+            "kernels": sum("Memcpy" not in e.name for e in ev)
+            / VFO_CPU_BLOCKS}
+    log(f"channelizer a block on the card: {chan}")
+    # the two-VFO path's steady state: VFO_CPU_BLOCKS channelizer blocks
+    # (one demod block a VFO) to lock, as many timed, as many profiled
+    from satdump_tpu_torch.pipeline.pipeline import parse_pipeline_file
+    pipes = parse_pipeline_file(ROOT / "resources" / "pipelines" /
+                                "Meteor-M.json")
+    mv = MultiVFOLive(VFO_FS, str(work / "profiled"))
+    for name, off, pid, _, _ in VFO_CARRIERS:
+        mv.add_vfo(name, off, pipes[pid])
+    n = VFO_CPU_BLOCKS * VFO_BLOCK
+
+    def push(x):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mv.push(x)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    push(wide[:n])
+    timed = push(wide[n: 2 * n])
+    with profiled() as prof:
+        pwall = push(wide[2 * n: 3 * n])
+    mv.stop()
+    prof_res = report_profile(
+        f"profile two-VFO live ({VFO_CPU_BLOCKS} channelizer blocks after "
+        f"{2 * VFO_CPU_BLOCKS})", prof, timed, pwall)
+    # K2 against its plain version at each VFO demod's own shape: its
+    # block after the input resampler with 7 samples of history, its sps
+    # and out_cap
+    bank = torch.as_tensor(mm_interpolator_bank()).cuda()
+    k2_err = 0.0
+    for name, _, pid, *_ in VFO_CARRIERS:
+        d = mv.pipes[name].modules[0]
+        for skew in (0.0, 0.005):
+            k2_err = max(k2_err, _k2_case(
+                rng, f"VFO {name} {pid}: n_ext {d._out_n + 7}, sps "
+                f"{d.final_sps:.4f}, skew {skew}", d._out_n + 7,
+                d.final_sps, skew, d._ff_cap, bank)[0])
+    return {"wall_s": wall, "msamp_s": len(wide) / wall,
+            "launches": per_vfo, "channelizer_host_ms": chan_ms,
+            "channelizer": chan, "cpu_max_err": err, "k2_max_abs_err": k2_err,
+            "host_ms": host_ms, "idle_share": prof_res["idle_share"],
+            "copies_a_block": prof_res["copies"] / VFO_CPU_BLOCKS,
+            "launches_a_block": prof_res["launches"] / VFO_CPU_BLOCKS}
+
+
+def _cadu_count(out: str, cadus: np.ndarray) -> tuple:
+    """(CADUs decoded that were sent, CADUs decoded that were not)."""
+    got = np.fromfile(out, dtype=np.uint8).reshape(-1, cadus.shape[1])
+    sent = {c.tobytes() for c in cadus}
+    good = sum(g.tobytes() in sent for g in got)
+    return good, len(got) - good
+
+
+def _live_doppler(rng, work: Path) -> dict:
+    """17.3: METEOR-M2 LRPT at 1 Msps carrying NOAA 19's predicted Doppler
+    at 137.1 MHz over LIVE_DOP_SAMPLES centred on its highest point over
+    LIVE_QTH (where the Doppler slews at ~21 Hz/s), so the pass crosses two
+    of psk_demod's block seams. A live pass with set_doppler on the tracker
+    on the card and the CPU: every CADU, the same .cadu, and the provider
+    asked at each block's absolute position for the Doppler put on the
+    signal. A control pass on the card without set_doppler must lose
+    CADUs."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.geo import TLE
+    from satdump_tpu_torch.pipeline.live import LivePipeline
+    from satdump_tpu_torch.tracking import ObjectTracker
+    t_make = time.perf_counter()
+    trk = ObjectTracker(TLE.parse("NOAA 19", *LIVE_TLE), *LIVE_QTH)
+    ts = LIVE_T0 + np.arange(0, 86400, 30.0)
+    fs = 1e6
+    t0 = float(ts[np.argmax(trk.az_el(ts)[..., 1])]) \
+        - LIVE_DOP_SAMPLES / fs / 2
+    up, down = sim.METEOR_1M_SPS
+    n_cadus = (LIVE_DOP_SAMPLES - 2048 * up // down) // (8192 * up // down)
+    cadus = sim.make_cadus(n_cadus, rng)
+    bb = sim.ccsds_psk_baseband(cadus, rng, sim.METEOR_1M_SPS)
+    step = 4096                          # set_doppler's grid
+
+    def truth(pos: int, n: int) -> np.ndarray:
+        grid = np.arange(0, n + step, step)
+        return np.interp(np.arange(n), grid, trk.doppler_shift(
+            t0 + (pos + grid) / fs, LIVE_DOP_FREQ))
+    dop = truth(0, len(bb))
+    bb = (bb * np.exp(2j * np.pi * np.cumsum(dop) / fs)).astype(np.complex64)
+    log(f"live Doppler: {n_cadus} CADUs in {len(bb)} samples at 1 Msps, "
+        f"{dop[0]:.1f} to {dop[-1]:.1f} Hz, made in "
+        f"{time.perf_counter() - t_make:.1f} s")
+
+    def run(dev, doppler=True):
+        lp = LivePipeline(_pipeline("Meteor-M.json", "meteor_m2_lrpt"),
+                          str(work / f"{dev}_{doppler}"),
+                          {"torch_device": dev})
+        asked = []
+        if doppler:
+            lp.set_doppler(trk, LIVE_DOP_FREQ, fs, t0=t0)
+            provider = lp.modules[0].doppler_provider
+
+            def recorded(pos, n):
+                asked.append((pos, n, provider(pos, n)))
+                return asked[-1][2]
+            lp.modules[0].doppler_provider = recorded
+        out = lp.run_source(bb[o: o + LIVE_CHUNK]
+                            for o in range(0, len(bb), LIVE_CHUNK))[1]
+        return out, lp.block_size, asked
+    (out, block, asked), wall, launches = _run_counted(
+        lambda: run("cuda"), "live Doppler")
+    # the provider: one call a block at its absolute sample position,
+    # giving the Doppler that was put on the signal there
+    want = [(i * block, block) for i in range(-(-len(bb) // block))]
+    if [a[:2] for a in asked] != want:
+        raise AssertionError(f"live Doppler: provider asked at "
+                             f"{[a[:2] for a in asked]}, not {want}")
+    dop_err = max(float(np.abs(d - truth(pos, n)).max())
+                  for pos, n, d in asked)
+    if dop_err > 0.01:
+        raise AssertionError(f"live Doppler: the provider's Doppler is "
+                             f"{dop_err} Hz off the signal's")
+    t = time.perf_counter()
+    cpu_out = run("cpu")[0]
+    cpu_wall = time.perf_counter() - t
+    got = {d: _check_cadus(o, cadus, f"live Doppler ({d}, {len(bb)} "
+                                     f"samples)")
+           for d, o in (("cuda", out), ("cpu", cpu_out))}
+    if not np.array_equal(got["cuda"], got["cpu"]):
+        raise AssertionError("live Doppler: .cadu differs between devices")
+    # the control: the same pass on the card without set_doppler
+    t = time.perf_counter()
+    good, bad = _cadu_count(run("cuda", doppler=False)[0], cadus)
+    ctl_wall = time.perf_counter() - t
+    log(f"live Doppler control without set_doppler: {good} of {n_cadus} "
+        f"CADUs decoded, {bad} not sent, {ctl_wall:.3f} s")
+    if good >= n_cadus - 2 and not bad:
+        raise AssertionError("live Doppler: the pass decodes without "
+                             "set_doppler, so it does not test it")
+    log(f"live Doppler (METEOR-M2 1 Msps, NOAA 19 at 137.1 MHz, "
+        f"{dop.min():.1f} to {dop.max():.1f} Hz, {len(asked)} blocks of "
+        f"{block}): card {wall:.3f} s, CPU {cpu_wall:.3f} s; .cadu "
+        f"byte-identical cuda vs cpu; provider within {dop_err:.2g} Hz of "
+        f"the signal's Doppler; launches {launches}")
+    return {"wall_s": wall, "cpu_s": cpu_wall, "launches": launches,
+            "doppler_hz": [float(dop.min()), float(dop.max())],
+            "blocks": len(asked), "control_cadus": [good, bad]}
+
+
+def _live_launches(live: dict, kernel: str) -> dict:
+    """A kernel's launches on each live path of phase 17."""
+    return {"metop": live["metop"]["launches"][kernel],
+            **{f"vfo_{n}": c[kernel]
+               for n, c in live["vfo"]["launches"].items()},
+            "doppler": live["doppler"]["launches"][kernel]}
+
+
+def phase_live(rng, work: Path) -> dict:
+    """The live path on the card (phase 17); returns its figures."""
+    t_phase = time.perf_counter()
+    out = {"metop": _live_metop(rng, work / "metop"),
+           "vfo": _live_vfos(rng, work / "vfo"),
+           "doppler": _live_doppler(rng, work / "doppler")}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"live phase {out['phase_s']:.1f} s")
+    return out
+
+
 def phase_products(rng, work: Path) -> None:
     """Products at full width from the cadu level: metop_instruments once,
     then the processor on the card, on the CPU (composites must be
@@ -3618,6 +4138,7 @@ def main() -> int:
                                    work / "host")
         xrit2 = phase_xrit_grb(np.random.default_rng(XRIT2_SEED),
                                work / "xrit_grb")
+        live = phase_live(np.random.default_rng(LIVE_SEED), work / "live")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the classic walkers' launches come from their slice's main path,
@@ -3638,13 +4159,18 @@ def main() -> int:
              "satdump_tpu/ops/pallas/viterbi.py:136",
              dict(k1, fy3d_launches=hrpt["fy3d_k1_launches"],
                   jpss_launches=host["jpss_k1_launches"],
-                  xrit_launches=_xrit2_launches(xrit2, "viterbi_re"))),
+                  xrit_launches=_xrit2_launches(xrit2, "viterbi_re"),
+                  live_launches=_live_launches(live, "viterbi_re"))),
             ("resample_arith_grid", "satdump_tpu_torch/csrc/resample_arith.cu",
              "satdump_tpu/ops/pallas/resample.py:103",
-             dict(k2, gac_launches=hrpt["gac_k2_launches"],
+             dict(k2, max_abs_err=max(k2["max_abs_err"],
+                                      live["vfo"]["k2_max_abs_err"]),
+                  gac_launches=hrpt["gac_k2_launches"],
                   jpss_launches=host["jpss_k2_launches"],
                   xrit_launches=_xrit2_launches(xrit2,
-                                                "resample_arith_grid"))),
+                                                "resample_arith_grid"),
+                  live_launches=_live_launches(live,
+                                               "resample_arith_grid"))),
             ("affine_probe", "satdump_tpu_torch/csrc/probe_affine.cu",
              "tools/pallas_smoke.py:10", probe),
             # the classic chain's walkers replace lax.scan loops (no Pallas);
@@ -3677,7 +4203,8 @@ def main() -> int:
         for k in ("call_ms", "latency_bound_ms", "cycles_per_sample",
                   "cycles_per_step", "chain_cycles_per_step",
                   "grb_launches", "fy3d_launches", "gac_launches",
-                  "hrpt_launches", "jpss_launches", "xrit_launches"):
+                  "hrpt_launches", "jpss_launches", "xrit_launches",
+                  "live_launches"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
@@ -3688,6 +4215,7 @@ def main() -> int:
     log(f"HRPT / Inmarsat on the card: {json.dumps(hrpt)}")
     log(f"JPSS / xRIT / host decoders on the card: {json.dumps(host)}")
     log(f"xRIT images / GRB products on the card: {json.dumps(xrit2)}")
+    log(f"live path on the card: {json.dumps(live)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -15,14 +15,18 @@ CPU tensor to the plain PyTorch version beside it. Entry points run on
 classes, ``torch_device`` on pipeline modules).
 
 Subpackages mirror satdump_tpu's layout:
-  core      config / logging / registry / events
-  io        baseband file formats
+  core      config / logging / registry / events / HTTP status / tasks
+  io        baseband file formats, the remote-IQ protocol, sample
+            sources, frame fan-in, UDP discovery
   ops       DSP + FEC ops (plain torch) and the CUDA kernel wrappers
   ccsds     Space Packet demux (host)
+  geo       TLE, SGP4, geodetic transforms, projection settings
+  tracking  pass prediction, Doppler, the AutoTrack scheduler, rotctld
   models    instrument modules: MetOp AHRPT, METEOR MSU-MR LRPT
   products  products, calibrators, the products processor
   image     PNG codec, composite expressions, post ops, MSU-MR's IDCT
-  pipeline  JSON pipeline engine + the ported processing modules
+  pipeline  JSON pipeline engine, the ported processing modules, the live
+            pipeline and its multi-VFO front end
   utils     device selection, state conversion, bit repacking, CBOR
 """
 

@@ -1,5 +1,6 @@
-"""FIR filtering as overlap-save FFT convolution — port of the parts of
-satdump_tpu/ops/fir.py that the classic demod chain runs.
+"""FIR filtering as overlap-save FFT convolution — port of
+satdump_tpu/ops/fir.py (the classic demod chain's FIR, the VFO
+channelizer's decimating FIR and the direct form).
 
 Replaces the reference's VOLK dot-product FIR (common/dsp/filter/fir.h:16).
 Causal semantics match the reference FIRBlock: y[n] = sum_k taps[k] x[n-k],
@@ -58,3 +59,35 @@ def fir_apply(state: FIRState, x: torch.Tensor, taps,
     else:
         y = torch.fft.irfft(torch.fft.rfft(ext, nfft) * H, nfft)
     return FIRState(ext[n:], t, H), y[ntaps - 1: ntaps - 1 + n].to(x.dtype)
+
+
+def fir_direct(state: FIRState, x: torch.Tensor, taps
+               ) -> Tuple[FIRState, torch.Tensor]:
+    """Direct-form causal FIR (small ntaps): a sum over shifted slices,
+    y[n] = sum_k taps[k] ext[n + ntaps-1 - k], in the taps' order."""
+    t = np.asarray(taps.cpu() if torch.is_tensor(taps) else taps, np.float32)
+    ntaps = t.shape[0]
+    n = x.shape[-1]
+    ext = torch.cat([state.history, x])
+    y = torch.zeros(n, dtype=x.dtype, device=x.device)
+    for k in range(ntaps):
+        y = y + float(t[k]) * ext[ntaps - 1 - k: ntaps - 1 - k + n]
+    return FIRState(ext[n:]), y
+
+
+def decimating_fir_apply(state: FIRState, x: torch.Tensor, taps, decim: int
+                         ) -> Tuple[FIRState, torch.Tensor]:
+    """FIR, then every decim-th output (ref filter/decimating_fir.h). The
+    block length must be a multiple of decim to keep the phase aligned."""
+    state, y = fir_apply(state, x, taps)
+    return state, y[::decim]
+
+
+def design_fft_size(block_size: int, ntaps: int) -> int:
+    return _next_pow2(block_size + ntaps - 1)
+
+
+def np_fir_reference(x: np.ndarray, taps: np.ndarray) -> np.ndarray:
+    """NumPy golden model: causal FIR with zero initial history."""
+    full = np.convolve(x, taps)
+    return full[: len(x)]

@@ -8,3 +8,4 @@ import satdump_tpu_torch.pipeline.modules.network  # noqa: F401
 import satdump_tpu_torch.xrit.geo  # noqa: F401
 import satdump_tpu_torch.xrit.gk2a  # noqa: F401
 import satdump_tpu_torch.xrit.goes  # noqa: F401
+import satdump_tpu_torch.pipeline.modules.analog  # noqa: F401

@@ -221,20 +221,20 @@ def test_cli_pipeline_stops_at_unported_products(metop_12, tmp_path):
     """A pipeline whose products module is not ported (every file of
     resources/pipelines/ is now: here ELEKTRO-L LRIT's pipeline from an
     extra directory, its products module swapped for the JAX package's
-    unported `sstv_decoder`) stops there with the registry's
-    unknown-module error."""
+    unported `soft2hard`) stops there with the registry's unknown-module
+    error."""
     cadus, src = metop_12
     cadu = tmp_path / "in.cadu"
     cadus.tofile(cadu)
     pipes = json.loads((ROOT / "resources" / "pipelines" /
                         "Elektro_Arktika.json").read_text())
     pipe = pipes["elektro_lrit"]
-    pipe["work"]["products"]["module"] = "sstv_decoder"
+    pipe["work"]["products"]["module"] = "soft2hard"
     extra = tmp_path / "pipelines"
     extra.mkdir()
     (extra / "unported.json").write_text(json.dumps(
         {"elektro_lrit_unported": pipe}))
-    with pytest.raises(SatdumpError, match="unknown module 'sstv_decoder'"):
+    with pytest.raises(SatdumpError, match="unknown module 'soft2hard'"):
         cli.main(["--pipelines-dir", str(extra), "pipeline",
                   "elektro_lrit_unported", "cadu", str(cadu),
                   str(tmp_path / "out"), "--torch_device", "cpu"])

@@ -78,6 +78,23 @@ SLICE_MODULES = [
     "satdump_tpu_torch.ops.dvbs2.tx",
     "satdump_tpu_torch.pipeline.modules.dvbs2",
     "satdump_tpu_torch.models.goes_grb",
+    "satdump_tpu_torch.io.net",
+    "satdump_tpu_torch.io.sources",
+    "satdump_tpu_torch.io.fanin",
+    "satdump_tpu_torch.io.discovery",
+    "satdump_tpu_torch.core.http_status",
+    "satdump_tpu_torch.core.tasks",
+    "satdump_tpu_torch.ops.vfo",
+    "satdump_tpu_torch.pipeline.live",
+    "satdump_tpu_torch.pipeline.multivfo",
+    "satdump_tpu_torch.pipeline.modules.analog",
+    "satdump_tpu_torch.geo",
+    "satdump_tpu_torch.geo.tle",
+    "satdump_tpu_torch.geo.sgp4",
+    "satdump_tpu_torch.tracking",
+    "satdump_tpu_torch.tracking.tracker",
+    "satdump_tpu_torch.tracking.scheduler",
+    "satdump_tpu_torch.tracking.rotator",
 ]
 
 
@@ -145,10 +162,11 @@ def test_port_registry_holds_only_ported_modules():
         "noaa_apt_demod", "noaa_dsb_decoder", "noaa_gac_decoder",
         "noaa_hrpt_decoder", "noaa_instruments", "orbcomm_plotter",
         "orbcomm_stx_deframer", "pm_demod", "psk_demod",
-        "radiosonde_m10_decoder", "sdpsk_demod", "ssb_demod"]
+        "radiosonde_m10_decoder", "sdpsk_demod", "ssb_demod",
+        "sstv_decoder"]
     with pytest.raises(SatdumpError,
-                       match="unknown module 'sstv_decoder'"):
-        module_registry.get("sstv_decoder")
+                       match="unknown module 'soft2hard'"):
+        module_registry.get("soft2hard")
 
 
 class _CudaLike:
@@ -283,6 +301,15 @@ def test_cuda_request_raises_here():
             cls("x.cf32", "out", dict(p, samplerate=80e3, symbolrate=8e3))
     with pytest.raises(SatdumpError, match="cuda"):
         PSKDemodModule("x.cf32", "out", dict(BASE, fast=False))
+    # the live path: the channelizer, the VFO front end and the CLI's probe
+    from satdump_tpu_torch.ops.vfo import VFOChannelizer
+    from satdump_tpu_torch.pipeline.multivfo import MultiVFOLive
+    with pytest.raises(SatdumpError, match="cuda"):
+        VFOChannelizer(2.048e6)
+    with pytest.raises(SatdumpError, match="cuda"):
+        MultiVFOLive(2.048e6, "out")
+    with pytest.raises(SatdumpError, match="cuda"):
+        cli.main(["probe"])
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):
