@@ -198,9 +198,28 @@ Phases (any failure raises and the script exits non-zero):
     METEOR-M2 LRPT at 1 Msps carrying NOAA 19's predicted Doppler at
     137.1 MHz, live with set_doppler on the tracker, on the card and the
     CPU: every CADU decoded, the .cadu byte-identical;
- 18. one JSON line describing each kernel, then the card's line and the
-    result line. No kernel of the port lies on the products level or on
-    the FM path.
+ 18. the projection level and first-party ingest, on its own generator
+    (GEO_SEED): the AVHRR/3 product of a 1,800-line, 2048-column MetOp pass
+    (made as phase 8 makes it) with a MetOp-B TLE an hour before it;
+    compute_gcps (host), warp_to_equirect at 2048 columns with the spline
+    on the card, twice (float64; its CUDA-event ms first and warm, its
+    bound, points x GCPs and peak memory), 64 of its rows' spline on the
+    CPU (coordinates within 1e-6 px, pixels within GEO_PIXEL_SHARE at 1
+    LSB), the card's spline at its own GCPs, the JAX package's float32
+    form of the spline on the card against it, the whole warp at 512
+    columns on both devices, smart_warp_to_equirect at 8192 with tile 1024
+    on the card and at 2048 / 512 on both; reproject_equirect to a
+    stereographic and a geostationary target, a lat/lon grid, a GeoJSON
+    map the phase writes, city labels, the GeoTIFF and its tags read back.
+    `ingest --process` through the CLI on the card and on the CPU: a SEVIRI
+    .nat at its 3,712 columns (464 lines, 12 channels with HRV) and two
+    band-13 HSD segments at 5,500 columns (550 lines each), the products
+    and composites equal. `bitview` through the CLI on the main path's
+    .cadu (the period it finds; given 8192 bits, every row starts with the
+    ASM) and on CADUs of random payload (the period found: 8192 bits);
+ 19. one JSON line describing each kernel, then the card's line and the
+    result line. No kernel of the port lies on the products level, on the
+    projection level or on the FM path.
 
 Imports nothing of JAX and nothing of the satdump_tpu package. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no result.
@@ -4013,6 +4032,431 @@ def phase_live(rng, work: Path) -> dict:
     return out
 
 
+GEO_SEED = SEED + 18
+GEO_AVHRR_LINES, GEO_MHS_LINES = 1800, 112    # phase 8's 5-minute pass
+GEO_CHANNELS = ("1", "2", "4")                 # the warped RGB's channels
+GEO_OUT_WIDTH = 2048
+GEO_SMART_WIDTH, GEO_SMART_TILE = 8192, 1024
+GEO_CPU_WIDTH = 512           # the whole warp on both devices at this width
+GEO_SMART_CPU = (2048, 512)   # the smart warp on both: width, tile
+GEO_BAND_ROWS = 64            # rows of the full-width warp the CPU repeats
+GEO_COORD_TOL = 1e-6          # px, card against CPU (float64 both)
+GEO_PIXEL_SHARE = 1e-4        # of the pixels, each at most 1 LSB apart
+GEO_GCP_TOL = 1e-2            # px, the spline at its own GCPs (reg 1e-6)
+H100_F64_FLOPS = 34e12        # float64 outside the tensor cores, data sheet
+# float64 operations a spline entry (point, GCP), the log counted as one:
+# two differences, two squares, a sum, a clamp, the log, two products, and
+# U @ w's two multiply-adds
+SPLINE_OPS = 11
+ING_NAT_LINES = 464           # of 3,712 VIS/IR lines (HRV 1,392 of 11,136)
+ING_HSD_SEG_LINES, ING_HSD_SEGS = 550, 2     # of band 13's 10 segments
+
+
+@contextlib.contextmanager
+def _spline_calls():
+    """Every device evaluation of a ThinPlateSpline in the block: its
+    CUDA-event ms, points, GCPs and output coordinates."""
+    from satdump_tpu_torch.geo import warp
+    calls = []
+    orig = warp.ThinPlateSpline._eval_torch
+
+    def rec(self, flat, band=None):
+        out = orig(self, flat, band)
+        calls.append({"ms": self.device_ms, "points": flat.shape[0],
+                      "gcps": self.src.shape[0], "xy": out})
+        return out
+    warp.ThinPlateSpline._eval_torch = rec
+    try:
+        yield calls
+    finally:
+        warp.ThinPlateSpline._eval_torch = orig
+
+
+def _spline_bound(points: int, gcps: int, entries: int):
+    """The least time of a spline evaluation on the card: its points in
+    and coordinates out (float64 pairs) over the memory rate, or its
+    entries' operations at half the float64 flop rate (operations that
+    are not FMAs issue at half of it)."""
+    return bound_ms(2 * points * 16 + gcps * 40, entries * SPLINE_OPS,
+                    H100_F64_FLOPS / 2)
+
+
+def _geo_close(a, b, what: str) -> int:
+    """Card against CPU: at most GEO_PIXEL_SHARE of the pixels differ,
+    each by at most 1 LSB (or across the image's edge)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{what}: {a.shape} {a.dtype} against "
+                             f"{b.shape} {b.dtype}")
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    n = int((d > 0).sum())
+    log(f"{what}: card against CPU {n} of {d.size} pixels differ, max "
+        f"{int(d.max())} LSB; tolerance {GEO_PIXEL_SHARE:g} of the pixels")
+    if n > max(1, GEO_PIXEL_SHARE * d.size):
+        raise AssertionError(f"{what}: {n} pixels differ")
+    return n
+
+
+def _geo_pass(rng, work: Path):
+    """The AVHRR/3 product of a 1,800-line pass (as phase 8 makes it), its
+    proj cfg, an (H, W, 3) uint16 image of GEO_CHANNELS and a MetOp-B TLE
+    whose epoch is an hour before the pass."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.geo.tle import TLE
+    from satdump_tpu_torch.models.metop import MetOpInstrumentsDecoderModule
+    from satdump_tpu_torch.products.product import load_product
+    t0 = time.perf_counter()
+    cadus, truth = sim.metop_instrument_cadus(rng, GEO_AVHRR_LINES,
+                                              GEO_MHS_LINES)
+    work.mkdir(parents=True, exist_ok=True)
+    cadus.tofile(work / "pass.cadu")
+    MetOpInstrumentsDecoderModule(str(work / "pass.cadu"),
+                                  str(work / "metop_ahrpt"), {}).process()
+    prod = load_product(str(work / "AVHRR" / "product.json"))
+    cfg = prod.get_proj_cfg()
+    ts = np.asarray(cfg["timestamps"])
+    tle = TLE.parse("METOP-B", *sim.metop_b_tle(
+        float(np.median(ts[ts > 0])) - 3600.0))
+    img = np.stack([prod.get_channel(c).image for c in GEO_CHANNELS], -1)
+    log(f"projection: {GEO_AVHRR_LINES}-line AVHRR/3 product made in "
+        f"{time.perf_counter() - t0:.2f} s (host); image {img.shape} "
+        f"{img.dtype}; {len(ts)} timestamps")
+    return cfg, tle, img
+
+
+def _latlon_to_xy(georef: dict, shape):
+    h, w = shape[:2]
+
+    def f(lon, lat):
+        lon = np.asarray(lon, np.float64)
+        if georef["lon_max"] > 180.0:
+            lon = np.mod(lon + 360.0, 360.0)
+        x = (lon - georef["lon_min"]) / (georef["lon_max"]
+                                        - georef["lon_min"]) * (w - 1)
+        y = (georef["lat_max"] - np.asarray(lat)) / (
+            georef["lat_max"] - georef["lat_min"]) * (h - 1)
+        return x, y
+    return f
+
+
+def _float32_form(tps, flat, ref) -> dict:
+    """The JAX package's float32 device form of the spline on the card
+    (|q|^2 - 2 q.src^T + |src|^2, clamped; U @ w), against the port's
+    float64 evaluation `ref`, under full-precision float32 matmuls and
+    under TF32."""
+    import torch
+    from satdump_tpu_torch.utils.device import full_precision_matmul
+    f32 = {n: torch.tensor(v, dtype=torch.float32, device="cuda")
+           for n, v in (("q", flat), ("src", tps.src), ("w", tps.w),
+                        ("a", tps.a))}
+
+    def run():
+        q, src, w, a = f32["q"], f32["src"], f32["w"], f32["a"]
+        d2 = (torch.sum(q * q, -1, keepdim=True) - (2.0 * q) @ src.T
+              + torch.sum(src * src, -1)[None, :])
+        u = 0.5 * d2 * torch.log(torch.clamp(d2, min=1e-20))
+        out = u @ w + a[0] + q[:, :1] * a[1] + q[:, 1:2] * a[2]
+        return float(np.abs(out.double().cpu().numpy() - ref).max())
+    res = {}
+    with full_precision_matmul():
+        res["highest"] = run()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        res["tf32"] = run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"projection: the float32 form (the JAX package's) on the card over "
+        f"{len(flat)} points: max |error| {res['highest']:.3f} px at float32 "
+        f"matmul precision 'highest', {res['tf32']:.3f} px with TF32; the "
+        f"port evaluates in float64 (default precision here: TF32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, float32 "
+        f"{torch.get_float32_matmul_precision()})")
+    return res
+
+
+def _geo_overlays(img, georef, work: Path) -> dict:
+    """A grid, a GeoJSON map the phase writes and city labels on the
+    warped image, then its GeoTIFF and a read-back of the tags."""
+    from satdump_tpu_torch.geo.shapefile import read_geojson
+    from satdump_tpu_torch.image import geotiff, overlay, text
+    t0 = time.perf_counter()
+    lon0, lon1 = georef["lon_min"], georef["lon_max"]
+    lat0, lat1 = georef["lat_min"], georef["lat_max"]
+    wrap = (lambda v: (v + 180.0) % 360.0 - 180.0)
+    lons = np.linspace(lon0, lon1, 50)
+    feats = [{"type": "Feature", "geometry": {
+        "type": "LineString", "coordinates": [
+            [float(wrap(x)), float(lat0 + (lat1 - lat0) * (0.3 + 0.1 * k
+                                    + 0.05 * np.sin(x)))] for x in lons]}}
+        for k in range(4)]
+    feats.append({"type": "Feature", "geometry": {
+        "type": "Polygon", "coordinates": [[
+            [float(wrap(lon0 + (lon1 - lon0) * u)),
+             float(lat0 + (lat1 - lat0) * v)]
+            for u, v in ((0.4, 0.4), (0.6, 0.4), (0.6, 0.6), (0.4, 0.6),
+                         (0.4, 0.4))]]}})
+    gj = work / "map.geojson"
+    gj.write_text(json.dumps({"type": "FeatureCollection",
+                              "features": feats}))
+    out = img.copy()
+    to_xy = _latlon_to_xy(georef, out.shape)
+    white = (65535, 65535, 65535)
+    overlay.draw_latlon_grid(out, to_xy, (0, 65535, 0), spacing_deg=5.0)
+    overlay.draw_map_overlay(out, to_xy, str(gj), white, thickness=2)
+    cities = np.array([[wrap(lon0 + (lon1 - lon0) * u),
+                        lat0 + (lat1 - lat0) * v]
+                       for u, v in ((0.5, 0.5), (0.3, 0.7), (0.7, 0.2))])
+    out = text.draw_city_labels(out, to_xy, cities, ["Alpha", "Beta", "Gamma"],
+                                (255, 255, 0))
+    inked = int(np.any(out != img, axis=-1).sum())
+    if inked < 1000 or len(read_geojson(gj)) != 5:
+        raise AssertionError(f"overlays inked {inked} pixels")
+    w, h = out.shape[1], out.shape[0]
+    tif = work / "pass.tif"
+    geotiff.save_geotiff(out, tif, lon0, lat1, (lon1 - lon0) / (w - 1),
+                         (lat1 - lat0) / (h - 1))
+    tags = geotiff.read_geotiff_tags(tif)
+    data = tif.read_bytes()
+    ok = (tags["width"] == w and tags["height"] == h
+          and tags["lon_min"] == lon0 and tags["lat_max"] == lat1
+          and tags["geo_keys"] == {1024: 2, 1025: 1, 2048: 4326}
+          and data[-out.nbytes:] == out.astype("<u2").tobytes())
+    log(f"projection: overlays (grid, {len(feats)} GeoJSON features, "
+        f"{len(cities)} labels) inked {inked} pixels; GeoTIFF "
+        f"{len(data) / 1e6:.1f} MB, tags {tags}: read back "
+        f"{'equal' if ok else 'WRONG'}; {time.perf_counter() - t0:.2f} s")
+    if not ok:
+        raise AssertionError("GeoTIFF tags or strip read back wrong")
+    return {"inked": inked, "tif_bytes": len(data)}
+
+
+def _geo_projection(rng, work: Path) -> dict:
+    """Phase 18.1: GCPs, both warps on the card (against the CPU),
+    reprojection to a stereographic and a geostationary target, overlays,
+    labels and the GeoTIFF."""
+    import torch
+    from satdump_tpu_torch.geo import projs, raytrace, reproject, warp
+    cfg, tle, img = _geo_pass(rng, work)
+    res = {}
+    t = time.perf_counter()
+    gcps = raytrace.compute_gcps(cfg, img.shape[1], img.shape[0], tle=tle)
+    res["gcps_s"] = time.perf_counter() - t
+    lat = gcps[:, 3]
+    log(f"projection: compute_gcps (host) {res['gcps_s']:.3f} s, "
+        f"{len(gcps)} GCPs, lat {lat.min():.2f}..{lat.max():.2f}, lon "
+        f"{gcps[:, 2].min():.2f}..{gcps[:, 2].max():.2f}")
+    if len(gcps) < 900:
+        raise AssertionError(f"only {len(gcps)} GCPs")
+    # twice: the first call also pays the float64 matmul's and the
+    # allocator's first use
+    walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _spline_calls() as calls:
+        for _ in range(2):
+            t = time.perf_counter()
+            full, georef = warp.warp_to_equirect(img, gcps, GEO_OUT_WIDTH,
+                                                 device="cuda")
+            walls.append(time.perf_counter() - t)
+    call = calls[1]
+    bound, by = _spline_bound(call["points"], call["gcps"],
+                              call["points"] * call["gcps"])
+    res["warp"] = {"wall_s": walls[1], "first_wall_s": walls[0],
+                   "spline_ms": call["ms"], "first_spline_ms": calls[0]["ms"],
+                   "spline_bound_ms": bound, "bound_by": by,
+                   "points": call["points"], "gcps": call["gcps"],
+                   "entries": call["points"] * call["gcps"],
+                   "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+                   "shape": list(full.shape)}
+    log(f"projection: warp_to_equirect at {GEO_OUT_WIDTH} on cuda: "
+        f"{json.dumps(res['warp'])}")
+    # a band of the full-width warp's rows on the CPU, then the whole warp
+    # on both devices at GEO_CPU_WIDTH
+    hout = georef["height"]
+    rows = slice(hout // 2, hout // 2 + GEO_BAND_ROWS)
+    glon = np.linspace(georef["lon_min"], georef["lon_max"], GEO_OUT_WIDTH)
+    glat = np.linspace(georef["lat_max"], georef["lat_min"], hout)[rows]
+    band = np.stack(np.meshgrid(glon, glat), -1).reshape(-1, 2)
+    lon = gcps[:, 2]
+    if lon.max() - lon.min() > 180.0:
+        lon = np.mod(lon + 360.0, 360.0)
+    tps = warp.ThinPlateSpline(np.stack([lon, gcps[:, 3]], -1), gcps[:, :2],
+                               reg=1e-6, device="cpu")
+    t = time.perf_counter()
+    xy_cpu = tps._eval_torch(band)
+    cpu_band_s = time.perf_counter() - t
+    xy_card = call["xy"].reshape(hout, GEO_OUT_WIDTH, 2)[rows].reshape(-1, 2)
+    coord_err = float(np.abs(xy_cpu - xy_card).max())
+    px_cpu = reproject.bilinear_sample(img, xy_cpu[:, 0].reshape(-1,
+                                       GEO_OUT_WIDTH), xy_cpu[:, 1].reshape(
+                                       -1, GEO_OUT_WIDTH))
+    res["band"] = {"rows": GEO_BAND_ROWS, "coord_err_px": coord_err,
+                   "cpu_s": cpu_band_s,
+                   "differ": _geo_close(full[rows], px_cpu,
+                                        f"warp rows {rows.start}+"
+                                        f"{GEO_BAND_ROWS} at "
+                                        f"{GEO_OUT_WIDTH}")}
+    log(f"projection: the same rows' spline on the CPU {cpu_band_s:.3f} s; "
+        f"coordinates card against CPU max |diff| {coord_err:.3g} px "
+        f"(tolerance {GEO_COORD_TOL:g})")
+    if not coord_err <= GEO_COORD_TOL:
+        raise AssertionError(f"warp coordinates differ by {coord_err} px")
+    # the spline on the card passes through its GCPs (reg 1e-6)
+    fit = warp.ThinPlateSpline(tps.src, gcps[:, :2], reg=1e-6,
+                               device="cuda")._eval_torch(tps.src)
+    res["gcp_residual_px"] = float(np.abs(fit - gcps[:, :2]).max())
+    log(f"projection: the card's spline at its {len(gcps)} GCPs: max "
+        f"|residual| {res['gcp_residual_px']:.3g} px (limit {GEO_GCP_TOL})")
+    if not res["gcp_residual_px"] <= GEO_GCP_TOL:
+        raise AssertionError("the warp's spline misses its GCPs")
+    res["float32_form"] = _float32_form(tps, band, xy_card)
+    small = {}
+    for d in ("cuda", "cpu"):
+        t = time.perf_counter()
+        small[d] = warp.warp_to_equirect(img, gcps, GEO_CPU_WIDTH, device=d)
+        torch.cuda.synchronize()
+        res[f"warp_{GEO_CPU_WIDTH}_{d}_s"] = time.perf_counter() - t
+    if small["cuda"][1] != small["cpu"][1]:
+        raise AssertionError("warp georefs differ")
+    res[f"warp_{GEO_CPU_WIDTH}_differ"] = _geo_close(
+        small["cuda"][0], small["cpu"][0], f"warp at {GEO_CPU_WIDTH}")
+    # the smart warp: tiles of local splines; one channel
+    ch = np.ascontiguousarray(img[..., 2])
+    with _spline_calls() as calls:
+        t = time.perf_counter()
+        smart, sgeo = warp.smart_warp_to_equirect(
+            ch, gcps, GEO_SMART_WIDTH, tile=GEO_SMART_TILE, device="cuda")
+        wall = time.perf_counter() - t
+    bounds = [_spline_bound(c["points"], c["gcps"], c["points"] * c["gcps"])
+              for c in calls]
+    res["smart"] = {"wall_s": wall, "tiles": len(calls),
+                    "spline_ms": sum(c["ms"] for c in calls),
+                    "spline_bound_ms": sum(b for b, _ in bounds),
+                    "entries": sum(c["points"] * c["gcps"] for c in calls),
+                    "shape": list(smart.shape),
+                    "filled": float((smart > 0).mean())}
+    log(f"projection: smart_warp_to_equirect at {GEO_SMART_WIDTH}, tile "
+        f"{GEO_SMART_TILE} on cuda: {json.dumps(res['smart'])}")
+    sw, st = GEO_SMART_CPU
+    pair = [warp.smart_warp_to_equirect(ch, gcps, sw, tile=st, device=d)
+            for d in ("cuda", "cpu")]
+    if pair[0][1] != pair[1][1]:
+        raise AssertionError("smart warp georefs differ")
+    res["smart_small_differ"] = _geo_close(pair[0][0], pair[1][0],
+                                           f"smart warp at {sw}, tile {st}")
+    # reprojection to a stereographic and a geostationary target
+    clon = float(np.median(gcps[:, 2]))
+    for name, tgt in (("stereo", {"type": "stereo", "lon0": clon,
+                                  "lat0": 90.0 if lat.mean() > 0 else -90.0}),
+                      ("geos", {"type": "geos", "lon0": round(clon)})):
+        t = time.perf_counter()
+        out, tg = reproject.reproject_equirect(full, georef, tgt, 2048)
+        res[f"reproject_{name}"] = {
+            "s": time.perf_counter() - t, "shape": list(out.shape),
+            "filled": float((out.max(-1) > 0).mean())}
+        x, y = projs.forward(tgt, gcps[:, 2], gcps[:, 3])
+        if not (np.isfinite(x).all() and res[f"reproject_{name}"]["filled"]
+                > 0.05):
+            raise AssertionError(f"reprojection to {name} came out empty")
+        log(f"projection: reproject_equirect to {name} (host): "
+            f"{json.dumps(res[f'reproject_{name}'])}")
+    res.update(_geo_overlays(full, georef, work))
+    return res
+
+
+def _ingest_files(rng, work: Path) -> list:
+    """A SEVIRI .nat and two band-13 HSD segments, by the port's writers."""
+    from satdump_tpu_torch import sim
+    work.mkdir(parents=True, exist_ok=True)
+    raw, _ = sim.seviri_nat(rng, ING_NAT_LINES)
+    nat = work / "MSG4-SEVI-MSG15-0100-NA-20240101121243.nat"
+    nat.write_bytes(raw)
+    files, _ = sim.ahi_hsd_segments(rng, ING_HSD_SEG_LINES, ING_HSD_SEGS)
+    paths = [nat]
+    for i, f in enumerate(files, 1):
+        paths.append(work / f"HS_H09_20240101_1200_B13_FLDK_R20_S{i:02d}"
+                     f"{ING_HSD_SEGS:02d}.DAT.bz2")
+        paths[-1].write_bytes(f)
+    log(f"ingest: SEVIRI .nat {len(raw) / 1e6:.1f} MB ({ING_NAT_LINES} "
+        f"lines of {sim.SEVIRI_COLUMNS} columns, 12 channels with HRV), HSD "
+        f"band 13 {ING_HSD_SEGS} x {ING_HSD_SEG_LINES} lines of 5500 "
+        f"columns ({sum(len(f) for f in files) / 1e6:.1f} MB bzip2)")
+    return paths
+
+
+def _ingest(rng, work: Path) -> dict:
+    """Phase 18.2: `ingest --process` through the CLI on the card and on
+    the CPU; products and composites equal."""
+    from satdump_tpu_torch.image.io import load_img
+    paths = _ingest_files(rng, work / "in")
+    res = {}
+    for d in ("cuda", "cpu"):
+        res[d] = _cli_json(["ingest", *map(str, paths), "-o",
+                            str(work / d), "--process", "--torch_device", d])
+        log(f"ingest --process on {d}: {json.dumps(res[d])}")
+    tree = {d: sorted(p.relative_to(work / d) for p in (work / d).rglob("*")
+                      if p.is_file() and p.name != ".preset_cache.json")
+            for d in ("cuda", "cpu")}
+    if tree["cuda"] != tree["cpu"] or res["cuda"]["composites"] < 3:
+        raise AssertionError(f"ingest outputs differ: {tree}")
+    differ = [str(r) for r in tree["cuda"]
+              if (r.suffix == ".png"
+                  and not _same_images(load_img(work / "cuda" / r),
+                                       load_img(work / "cpu" / r)))
+              or (r.suffix != ".png" and (work / "cuda" / r).read_bytes()
+                  != (work / "cpu" / r).read_bytes())]
+    log(f"ingest: {len(tree['cuda'])} files on each device, "
+        f"{res['cuda']['composites']} composites; differing: {differ}")
+    if differ:
+        raise AssertionError(f"ingest card and CPU differ: {differ}")
+    return res
+
+
+def _bitview(rng, main_cadu: Path, work: Path) -> dict:
+    """Phase 18.3: `bitview` through the CLI on the main path's .cadu, its
+    period found and given (each row then starts with the ASM), and found
+    on CADUs whose payload has no structure of its own."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image.io import load_img
+    work.mkdir(parents=True, exist_ok=True)
+    res = {}
+    for name, src, opts in (("found", main_cadu, []),
+                            ("given", main_cadu, ["--period", "8192"]),
+                            ("random", work / "random.cadu", [])):
+        if name == "random":
+            sim.make_cadus(400, rng).tofile(src)
+        png = work / f"{name}.png"
+        t = time.perf_counter()
+        info = _cli_json(["bitview", str(src), "-o", str(png), *opts])
+        raster = load_img(png)
+        res[name] = {"s": time.perf_counter() - t, "shape": list(raster.shape),
+                     "period": info["period"],
+                     "candidates": info["candidates"]}
+        log(f"bitview {name} on {src.name}: {json.dumps(res[name])}")
+        if raster.shape != (min(info["bits"] // info["period"], 4096),
+                            info["period"]):
+            raise AssertionError(f"bitview {name}: raster {raster.shape}")
+    asm = np.unpackbits(np.array([0x1A, 0xCF, 0xFC, 0x1D], np.uint8)) * 255
+    raster = load_img(work / "given.png")
+    if not (raster[:, :32] == asm).all():
+        raise AssertionError("bitview at 8192: rows do not start with the ASM")
+    if res["random"]["period"] != 8192:
+        raise AssertionError(f"bitview period {res['random']['period']} on "
+                             "random CADUs")
+    return res
+
+
+def phase_geo_ingest(rng, work: Path, main_cadu: Path) -> dict:
+    """Projection, ingest and bitview on the card (phase 18)."""
+    t_phase = time.perf_counter()
+    out = {"projection": _geo_projection(rng, work / "geo"),
+           "ingest": _ingest(rng, work / "ingest"),
+           "bitview": _bitview(rng, main_cadu, work / "bitview")}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"projection / ingest phase {out['phase_s']:.1f} s")
+    return out
+
+
 def phase_products(rng, work: Path) -> None:
     """Products at full width from the cadu level: metop_instruments once,
     then the processor on the card, on the CPU (composites must be
@@ -4139,6 +4583,9 @@ def main() -> int:
         xrit2 = phase_xrit_grb(np.random.default_rng(XRIT2_SEED),
                                work / "xrit_grb")
         live = phase_live(np.random.default_rng(LIVE_SEED), work / "live")
+        main_cadu = next((work / "main" / "out").glob("*.cadu"))
+        geo = phase_geo_ingest(np.random.default_rng(GEO_SEED),
+                               work / "geo", main_cadu)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the classic walkers' launches come from their slice's main path,
@@ -4216,6 +4663,7 @@ def main() -> int:
     log(f"JPSS / xRIT / host decoders on the card: {json.dumps(host)}")
     log(f"xRIT images / GRB products on the card: {json.dumps(xrit2)}")
     log(f"live path on the card: {json.dumps(live)}")
+    log(f"projection / ingest / bitview on the card: {json.dumps(geo)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

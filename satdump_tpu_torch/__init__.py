@@ -15,19 +15,25 @@ CPU tensor to the plain PyTorch version beside it. Entry points run on
 classes, ``torch_device`` on pipeline modules).
 
 Subpackages mirror satdump_tpu's layout:
-  core      config / logging / registry / events / HTTP status / tasks
+  core      config / logging / registry / events / HTTP status / tasks /
+            webhook / boot (init_satdump)
   io        baseband file formats, the remote-IQ protocol, sample
             sources, frame fan-in, UDP discovery
   ops       DSP + FEC ops (plain torch) and the CUDA kernel wrappers
   ccsds     Space Packet demux (host)
-  geo       TLE, SGP4, geodetic transforms, projection settings
+  geo       TLE, SGP4, geodetic transforms, raytracers and GCPs, the
+            thin-plate-spline warps (the spline on the device), map
+            projections, reprojection, shapefile / GeoJSON, IERS, SPK
   tracking  pass prediction, Doppler, the AutoTrack scheduler, rotctld
   models    instrument modules: MetOp AHRPT, METEOR MSU-MR LRPT
-  products  products, calibrators, the products processor
-  image     PNG codec, composite expressions, post ops, MSU-MR's IDCT
+  products  products, calibrators, the products processor, first-party
+            ingest (SEVIRI .nat, Himawari HSD, netCDF / HDF5)
+  image     PNG codec, composite expressions, post ops, MSU-MR's IDCT,
+            map overlays, text (a bitmap font of its own), GeoTIFF
   pipeline  JSON pipeline engine, the ported processing modules, the live
             pipeline and its multi-VFO front end
-  utils     device selection, state conversion, bit repacking, CBOR
+  utils     device selection, state conversion, bit repacking, CBOR,
+            BitView, MPEG-TS, MQTT
 """
 
 __version__ = "0.1.0"

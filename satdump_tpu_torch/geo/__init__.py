@@ -1,7 +1,9 @@
-"""Geodetic / orbital layer of the port (ref src-core/common/geodetic +
-libs/predict): TLE parsing, SGP4 propagation, coordinate transforms and
-look angles on the host (NumPy), and the projection settings
-(geo/raytrace.py::load_proj_settings)."""
+"""Geodetic / orbital and projection layer of the port (ref
+src-core/common/geodetic, libs/predict, src-core/projection): TLE parsing,
+SGP4 propagation, coordinate transforms and look angles, the scanline
+raytracers and GCPs, map projections and reprojection (host NumPy), and
+the thin-plate-spline warps, whose large evaluations run on the device
+(geo/warp.py)."""
 
 from satdump_tpu_torch.geo.geodetic import (ecef_to_lla, eci_to_ecef, gmst,
                                             lla_to_ecef,

@@ -18,9 +18,6 @@ products are interchangeable:
   two-point radiance from per-line cold/hot views and telemetry
   temperatures with most-common fallback smoothing
   (meteor_support/instruments/msumr/msumr_calibrator.h).
-
-The xRIT lookup-curve calibrator (``generic_xrit``) is not carried here: it
-needs the geo package's spline, which comes with the xRIT products.
 """
 
 from __future__ import annotations
@@ -261,4 +258,43 @@ calibrator_registry.register("noaa_hirs", NoaaHIRSCalibrator)
 calibrator_registry.register("metop_ascat", MetOpASCATCalibrator)
 calibrator_registry.register("metop_iasi_img", MetOpIASIImagingCalibrator)
 calibrator_registry.register("meteor_msumr", MeteorMsuMrCalibrator)
+class GenericXritCalibrator(ImageCalibrator):
+    """Per-channel count->value lookup curve, spline-interpolated between
+    published calibration points (ref xrit/generic_xrit_calibrator.h —
+    the workhorse for GK-2A/Himawari/GOES xRIT products whose operators
+    distribute calibration tables rather than coefficients).
+
+    cfg vars: {"<channel_name>": [[count, value], ...],
+               "bits_for_calib": {"<channel_name>": bits},   # LUT domain
+               "to_complete": true}  # sparse points -> interpolate"""
+
+    def compute(self, channel_idx: int, counts: np.ndarray) -> np.ndarray:
+        h = None
+        for im in getattr(self.product, "images", []):
+            if im.abs_index == channel_idx:
+                h = im
+                break
+        if h is None:
+            return np.full(np.shape(counts), _INVALID)
+        cfg = self.cfg.get("vars", self.cfg)
+        pts = cfg.get(h.channel_name)
+        if not pts:
+            return np.full(np.shape(counts), _INVALID)
+        pts = sorted((int(k), float(v)) for k, v in pts
+                     if v != 0 or int(k) == 0)
+        xs = np.asarray([p[0] for p in pts], np.float64)
+        ys = np.asarray([p[1] for p in pts], np.float64)
+        c = np.asarray(counts, np.float64)
+        bits = cfg.get("bits_for_calib", {}).get(h.channel_name)
+        if bits:
+            c = c * ((2 ** int(bits) - 1) / ((1 << h.bit_depth) - 1))
+        if len(xs) >= 3:
+            from satdump_tpu_torch.geo.raytrace import _natural_cubic
+            vals = _natural_cubic(xs, ys)(c)
+        else:
+            vals = np.interp(c, xs, ys)
+        return np.where(np.asarray(counts) == 0, _INVALID, vals)
+
+
 calibrator_registry.register("jpss_atms", JpssAtmsCalibrator)
+calibrator_registry.register("generic_xrit", GenericXritCalibrator)

@@ -10,6 +10,7 @@ inverse of the decode chain, modulate, impair, and assert bit-exact recovery.
 from __future__ import annotations
 
 import json
+import struct
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -1684,3 +1685,158 @@ def grb_abi_cadus(rng: np.random.Generator, blocks, ts: int = 800000000,
                                                   gen + glm)], 6)])
     return cadus, {"image": np.concatenate(rows), "glm": glm,
                    "blocks": len(blocks)}
+
+
+# ---------------------------------------------------------------------------
+# Agency level-1 files (SEVIRI .nat, Himawari HSD) and a MetOp-B TLE
+# ---------------------------------------------------------------------------
+
+SEVIRI_COLUMNS = 3712          # VIS/IR columns of a full-disk line
+SEVIRI_HRV_COLUMNS = 11136     # HRV image width; each HRV line holds 5568
+SEVIRI_HRV_LINE = 5568
+
+
+def _tle_checksum(line: str) -> str:
+    s = sum(int(c) if c.isdigit() else (1 if c == "-" else 0)
+            for c in line[:68])
+    return line[:68] + str(s % 10)
+
+
+def metop_b_tle(epoch_unix: float) -> Tuple[str, str]:
+    """A MetOp-B two-line element set (NORAD 38771; its orbit: 98.7 deg
+    inclination, 14.2149 rev/day, near-circular) with its epoch at
+    `epoch_unix`; checksums valid."""
+    import time as _time
+    tm = _time.gmtime(epoch_unix)
+    day = tm.tm_yday + (epoch_unix % 86400) / 86400.0
+    l1 = (f"1 38771U 12049A   {tm.tm_year % 100:02d}{day:012.8f}  .00000048"
+          "  00000-0  42111-4 0  999")
+    l2 = ("2 38771  98.7008 347.6325 0001532  83.6539 276.4816 "
+          "14.21494672 99999")
+    return _tle_checksum(l1.ljust(68)), _tle_checksum(l2.ljust(68))
+
+
+def _mh_put(buf: bytearray, off: int, text: str) -> None:
+    b = text.encode()
+    buf[off: off + len(b)] = b
+
+
+def seviri_nat(rng: np.random.Generator, vis_lines: int,
+               bands: str = "XXXXXXXXXXXX", lower_east_col: int = 2000,
+               upper_east_col: int = 4000):
+    """A SEVIRI level-1.5 native file (.nat): the main product header's
+    ASCII records at their fixed offsets, the 15HEADER with one slope /
+    offset pair a channel, the image lines as 38 + 27 header bytes and
+    10-bit packed counts (3,712 a VIS/IR line, 5,568 an HRV line, three
+    HRV lines a VIS/IR line), and the 15TRAILER's HRV window columns
+    (the upper window from HRV line `vis_lines` * 3 / 2). The layout of
+    satdump_tpu_torch/products/firstparty/nat_seviri.py (EUMETSAT's native
+    format, ref seviri_nat.cpp). Returns (bytes, truth) with truth
+    {"vis": {ch: (vis_lines, 3712) counts}, "hrv": (3 * vis_lines, 5568)
+    counts, "slope", "offset", "upper_south_line"}."""
+    from satdump_tpu_torch.utils.repack import pack_nbits_to_bytes
+    hrv_lines = 3 * vis_lines
+    chans = [ch for ch in range(12) if bands[ch] == "X"]
+    vis = {ch: smooth_scene(rng, vis_lines, SEVIRI_COLUMNS, 10)
+           for ch in chans if ch < 11}
+    hrv = (smooth_scene(rng, hrv_lines, SEVIRI_HRV_LINE, 10)
+           if 11 in chans else None)
+    line_len = {ch: 65 + (SEVIRI_HRV_LINE if ch == 11
+                          else SEVIRI_COLUMNS) * 10 // 8 for ch in chans}
+    data_len = vis_lines * sum(line_len[ch] * (3 if ch == 11 else 1)
+                               for ch in chans)
+    headerpos = 6000
+    cal_off = 38 + headerpos + 1 + 60134 + 700 + 326058 + 101 + 72
+    datapos = cal_off + 192 + 1024
+    trailerpos = datapos + data_len
+    tro = 38 + trailerpos + 1 + 2 + 14 + 12 + 192 + 72 + 16
+    buf = bytearray(b" " * (tro + 32))
+    _mh_put(buf, 0, "FormatName                  : NATIVE")
+    _mh_put(buf, 604, f"15HEADERPosition : 0 {headerpos}")
+    _mh_put(buf, 666, f"15DATAPosition : 0 {datapos}")
+    _mh_put(buf, 728, f"15TRAILERPosition : 0 {trailerpos}")
+    _mh_put(buf, 2314, "ASTI : MSG4")
+    _mh_put(buf, 2394, "LLOS : 0.0")
+    _mh_put(buf, 2634, "SSBT : 20240101120000.000Z")
+    _mh_put(buf, 4394, f"SelectedBandIDs : {bands}")
+    _mh_put(buf, 4794, f"NumberLinesVISIR : {vis_lines}")
+    _mh_put(buf, 4874, f"NumberColumnsVISIR : {SEVIRI_COLUMNS}")
+    _mh_put(buf, 4954, f"NumberLinesHRV : {hrv_lines}")
+    _mh_put(buf, 5034, f"NumberColumnsHRV : {SEVIRI_HRV_COLUMNS}")
+    slope = rng.uniform(0.005, 0.03, 12)
+    offset = -slope * 51.0
+    buf[cal_off: cal_off + 192] = struct.pack(
+        ">24d", *np.stack([slope, offset], 1).reshape(-1))
+    upper_south = hrv_lines // 2
+    buf[tro: tro + 32] = struct.pack(
+        ">8i", 1, upper_south - 1, lower_east_col, lower_east_col + 5567,
+        upper_south, hrv_lines, upper_east_col, upper_east_col + 5567)
+
+    def line(px):
+        payload = pack_nbits_to_bytes(np.asarray(px, np.uint16), 10)
+        hdr = bytearray(65)
+        hdr[18:22] = struct.pack(">I", payload.size + 15 + 27)
+        return bytes(hdr) + payload.tobytes()
+
+    out = bytearray()
+    for ln in range(vis_lines):
+        for ch in chans:
+            if ch < 11:
+                out += line(vis[ch][ln])
+            else:
+                for rep in range(3):
+                    out += line(hrv[ln * 3 + rep])
+    buf[datapos: datapos + len(out)] = out
+    return bytes(buf), {"vis": vis, "hrv": hrv, "slope": slope,
+                        "offset": offset, "upper_south_line": upper_south}
+
+
+# Himawari Standard Data: the header blocks' lengths; 1-7 and 11 as the
+# format specifies them, 8-10 (navigation correction, observation times,
+# error information) holding no entries
+HSD_BLOCK_LEN = (282, 50, 127, 139, 147, 259, 47, 40, 15, 40, 259)
+AHI_B13 = dict(band=13, wavelength_um=10.4073, columns=5500, bits=12,
+               cfac=20466275, lfac=20466275, coff=2750.5, loff=2750.5,
+               gain=-0.0074, const=30.32)
+
+
+def ahi_hsd_segments(rng: np.random.Generator, seg_lines: int, nsegs: int,
+                     band: dict = AHI_B13, compress: bool = True):
+    """`nsegs` Himawari-9 AHI segment files of one band (default band 13 at
+    its 5,500 columns, 2 km): the 11 header blocks of the HSD format at
+    their field offsets (satdump_tpu_torch/products/firstparty/hsd_ahi.py,
+    ref ahi_hsd.cpp), then the segment's little-endian 16-bit counts,
+    bzip2-compressed as distributed. Returns (files, image) with image the
+    (nsegs * seg_lines, columns) counts sent (65535 fill pixels
+    included)."""
+    import bz2
+    offs = np.cumsum((0,) + HSD_BLOCK_LEN).tolist()
+    ncols = band["columns"]
+    img = smooth_scene(rng, nsegs * seg_lines, ncols, band["bits"])
+    img[rng.integers(0, img.shape[0], 16),
+        rng.integers(0, ncols, 16)] = 65535
+    files = []
+    for s in range(nsegs):
+        buf = bytearray(offs[-1])
+        for i, ln in enumerate(HSD_BLOCK_LEN):
+            buf[offs[i]] = i + 1
+            buf[offs[i] + 1: offs[i] + 3] = struct.pack("<H", ln)
+        buf[offs[0] + 6: offs[0] + 16] = b"Himawari-9"
+        buf[offs[0] + 46: offs[0] + 54] = struct.pack("<d", 60310.125)
+        buf[offs[1] + 5: offs[1] + 10] = struct.pack("<HHB", ncols,
+                                                     seg_lines, 0)
+        buf[offs[2] + 3: offs[2] + 27] = struct.pack(
+            "<diiff", 140.7, band["cfac"], band["lfac"], band["coff"],
+            band["loff"])
+        buf[offs[2] + 27: offs[2] + 43] = struct.pack("<dd", 42164.0,
+                                                      6378.137)
+        buf[offs[4] + 3: offs[4] + 14] = struct.pack(
+            "<HdB", band["band"], band["wavelength_um"], band["bits"])
+        buf[offs[4] + 19: offs[4] + 35] = struct.pack("<dd", band["gain"],
+                                                      band["const"])
+        buf[offs[6] + 3: offs[6] + 7] = struct.pack("<BBH", nsegs, s + 1,
+                                                    s * seg_lines + 1)
+        raw = bytes(buf) + img[s * seg_lines: (s + 1) * seg_lines].astype(
+            "<u2").tobytes()
+        files.append(bz2.compress(raw) if compress else raw)
+    return files, img

@@ -220,8 +220,8 @@ def test_meteor_m2_lrpt_baseband_to_products(tmp_path):
 def test_cli_pipeline_stops_at_unported_products(metop_12, tmp_path):
     """A pipeline whose products module is not ported (every file of
     resources/pipelines/ is now: here ELEKTRO-L LRIT's pipeline from an
-    extra directory, its products module swapped for the JAX package's
-    unported `soft2hard`) stops there with the registry's unknown-module
+    extra directory, its products module swapped for an id that neither
+    package registers) stops there with the registry's unknown-module
     error."""
     cadus, src = metop_12
     cadu = tmp_path / "in.cadu"
@@ -229,12 +229,13 @@ def test_cli_pipeline_stops_at_unported_products(metop_12, tmp_path):
     pipes = json.loads((ROOT / "resources" / "pipelines" /
                         "Elektro_Arktika.json").read_text())
     pipe = pipes["elektro_lrit"]
-    pipe["work"]["products"]["module"] = "soft2hard"
+    pipe["work"]["products"]["module"] = "no_such_module"
     extra = tmp_path / "pipelines"
     extra.mkdir()
     (extra / "unported.json").write_text(json.dumps(
         {"elektro_lrit_unported": pipe}))
-    with pytest.raises(SatdumpError, match="unknown module 'soft2hard'"):
+    with pytest.raises(SatdumpError,
+                       match="unknown module 'no_such_module'"):
         cli.main(["--pipelines-dir", str(extra), "pipeline",
                   "elektro_lrit_unported", "cadu", str(cadu),
                   str(tmp_path / "out"), "--torch_device", "cpu"])

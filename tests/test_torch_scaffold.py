@@ -153,7 +153,7 @@ def test_port_registry_holds_only_ported_modules():
         "goes_grb_data_decoder", "goes_gvar_decoder",
         "goes_gvar_image_decoder", "goes_lrit_data_decoder",
         "goes_mdl_decoder", "goes_sd_image_decoder", "goesn_sd_decoder",
-        "himawaricast_data_decoder", "inmarsat_aero_decoder",
+        "hard2soft", "himawaricast_data_decoder", "inmarsat_aero_decoder",
         "inmarsat_aero_parser", "inmarsat_stdc_decoder",
         "inmarsat_stdc_parser", "jpss_instruments", "meteor_hrpt_decoder",
         "meteor_instruments", "meteor_lrpt_decoder", "meteor_msumr_lrpt",
@@ -162,11 +162,12 @@ def test_port_registry_holds_only_ported_modules():
         "noaa_apt_demod", "noaa_dsb_decoder", "noaa_gac_decoder",
         "noaa_hrpt_decoder", "noaa_instruments", "orbcomm_plotter",
         "orbcomm_stx_deframer", "pm_demod", "psk_demod",
-        "radiosonde_m10_decoder", "sdpsk_demod", "ssb_demod",
-        "sstv_decoder"]
+        "radiosonde_m10_decoder", "s2udp_xrit_cadu_extractor", "sdpsk_demod",
+        "soft2hard", "ssb_demod", "sstv_decoder", "xrit_goesrecv_publisher"]
+    # an id that neither package registers
     with pytest.raises(SatdumpError,
-                       match="unknown module 'soft2hard'"):
-        module_registry.get("soft2hard")
+                       match="unknown module 'no_such_module'"):
+        module_registry.get("no_such_module")
 
 
 class _CudaLike:
