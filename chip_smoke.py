@@ -217,7 +217,23 @@ Phases (any failure raises and the script exits non-zero):
     and composites equal. `bitview` through the CLI on the main path's
     .cadu (the period it finds; given 8192 bits, every row starts with the
     ASM) and on CADUs of random payload (the period found: 8192 bits);
- 19. one JSON line describing each kernel, then the card's line and the
+ 19. the scale-out, K3 and the bench, on its own generator (MC_SEED): the
+    main path's signal (phase 6's ~2^23 MetOp samples) through psk_demod
+    `multichip: true` on 4 ranks sharing the card (one process a rank,
+    gloo between them; K2 and K3 launched in the ranks, counted there),
+    then metop_ahrpt_decoder (K1, and K3 in its lock search): every CADU
+    sent decoded, the .cadu byte-equal to phase 6's single-device one, the
+    wall from spawn to .soft with the ranks' set-up and step apart, then
+    Msamp/s to CADU; K3 (csrc/viterbi_block.cu) against its plain version,
+    tolerance 0 (the plain version on CPU copies of the inputs), on 4 rows
+    of 2^15 pairs of that pass's softs (renorm on) and on 8
+    tiled-decoder lanes (renorm off), its SASS free of FFMA, its
+    time there and at a full-width shard, a lock search's batch and an
+    Aero 10.5k frame, its bound and the latency bound of its SASS chains;
+    dryrun_multichip(8) on the card (its step, then 12 of 12 CADUs through
+    the runner), its step's softs within 5 LSB of the CPU's; `bench` on
+    the card at its default n, every category rated;
+ 20. one JSON line describing each kernel, then the card's line and the
     result line. No kernel of the port lies on the products level, on the
     projection level or on the FM path.
 
@@ -1211,8 +1227,8 @@ def _check_avhrr_mhs(out_dir: Path, truth: dict, label: str) -> None:
 
 
 def phase_main(rng, work: Path):
-    """The main path, baseband to products; returns the kernels' launches
-    and the input file."""
+    """The main path, baseband to products; returns the kernels' launches,
+    the input file and the CADUs sent."""
     import torch
     from satdump_tpu_torch import sim
     from satdump_tpu_torch.ops.cuda.probe import affine_probe
@@ -1226,7 +1242,8 @@ def phase_main(rng, work: Path):
     cadus, path, n = _pass(rng, np.concatenate([idle, data, idle]),
                            work / "main", (up, down))
     out_dir = work / "main" / "out"
-    path_kernels = (viterbi_re, resample_arith_grid)
+    # K3: the decoder's lock search
+    path_kernels = (viterbi_re, resample_arith_grid) + _vb_kernels()
     kernels = path_kernels + (affine_probe,)      # the probe is on no path
     torch.cuda.synchronize()
     for k in kernels:
@@ -1249,7 +1266,7 @@ def phase_main(rng, work: Path):
     for k in path_kernels:
         if launches[k.__name__] <= 0:
             raise AssertionError(f"main path never launched {k.__name__}")
-    return launches, path
+    return launches, path, cadus
 
 
 def _union_us(intervals) -> float:
@@ -2494,7 +2511,7 @@ INM_AERO_P = ("inmarsat_aero_12", dict(oqpsk=False, dummy_bits=0,
 
 
 def _all_kernels():
-    return _path_kernels() + _classic_kernels()
+    return _path_kernels() + _classic_kernels() + _vb_kernels()
 
 
 def _tree(d: Path, pattern: str = "*") -> dict:
@@ -2583,9 +2600,10 @@ def _ops_dispatched(fn) -> int:
 
 def _fy3_lock_search(soft_path: str) -> dict:
     """The FY-3D decoder's two steps on rail 0 of the card's .soft, on the
-    card, apart: the lock search (Viterbi12Sync.search_stream, the plain
-    block decoder) and the stream decode (K1); wall ms of each (host clock
-    around a synchronized call) and the torch ops the search dispatches."""
+    card, apart: the lock search (Viterbi12Sync.search_stream, the block
+    decoder K3) and the stream decode (K1); wall ms of each (host clock
+    around a synchronized call), and the torch ops and K3 launches the
+    search makes."""
     import torch
     from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
     from satdump_tpu_torch.ops.fec import convolutional as cc
@@ -2603,14 +2621,18 @@ def _fy3_lock_search(soft_path: str) -> dict:
     t0 = time.perf_counter()
     off = search()
     search_ms = (time.perf_counter() - t0) * 1e3
+    acs = _vb_kernels()[0]
+    acs.launches = 0
     n_ops = _ops_dispatched(search)
+    k3 = acs.launches
     n = len(rail) // 2
     pairs = np.full((-(-n // SEG) * SEG, 2), 128.0, np.float32)
     pairs[:n] = cc.soft_int8_to_u8(rail[: 2 * n]).reshape(-1, 2)
     x = torch.from_numpy(pairs).cuda()
     k1_ms = call_ms(lambda: viterbi_re(x, seg=SEG, ovl=HALO), 5)
     return {"lock_offset": off, "search_ms": search_ms,
-            "search_ops": n_ops, "k1_ms": k1_ms, "rail_pairs": n}
+            "search_ops": n_ops, "search_k3": k3, "k1_ms": k1_ms,
+            "rail_pairs": n}
 
 
 def _fy3_pass(rng, work: Path) -> dict:
@@ -2644,13 +2666,15 @@ def _fy3_pass(rng, work: Path) -> dict:
         f"{len(bb) / FY3_D_RATE:.4f} s of signal")
     log(f"fengyun3_d_ahrpt one rail ({split['rail_pairs']} pairs): lock "
         f"search {split['search_ms']:.1f} ms wall, {split['search_ops']} "
-        f"torch ops, locked at soft {split['lock_offset']}; K1 "
+        f"torch ops, {split['search_k3']} K3 decodes, locked at soft "
+        f"{split['lock_offset']}; K1 "
         f"{split['k1_ms']:.3f} ms a call (CUDA events); the decoder runs "
         f"one of each a rail")
     out.update(fy3d_soft_s=walls["soft"], fy3d_cadu_s=walls["cadu"],
                fy3d_msamp_s=rate, fy3d_k1_launches=launches["cadu"][
                    "viterbi_re"], fy3d_search_ms=split["search_ms"],
                fy3d_search_ops=split["search_ops"],
+               fy3d_search_k3=split["search_k3"],
                fy3d_k1_ms=split["k1_ms"])
     # FY-3A/B at 8.4 Msps, a VIRR line and the VCID-12 sounders, baseband
     # -> products on the card and the CPU
@@ -2933,10 +2957,14 @@ def _inmarsat_passes(rng, work: Path) -> dict:
         fn()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        acs = _vb_kernels()[0]
+        acs.launches = 0
         ops = _ops_dispatched(fn)
         log(f"block Viterbi on the card, {label}: a call of {frames} "
             f"frame(s) {ms:.1f} ms wall, {ms / frames:.1f} ms a frame against"
-            f" {air} s of air time a frame; {ops} torch ops a call")
+            f" {air} s of air time a frame; {ops} torch ops and "
+            f"{acs.launches} K3 decodes a call")
+        out[f"viterbi_{label}_k3_a_call"] = acs.launches
         out[f"viterbi_{label}_ms_a_frame"] = ms / frames
         out[f"viterbi_{label}_ops_a_call"] = ops
     return out
@@ -4549,6 +4577,306 @@ def phase_idct(rng) -> None:
         f"on the host clock")
 
 
+# phase 19: the scale-out and the bench, on its own generator. MetOp
+# AHRPT's main-path signal (phase 6's ~2^23 samples at 6 Msps, sps 18/7)
+# through psk_demod `multichip: true` on MC_RANKS ranks sharing the card
+# (parallel/timeshard.py: one process a rank, gloo between them), then
+# metop_ahrpt_decoder; K3 (the block Viterbi, csrc/viterbi_block.cu)
+# against its plain version on that pass's softs at its callers' shapes;
+# dryrun_multichip on the card; `bench` on the card.
+MC_SEED = SEED + 19
+MC_RANKS = 4
+MC_DRYRUN_RANKS = 8
+MC_SOFT_LSB = 5          # the dryrun step's int8 softs, card against CPU
+VB_B, VB_T = 4, 1 << 15
+VB_CHUNKS = 1024   # the lcm of K3's ACS (256) and traceback (1024) chunks
+VB_TILED = (8, 1024 + 2 * 128)  # the tiled decoder's lanes (renorm off)
+VB_LOCK = (1024, 1023)   # a lock search's batch: max_lanes x (TEST_BITS-2)/2
+VB_AERO = (1, 2496)      # an Aero 10.5k frame
+VB_REPS = 10
+# the reference's bench categories (satdump_tpu/bench.py)
+BENCH_CATEGORIES = ("freq_shift", "agc", "rrc", "quadrature_demod", "snr_est",
+                    "ff_cfo", "ff_timing", "ff_qpsk_full", "viterbi_k7",
+                    "rs_decode", "soft_to_cadu")
+
+
+def _vb_kernels():
+    from satdump_tpu_torch.ops.cuda.viterbi_block import (
+        viterbi_block_acs, viterbi_block_traceback)
+    return (viterbi_block_acs, viterbi_block_traceback)
+
+
+def _vb_decode(pm, x, renorm: bool = True):
+    """K3: the ACS pass, then the traceback."""
+    acs, tb = _vb_kernels()
+    pm, dec = acs(pm, x, renorm)
+    return pm, dec, tb(pm, dec)
+
+
+def _vb_plain(pm, x, renorm: bool = True):
+    from satdump_tpu_torch.ops.fec import convolutional as cc
+    pm, dec = cc._acs_plain(pm, x, renorm)
+    return pm, dec, cc._traceback_plain(pm, dec)
+
+
+def _vb_bound(B: int, T: int):
+    """The least time of a block decode: its bytes (the softs and pm in,
+    the bits and pm out) and its operations a step and row: the 4 distinct
+    branch metrics (2 subtractions, 2 absolute values, an add each), 2 adds,
+    a compare and a select for each of the 64 states, the renormalisation's
+    63 for the min and 64 subtractions, the traceback's 4."""
+    nbytes = B * T * (8 + 1) + 2 * B * 64 * 4
+    ops = B * T * (4 * 5 + 64 * 4 + 63 + 64 + 4)
+    return bound_ms(nbytes, ops, H100_F32_OPS)
+
+
+def _vb_sass() -> dict:
+    """K3's loop-carried chains read off its SASS (tools/sass_chain.py):
+    the ACS step loop (a step is its one 8-byte decision store to shared
+    memory) and the traceback's (a step is its one byte store); no FFMA
+    anywhere in it."""
+    from satdump_tpu_torch.tools import sass_chain as sc
+    funcs = sc.parse_sass(_sass("viterbi_block"))
+    measured, _ = sc.measured_latencies()
+    lat = sc.Latency(sc.fixed_latencies(funcs), measured)
+    out = {}
+    for key, fname, store in (("acs", "viterbi_acs_kernel", "STS.64"),
+                              ("traceback", "viterbi_traceback_kernel",
+                               "STS.U8")):
+        f = next(f for f in funcs if fname in f.name)
+        ffma = sum(x.mnemonic == "FFMA" for x in f.ins)
+        if ffma:
+            raise AssertionError(f"K3 {fname}: {ffma} FFMA in its SASS")
+        loops = sc.step_loops(f, store)
+        if not loops:
+            raise AssertionError(f"K3 {fname}: no step loop")
+        loop = max(loops, key=lambda lp: sum(
+            x.op == store for x in f.ins[lp[0]:lp[1] + 1]))
+        r = sc.chain(f, lat, loop=loop, step_store=store)
+        log(f"K3 SASS chain, {key}: {r['cycles_a_step']:.2f} cycles a step "
+            f"({r['instructions_a_pass']} instructions a pass of "
+            f"{r['steps_a_pass']:g} steps); stall counts "
+            f"{r['stall_cycles_a_step']:.1f} a step; chain opcodes "
+            f"{json.dumps(r['chain_opcodes'])}; at the smallest latency "
+            f"{json.dumps(r['unmeasured'])}")
+        out[key] = r
+    return out
+
+
+def _mc_pass(work: Path, main_input: Path, main_cadu: Path,
+             cadus: np.ndarray) -> dict:
+    """19.1: the full-width sharded MetOp pass, stage by stage, with every
+    kernel's count set to 0 just before each stage and read just after
+    (the ranks report their own: K2 and K3 launch there; the decoder's K1
+    and its lock search's K3 in this process)."""
+    from satdump_tpu_torch.parallel import timeshard
+    fname, pipe_id, _, _ = METOP
+    kernels = _path_kernels() + _vb_kernels()
+    timeshard.set_virtual_devices(MC_RANKS)
+    try:
+        outs, walls, launches = _staged(
+            fname, pipe_id, main_input, work, {"multichip": True},
+            ("baseband", "soft", "cadu"), kernels=kernels)
+    finally:
+        timeshard.set_virtual_devices(None)
+    st = timeshard.run_sharded.last_stats
+    if st is None or st["ranks"] != MC_RANKS or st["device"] != "cuda":
+        raise AssertionError(f"sharded pass: no {MC_RANKS}-rank card run: "
+                             f"{st}")
+    ranks = {k: sum(r["launches"][k] for r in st["rank"])
+             for k in st["rank"][0]["launches"]}
+    _need(ranks, list(ranks), "sharded pass, ranks")
+    _need(launches["cadu"], ("viterbi_re", "viterbi_block_acs",
+                             "viterbi_block_traceback"), "sharded decoder")
+    got = _check_cadus(outs["cadu"], cadus, "sharded MetOp pass")
+    single = np.fromfile(main_cadu, np.uint8).reshape(-1, cadus.shape[1])
+    if Path(outs["cadu"]).read_bytes() != Path(main_cadu).read_bytes():
+        raise AssertionError(f"sharded .cadu ({len(got)} CADUs) differs "
+                             f"from the single-device one ({len(single)})")
+    n = Path(main_input).stat().st_size // 8
+    wall = walls["soft"] + walls["cadu"]
+    rank_setup = max(r["setup_s"] for r in st["rank"])
+    rank_step = max(r["step_s"] for r in st["rank"])
+    log(f"sharded MetOp pass, {MC_RANKS} ranks on the card over "
+        f"{st['backend']} ({n} samples): .cadu byte-equal to the "
+        f"single-device one, {len(got)} CADUs; psk_demod {walls['soft']:.3f}"
+        f" s (spawn to exit {st['spawn_to_exit_s']:.3f}, the slowest rank's "
+        f"set-up {rank_setup:.3f} and step {rank_step:.3f}), decoder "
+        f"{walls['cadu']:.3f} s; {n / wall / 1e6:.3f} Msamp/s baseband to "
+        f"CADU; {st['bytes_moved']} bytes through the host; launches: ranks "
+        f"{ranks}, decoder {_launched(launches)['cadu']}")
+    # a shard's Viterbi steps: psk_demod's block rule, the step's capacity
+    block = -(-(n + 64) // (MC_RANKS * 4096)) * 4096
+    shard_pairs = int(np.ceil(block / (METOP_SPS * 0.99))) + 4 - 8
+    return {"soft": outs["soft"], "samples": n, "wall_s": wall,
+            "soft_s": walls["soft"], "cadu_s": walls["cadu"],
+            "spawn_to_exit_s": st["spawn_to_exit_s"],
+            "rank_setup_s": rank_setup, "rank_step_s": rank_step,
+            "msamp_s": n / wall / 1e6, "bytes_moved": st["bytes_moved"],
+            "rank_launches": ranks, "decoder_launches": launches["cadu"],
+            "cadus": len(got), "shard_pairs": shard_pairs}
+
+
+def _vb_check(rng, soft_path: str, shard_pairs: int) -> dict:
+    """19.2: K3 on the card against its plain version on CPU copies of the
+    same inputs, tolerance 0 (path metrics, decision words, bits), all on
+    the sharded pass's own softs: VB_B rows of VB_T pairs; one row whose
+    length ends as a full-width shard's does modulo VB_CHUNKS (the ACS's
+    partial last chunk and the traceback's partial first one, a block with
+    three idle warps), since the plain version of a whole shard takes
+    minutes on the host; a lock search's batch (VB_LOCK) and an Aero frame
+    (VB_AERO) at their own shapes (renorm on in all of these, as the
+    sharded step, the lock search and Aero decode); VB_TILED lanes (renorm
+    off, the tiled decoder's). Its time at VB_B x VB_T and at a full-width
+    shard, a lock search's batch and an Aero frame; its bound and its SASS
+    chains' latency bound."""
+    import torch
+    from satdump_tpu_torch.ops.fec import convolutional as cc
+    soft = np.fromfile(soft_path, np.int8)
+    pairs = cc.soft_int8_to_u8(soft[: len(soft) // 2 * 2]).reshape(
+        -1, 2).astype(np.float32)
+
+    def rows(B, T):
+        offs = rng.integers(0, len(pairs) - T, B)
+        return torch.from_numpy(np.stack([pairs[o:o + T] for o in offs])
+                                ).cuda()
+
+    err = 0.0
+    out = {"compared": {}}
+    tail = (1, VB_T + shard_pairs % VB_CHUNKS)
+    for label, (B, T), renorm in (("rows", (VB_B, VB_T), True),
+                                  ("a full-width shard's chunk ends", tail,
+                                   True),
+                                  ("lock search", VB_LOCK, True),
+                                  ("Aero 10.5k frame", VB_AERO, True),
+                                  ("tiled lanes", VB_TILED, False)):
+        x = rows(B, T)
+        pm0 = torch.zeros((B, 64), device="cuda")
+        got = [t.cpu() for t in _vb_decode(pm0, x, renorm)]
+        ref, plain_ms = _timed_plain(
+            lambda: _vb_plain(pm0.cpu(), x.cpu(), renorm))
+        e = float((got[0] - ref[0]).abs().max())
+        same = torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+        log(f"K3 against its plain version, {label} ({B} x {T}, renorm "
+            f"{renorm}): path metrics within {e}, decisions and bits "
+            f"{'equal' if same else 'DIFFERENT'}; plain (CPU) {plain_ms:.1f} "
+            "ms")
+        if e or not same:
+            raise AssertionError(f"K3 differs from its plain version at "
+                                 f"{label}")
+        err = max(err, e)
+        out["compared"][label] = {"B": B, "T": T, "renorm": renorm,
+                                  "max_abs_err": e, "plain_ms": plain_ms}
+        if label == "rows":
+            out["plain_ms"] = plain_ms
+            out["ms"] = call_ms(lambda: _vb_decode(pm0, x), VB_REPS,
+                                back_to_back=True)
+            out["call_ms"] = call_ms(lambda: _vb_decode(pm0, x), VB_REPS)
+    out["max_abs_err"] = err
+    out["bound_ms"], out["bound_by"] = _vb_bound(VB_B, VB_T)
+    chains = _vb_sass()
+    cyc = sm_clock_mhz() * 1e3                     # cycles a millisecond
+    step_cycles = chains["acs"]["cycles_a_step"] + \
+        chains["traceback"]["cycles_a_step"]
+    out["chain_cycles_per_step"] = step_cycles
+    out["latency_bound_ms"] = step_cycles * VB_T / cyc
+    shapes = {"full-width shard": (1, shard_pairs), "lock search": VB_LOCK,
+              "Aero 10.5k frame": VB_AERO}
+    out["shapes"] = {}
+    for label, (B, T) in shapes.items():
+        x = rows(B, T)
+        pm0 = torch.zeros((B, 64), device="cuda")
+        ms = call_ms(lambda: _vb_decode(pm0, x), 3)
+        b, by = _vb_bound(B, T)
+        out["shapes"][label] = {"B": B, "T": T, "ms": ms, "bound_ms": b,
+                                "latency_bound_ms": step_cycles * T / cyc}
+        log(f"K3 at {label} ({B} x {T}): {ms:.4f} ms a decode (events "
+            f"around a call), bound {b:.5f} ms ({by}), latency bound "
+            f"{step_cycles * T / cyc:.4f} ms")
+    log(f"K3 at {VB_B} x {VB_T}: {out['ms']:.4f} ms a decode back to back, "
+        f"{out['call_ms']:.4f} a call; plain (CPU) {out['plain_ms']:.1f} ms; "
+        f"bound {out['bound_ms']:.5f} ms ({out['bound_by']}); latency bound "
+        f"{out['latency_bound_ms']:.4f} ms ({step_cycles:.1f} cycles a step "
+        f"at {cyc / 1e3:.0f} MHz)")
+    return out
+
+
+def _soft_turned(soft: np.ndarray, k: int) -> np.ndarray:
+    """Interleaved int8 IQ softs times j^k."""
+    c = soft.astype(np.int16).reshape(-1, 2)
+    for _ in range(k % 4):
+        c = np.stack([-c[:, 1], c[:, 0]], axis=1)
+    return c.reshape(-1)
+
+
+def _mc_dryrun() -> dict:
+    """19.3: dryrun_multichip on the card (its step, then the runner path:
+    12 of 12 CADUs), and its step against the same step on the CPU. The
+    first shard's halo is zeros whose filtered values are FFT round-off,
+    so each stream's rotation (a multiple of 90 degrees) and its first
+    sub_phase samples of signal are arbitrary on either device
+    (tests/test_torch_parallel.py): the softs are held after the channel's
+    rotation, the first shard's lead left out."""
+    from satdump_tpu_torch.parallel import dryrun, timeshard
+    t0 = time.perf_counter()
+    card = dryrun.dryrun_multichip(MC_DRYRUN_RANKS, device="cuda")
+    wall = time.perf_counter() - t0
+    mesh = timeshard.make_mesh(MC_DRYRUN_RANKS)
+    cpu = timeshard.run_sharded(dryrun.step_signal(mesh), mesh, "cpu",
+                                **dryrun.STEP_KW)
+    a, b = card["step"], cpu
+    if not np.array_equal(a.valid, b.valid):
+        raise AssertionError("dryrun step: valid masks differ, card and CPU")
+    lead = 2 * int(np.ceil(dryrun.STEP_KW["sub_phase"] /
+                           dryrun.STEP_KW["sps"]))
+    worst = 0
+    for ch in range(mesh.n_ch):
+        k = int(np.argmin([np.abs(_soft_turned(a.soft[1, ch], k)
+                                  - b.soft[1, ch]).sum() for k in range(4)]))
+        for t in range(mesh.n_t):
+            d = np.abs(_soft_turned(a.soft[t, ch], k)
+                       - b.soft[t, ch].astype(np.int16))[lead if t == 0
+                                                         else 0:]
+            worst = max(worst, int(d.max()))
+            if d.max() > MC_SOFT_LSB or np.median(d) != 0:
+                raise AssertionError(f"dryrun step shard ({ch}, {t}): softs "
+                                     f"{d.max()} LSB apart, median "
+                                     f"{np.median(d)}")
+    launches = {k: sum(r["launches"][k] for r in a.stats["rank"])
+                for k in a.stats["rank"][0]["launches"]}
+    _need(launches, list(launches), "dryrun step")
+    log(f"dryrun_multichip({MC_DRYRUN_RANKS}) on the card: mesh "
+        f"{card['mesh']}, runner {card['matched']}/12 CADUs, {wall:.2f} s; "
+        f"its step's softs within {worst} LSB of the CPU's (median 0), "
+        f"valid masks equal; step launches {launches}")
+    return {"wall_s": wall, "soft_lsb": worst, "launches": launches}
+
+
+def _bench_card() -> dict:
+    """19.4: `bench` on the card at its default n, every category rated."""
+    from satdump_tpu_torch import bench
+    t0 = time.perf_counter()
+    res = bench.run_bench(device="cuda")
+    missing = set(BENCH_CATEGORIES) - set(res)
+    if missing or len(res) != len(BENCH_CATEGORIES):
+        raise AssertionError(f"bench: no rate for {sorted(missing)}: {res}")
+    log(f"bench on the card at n = {bench.DEFAULT_N}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def phase_multichip(rng, work: Path, main_input: Path, main_cadu: Path,
+                    cadus: np.ndarray) -> dict:
+    """The scale-out, K3 and the bench on the card (phase 19)."""
+    t_phase = time.perf_counter()
+    mc = _mc_pass(work / "pass", main_input, main_cadu, cadus)
+    out = {"pass": mc, "k3": _vb_check(rng, mc["soft"], mc["shard_pairs"]),
+           "dryrun": _mc_dryrun(), "bench": _bench_card()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"scale-out / K3 / bench phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4569,7 +4897,7 @@ def main() -> int:
     work = ROOT / "satdump_tpu_torch" / "_build" / "smoke"
     try:
         phase_small_pass(rng, work)
-        launches, main_input = phase_main(rng, work)
+        launches, main_input, main_cadus = phase_main(rng, work)
         phase_profile(main_input, work / "profile")
         phase_products(rng, work / "full")
         phase_idct(rng)
@@ -4586,6 +4914,9 @@ def main() -> int:
         main_cadu = next((work / "main" / "out").glob("*.cadu"))
         geo = phase_geo_ingest(np.random.default_rng(GEO_SEED),
                                work / "geo", main_cadu)
+        mc = phase_multichip(np.random.default_rng(MC_SEED),
+                             work / "multichip", main_input, main_cadu,
+                             main_cadus)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the classic walkers' launches come from their slice's main path,
@@ -4594,6 +4925,12 @@ def main() -> int:
         launches[k] = classic_launches[k]
     # turbo_bcjr's from its slice's main path, JUICE's baseband -> frames
     launches["turbo_bcjr"] = bcjr.pop("launches")
+    mc_pass = mc["pass"]
+    launches["viterbi_block"] = sum(
+        mc_pass[w][k] for w in ("rank_launches", "decoder_launches")
+        for k in ("viterbi_block_acs", "viterbi_block_traceback"))
+    mc["k3"]["main_path_launches"] = sum(
+        launches[k] for k in ("viterbi_block_acs", "viterbi_block_traceback"))
     costas_err = max(r["max_abs_err"] for k, r in walkers.items()
                      if k.startswith("costas"))
     mm_err = max(r["max_abs_err"] for k, r in walkers.items()
@@ -4641,7 +4978,13 @@ def main() -> int:
             # _bcjr_maxlog (no Pallas); its row is at base 1115 with
             # JUICE's 58-frame batch, its launches JUICE's pass's
             ("turbo_bcjr", "satdump_tpu_torch/csrc/turbo_bcjr.cu",
-             f"{sw_rep}/fec/turbo.py:205", bcjr)):
+             f"{sw_rep}/fec/turbo.py:205", bcjr),
+            # the block Viterbi replaces viterbi_acs' and viterbi_traceback's
+            # lax.scan loops (no Pallas); its row is at VB_B x VB_T, its
+            # launches (ACS and traceback) the sharded MetOp pass's: the
+            # ranks' and the decoder's lock search's
+            ("viterbi_block", "satdump_tpu_torch/csrc/viterbi_block.cu",
+             f"{sw_rep}/fec/convolutional.py:111", mc["k3"])):
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": rep, "launches": launches[name],
                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -4651,7 +4994,7 @@ def main() -> int:
                   "cycles_per_step", "chain_cycles_per_step",
                   "grb_launches", "fy3d_launches", "gac_launches",
                   "hrpt_launches", "jpss_launches", "xrit_launches",
-                  "live_launches"):
+                  "live_launches", "main_path_launches"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)
@@ -4664,6 +5007,7 @@ def main() -> int:
     log(f"xRIT images / GRB products on the card: {json.dumps(xrit2)}")
     log(f"live path on the card: {json.dumps(live)}")
     log(f"projection / ingest / bitview on the card: {json.dumps(geo)}")
+    log(f"scale-out / K3 / bench on the card: {json.dumps(mc)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

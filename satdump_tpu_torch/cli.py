@@ -1,6 +1,6 @@
 """Command-line interface of the port — the `pipeline`, `module`, `list`,
-`process`, `ingest`, `probe`, `record`, `autotrack`, `fanin`, `bitview`
-and `live` subcommands of satdump_tpu's CLI (ref
+`process`, `ingest`, `probe`, `bench`, `record`, `autotrack`, `fanin`,
+`bitview` and `live` subcommands of satdump_tpu's CLI (ref
 src-core/core/cli/cli.cpp:41-56):
 
 * ``pipeline <id> <level> <input> <output> [--key value ...]`` — run a
@@ -16,6 +16,8 @@ src-core/core/cli/cli.cpp:41-56):
   (SEVIRI .nat, Himawari HSD, netCDF / HDF5 with h5py) to products, and
   with ``--process`` their composites.
 * ``probe`` — the torch devices (ref core/cli/probe.cpp:9).
+* ``bench [--category NAME ...] [--n N]`` — per-stage throughput, one JSON
+  line a category (ref dsp_bench, src-core/dsp/benchmark/bench.cpp:33-47).
 * ``record <tcp://host:port> <file>`` — record a remote-IQ stream.
 * ``live <id> <tcp://host:port|file://path> <output>`` — live decode, with
   ``--vfo name:offset_hz:pipeline_id`` (repeatable) for N pipelines behind
@@ -24,8 +26,8 @@ src-core/core/cli/cli.cpp:41-56):
 * ``fanin <output> --publishers N`` — merge CADU streams from N sites.
 * ``bitview <file> -o <png>`` — a bit stream as a raster, its frame period
   found when not given.
-Every module, ``process``, ``ingest``, ``probe`` and ``live`` take
-``--torch_device cuda|cpu`` (default cuda).
+Every module, ``process``, ``ingest``, ``probe``, ``bench`` and ``live``
+take ``--torch_device cuda|cpu`` (default cuda).
 
 Usage: ``python -m satdump_tpu_torch <subcommand> ...``.
 """
@@ -209,6 +211,13 @@ def cmd_probe(args, extra: List[str]) -> int:
     else:
         info = [{"id": 0, "platform": "cpu", "kind": "cpu"}]
     print(json.dumps({"device_count": len(info), "devices": info}))
+    return 0
+
+
+def cmd_bench(args, extra: List[str]) -> int:
+    from satdump_tpu_torch.bench import run_bench
+    run_bench(categories=args.category or None, n=args.n,
+              device=args.torch_device)
     return 0
 
 
@@ -499,6 +508,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--torch_device", default="cuda",
                    help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_probe)
+
+    p = sub.add_parser("bench", help="per-stage throughput benchmark")
+    p.add_argument("--category", action="append",
+                   help="bench category (repeatable); default all")
+    p.add_argument("--n", type=int, default=1 << 20,
+                   help="samples per block")
+    p.add_argument("--torch_device", default="cuda",
+                   help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("record",
                        help="record a streaming source to a baseband file")

@@ -6,19 +6,29 @@ reference (src-core/common/codings/viterbi/cc_decoder.cpp): polynomials
 symbols as values in [0, 255] where 0/255 are confident and 128 is an
 erasure.
 
-The encoders are host numpy (copied). The decoders are plain torch on the
-device of their input: the ACS update is vectorized over states and a
-batch (or lane) dimension, and the time steps are a Python loop (the
-reference's `lax.scan`). `viterbi_decode_tiled_re` is the plain version of
-the CUDA kernel K1 (ops/cuda/viterbi.py), which CaduChain calls on the card.
+The encoders are host numpy (copied). The block decoder (`viterbi_acs`,
+`viterbi_traceback` and what is built on them: `viterbi_decode_block`,
+`viterbi_decode_tiled`, `StreamViterbi`) launches the CUDA kernel K3
+(ops/cuda/viterbi_block.py) for a CUDA tensor and runs its plain version
+for a CPU tensor: the ACS update vectorized over states and a batch (or
+lane) dimension, the time steps a Python loop (the reference's
+`lax.scan`). Its decisions are one int64 word a step, (B, T), the decision
+of state 2m + c in bit 32c + m (the reference keeps (T, B, 64) bools;
+utils/state.py converts). `viterbi_decode_tiled_re` is the plain version
+of the CUDA kernel K1 (ops/cuda/viterbi.py), which CaduChain calls on the
+card.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from satdump_tpu_torch.ops.cuda.viterbi_block import (viterbi_block_acs,
+                                                      viterbi_block_traceback)
+from satdump_tpu_torch.utils.device import resolve_device, to_numpy
 
 K = 7
 NSTATES = 64
@@ -90,49 +100,109 @@ def _consts(device: torch.device):
     return (t(_E0_T[:32]), t(_E1_T[:32]), t(_E0_T[32:]), t(_E1_T[32:]))
 
 
+def _on_device(fn: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one (the plain
+    version); any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+# bit of state 2m + c in a decision word: 32c + m
+_DEC_SHIFT = ((torch.arange(NSTATES) & 1) << 5) | (torch.arange(NSTATES) >> 1)
+
+
+def pack_decisions(dec: torch.Tensor) -> torch.Tensor:
+    """(T, B, 64) bool decisions (the reference's form) -> (B, T) int64
+    words, the decision of state 2m + c in bit 32c + m."""
+    T, B = dec.shape[0], dec.shape[1]
+    by_bit = dec.reshape(T, B, 32, 2).transpose(2, 3).reshape(T, B, NSTATES)
+    w = torch.ones(NSTATES, dtype=torch.int64, device=dec.device) \
+        << torch.arange(NSTATES, device=dec.device)
+    # the bits are disjoint, so their sum is their OR (bit 63 is the sign)
+    return (by_bit.to(torch.int64) * w).sum(-1).T.contiguous()
+
+
+def unpack_decisions(words: torch.Tensor) -> torch.Tensor:
+    """(B, T) int64 decision words -> (T, B, 64) bool."""
+    shift = _DEC_SHIFT.to(words.device)
+    return ((words.T[..., None] >> shift) & 1).to(torch.bool)
+
+
+# rows x steps of bool decisions `_acs_plain` packs at a time: its int64
+# temporaries stay under 2 x 8 MiB whatever the batch
+_PACK_ROW_STEPS = 1 << 14
+
+
+def _acs_plain(pm: torch.Tensor, soft: torch.Tensor, renorm: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K3's ACS pass (any device): the same float
+    operations, a torch op at a time."""
+    e0a, e1a, e0b, e1b = _consts(soft.device)
+    B, T = soft.shape[0], soft.shape[1]
+    words = torch.empty((B, T), dtype=torch.int64, device=soft.device)
+    chunk = max(1, _PACK_ROW_STEPS // max(B, 1))
+    decisions = torch.empty((min(chunk, T), B, NSTATES), dtype=torch.bool,
+                            device=soft.device)
+    for t0 in range(0, T, chunk):
+        n = min(chunk, T - t0)
+        for k in range(n):
+            s0 = soft[:, t0 + k, 0][:, None, None]  # (B,1,1)
+            s1 = soft[:, t0 + k, 1][:, None, None]
+            # bm[s,b] = |s0 - 255 e0| + |s1 - 255 e1|, split by predecessor
+            bmA = (s0 - 255.0 * e0a[None]).abs() + \
+                (s1 - 255.0 * e1a[None]).abs()
+            bmB = (s0 - 255.0 * e0b[None]).abs() + \
+                (s1 - 255.0 * e1b[None]).abs()
+            cand_a = pm[:, :32, None] + bmA                # pred m
+            cand_b = pm[:, 32:, None] + bmB                # pred m+32
+            decisions[k] = (cand_b < cand_a).reshape(B, NSTATES)
+            pm = torch.minimum(cand_a, cand_b).reshape(B, NSTATES)
+            if renorm:
+                pm = pm - pm.min(dim=-1, keepdim=True).values
+        words[:, t0:t0 + n] = pack_decisions(decisions[:n])
+    return pm, words
+
+
 def viterbi_acs(pm: torch.Tensor, soft: torch.Tensor, renorm: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run ACS over a block. pm: (B,64) f32. soft: (B,T,2) f32 in [0,255]
-    (255 = confident 1). Returns (new_pm, decisions (T,B,64) bool).
+    (255 = confident 1). Returns (new_pm, decisions (B,T) int64 words).
 
     Butterfly form: state ns = 2m+b has predecessors m and m+32.
     renorm=False drops the per-step min-subtract (metrics are integer
-    valued and grow <= 510/step, exact in f32 for bounded T)."""
-    e0a, e1a, e0b, e1b = _consts(soft.device)
-    B, T = soft.shape[0], soft.shape[1]
-    decisions = torch.empty((T, B, NSTATES), dtype=torch.bool,
-                            device=soft.device)
-    for t in range(T):
-        s0 = soft[:, t, 0][:, None, None]  # (B,1,1)
-        s1 = soft[:, t, 1][:, None, None]
-        # bm[s,b] = |s0 - 255 e0| + |s1 - 255 e1|, split by predecessor half
-        bmA = (s0 - 255.0 * e0a[None]).abs() + (s1 - 255.0 * e1a[None]).abs()
-        bmB = (s0 - 255.0 * e0b[None]).abs() + (s1 - 255.0 * e1b[None]).abs()
-        cand_a = pm[:, :32, None] + bmA                # pred m
-        cand_b = pm[:, 32:, None] + bmB                # pred m+32
-        decisions[t] = (cand_b < cand_a).reshape(B, NSTATES)
-        pm = torch.minimum(cand_a, cand_b).reshape(B, NSTATES)
-        if renorm:
-            pm = pm - pm.min(dim=-1, keepdim=True).values
-    return pm, decisions
+    valued and grow <= 510/step, exact in f32 for bounded T). K3 on the
+    card, `_acs_plain` on the CPU."""
+    if _on_device("viterbi_acs", soft):
+        return viterbi_block_acs(pm, soft, renorm)
+    return _acs_plain(pm, soft, renorm)
+
+
+def _traceback_plain(pm: torch.Tensor, decisions: torch.Tensor
+                     ) -> torch.Tensor:
+    """The plain version of K3's traceback (any device)."""
+    B, T = decisions.shape
+    state = torch.argmin(pm, dim=-1)                            # (B,)
+    bits = torch.empty((T, B), dtype=torch.uint8, device=pm.device)
+    for t in range(T - 1, -1, -1):
+        shift = ((state & 1) << 5) | (state >> 1)
+        d = (decisions[:, t] >> shift) & 1
+        bits[t] = (state & 1).to(torch.uint8)
+        state = (state >> 1) | (d << 5)
+    return bits.T.contiguous()
 
 
 def viterbi_traceback(pm: torch.Tensor, decisions: torch.Tensor
                       ) -> torch.Tensor:
     """Traceback from the best end state (lowest index on ties, as argmin).
-    decisions: (T,B,64) bool. Returns bits (B,T) uint8.
+    decisions: (B,T) int64 words. Returns bits (B,T) uint8.
 
     prev(2m+b) = m or m+32 by the decision bit: the survivor is carried as
     an integer state index (the reference carries a one-hot vector to avoid
-    TPU gathers)."""
-    T, B = decisions.shape[0], decisions.shape[1]
-    state = torch.argmin(pm, dim=-1)                            # (B,)
-    bits = torch.empty((T, B), dtype=torch.uint8, device=pm.device)
-    for t in range(T - 1, -1, -1):
-        d = decisions[t].gather(1, state[:, None])[:, 0].to(torch.int64)
-        bits[t] = (state & 1).to(torch.uint8)
-        state = (state >> 1) | (d << 5)
-    return bits.T.contiguous()
+    TPU gathers). K3 on the card, `_traceback_plain` on the CPU."""
+    if _on_device("viterbi_traceback", decisions):
+        return viterbi_block_traceback(pm, decisions)
+    return _traceback_plain(pm, decisions)
 
 
 def viterbi_decode_block(soft: torch.Tensor, pm: torch.Tensor | None = None
@@ -147,6 +217,56 @@ def viterbi_decode_block(soft: torch.Tensor, pm: torch.Tensor | None = None
     pm, dec = viterbi_acs(pm, soft)
     bits = viterbi_traceback(pm, dec)
     return bits, pm
+
+
+class ViterbiState(NamedTuple):
+    pm: torch.Tensor         # (B, 64) float32 path metrics
+    decisions: torch.Tensor  # (B, D) int64, the last D decision words
+
+
+def viterbi_init(batch: int = 1, traceback: int = TRACEBACK,
+                 device: str | torch.device | None = None) -> ViterbiState:
+    dev = resolve_device(device)
+    pm = torch.full((batch, NSTATES), 1e6, dtype=torch.float32, device=dev)
+    pm[:, 0] = 0.0
+    return ViterbiState(
+        pm=pm,
+        decisions=torch.zeros((batch, traceback), dtype=torch.int64,
+                              device=dev))
+
+
+class StreamViterbi:
+    """Continuous r=1/2 k=7 Viterbi with delayed emission (ref Viterbi27,
+    common/codings/viterbi/viterbi27.h:10-34).
+
+    Holds the path metrics and the last `traceback` decision words on
+    `device`; decode(soft_pairs) returns the decoded bits delayed by
+    `traceback` trellis steps.
+    """
+
+    def __init__(self, batch: int = 1, traceback: int = TRACEBACK,
+                 device: str | torch.device | None = None):
+        dev = resolve_device(device)
+        self.traceback = traceback
+        self.batch = batch
+        self.pm = torch.zeros((batch, NSTATES), dtype=torch.float32,
+                              device=dev)
+        self.dec_tail = torch.zeros((batch, traceback), dtype=torch.int64,
+                                    device=dev)
+
+    def decode(self, soft) -> np.ndarray:
+        """soft: (B,T,2) float [0,255] (a tensor or an array). Returns (B, T) uint8 bits — the T bits
+        ending `traceback` steps before the newest symbol (delayed emission);
+        the first call's first `traceback` bits are left-padding zeros."""
+        D = self.traceback
+        soft = torch.as_tensor(soft, dtype=torch.float32,
+                               device=self.pm.device)
+        self.pm, dec = viterbi_acs(self.pm, soft)
+        window = torch.cat([self.dec_tail, dec], dim=1)         # (B, D+T)
+        bits = viterbi_traceback(self.pm, window)               # (B, D+T)
+        T = soft.shape[1]
+        self.dec_tail = window[:, -D:]
+        return to_numpy(bits[:, :T]).astype(np.uint8)
 
 
 def _lane_windows(soft: torch.Tensor, seg: int, ovl: int) -> torch.Tensor:

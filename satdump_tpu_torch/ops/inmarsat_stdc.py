@@ -17,8 +17,8 @@ reshapes.
 
 Counterpart of satdump_tpu/ops/inmarsat_stdc.py: the same host NumPy, and
 the Viterbi is the port's batched block decoder
-(`convolutional.viterbi_decode_block`, plain torch) on the given device,
-several frames as rows of one call.
+(`convolutional.viterbi_decode_block`: the CUDA kernel K3 on the card)
+on the given device, several frames as rows of one call.
 """
 
 from __future__ import annotations

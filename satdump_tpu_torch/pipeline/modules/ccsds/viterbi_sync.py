@@ -10,8 +10,9 @@ the threshold, then decode the stream under it until BER degrades.
 Port of satdump_tpu/pipeline/modules/ccsds/viterbi_sync.py: all hypotheses
 are decoded in ONE batched Viterbi call (hypotheses ride the batch
 dimension) on `device`, instead of the reference's serial loop. The lock
-search's decoder (convolutional.viterbi_decode_block) is plain torch, a
-Python loop over the ~1023 trellis steps of the test window.
+search's decoder (convolutional.viterbi_decode_block) is the CUDA kernel
+K3 on the card, its plain torch loop over the ~1023 trellis steps of the
+test window on the CPU.
 """
 
 from __future__ import annotations

@@ -14,8 +14,12 @@ then int8 quantize (x50 real-only for BPSK, x100 interleaved IQ otherwise,
 module_psk_demod.cpp:196-213).
 
 The chain runs on `torch_device` (default ``cuda``). `multichip: true`
-(the reference's time-sharded demod over a device mesh) is not ported: as
-the reference does wherever it cannot shard, it logs and runs on one device.
+shards the whole recording's consecutive time-blocks over a (1 × n) mesh of
+ranks (parallel/timeshard.py: halo exchange and seam phase stitching over
+torch.distributed) when the chain is `fast`, there is more than one device
+(`parallel.device_count`, which `parallel.set_virtual_devices` can raise),
+no input resampling, no frequency shift, and the constellation is not
+BPSK; otherwise, as the reference, it logs and runs on one device.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ import torch
 
 from satdump_tpu_torch.core.exceptions import PipelineError
 from satdump_tpu_torch.core.log import logger
+from satdump_tpu_torch.io.baseband import read_baseband
 from satdump_tpu_torch.ops import costas, ffsync, fir, firdes, stages
+from satdump_tpu_torch.parallel import timeshard
 from satdump_tpu_torch.pipeline.module import register_module
 from satdump_tpu_torch.pipeline.modules.demod.base import BaseDemodModule
 from satdump_tpu_torch.utils.device import to_numpy
@@ -55,6 +61,8 @@ class PSKDemodModule(BaseDemodModule):
         # `fast` selects the feedforward sync chain (the default); `fast:
         # false` the classic per-sample Costas/M&M chain
         self.fast = bool(self.param("fast", True))
+        # `multichip: true` shards consecutive time-blocks of the stream
+        # over ranks (parallel/timeshard.py); needs fast + >1 device
         self.multichip = bool(self.param("multichip", False))
         # Doppler pre-correction (ref module_demod_base.h doppler option +
         # doppler_correct.h): a provider fn(sample_pos, n) -> Hz (a scalar
@@ -162,8 +170,54 @@ class PSKDemodModule(BaseDemodModule):
                       "symbols": self._nsyms}
         return out
 
+    # -- multichip: time-sharded demod over ranks -------------------------
+    def _build_multichip(self) -> bool:
+        if not self.fast or timeshard.device_count(self.torch_device) < 2 \
+                or self.resample or self.d_frequency_shift or self.is_bpsk:
+            return False
+        self._mesh = timeshard.make_mesh(n_ch=1, device=self.torch_device)
+        self._n_t = self._mesh.n_t
+        return True
+
+    def _process_multichip(self):
+        out_path = self.d_output_file_hint + ".soft"
+        self.d_output_file = out_path
+        data, _ = read_baseband(self.d_input_file, self.d_format)
+        # one sharded step over the whole recording: the seam stitching
+        # keeps every shard's rotation consistent with shard 0. +64 samples
+        # of margin: the interpolator emits no symbol within ntaps/2 of the
+        # last sample, so a recording that divides exactly into shards
+        # would lose its last symbols without trailing zeros.
+        block = -(-(len(data) + 64) // (self._n_t * 4096)) * 4096
+        halo = min(8192, block // 4)
+        super_n = self._n_t * block
+        logger.info(f"multichip: mesh(t={self._n_t}), shard block {block}, "
+                    f"halo {halo}")
+        chunk = np.concatenate(
+            [data, np.zeros(super_n - len(data), np.complex64)]) \
+            if len(data) < super_n else data[:super_n]
+        res = timeshard.run_sharded(
+            chunk.reshape(1, super_n), self._mesh, self.torch_device,
+            sps=self.final_sps, block=block, halo=halo,
+            rrc_alpha=self.rrc_alpha, rrc_ntaps=self.rrc_taps,
+            order=_ORDER[self.constellation])
+        nsyms = 0
+        with open(out_path, "wb") as f:
+            for t in range(self._n_t):
+                s = res.soft[t, 0].reshape(-1, 2)[res.valid[t, 0]]
+                f.write(s.astype(np.int8).tobytes())
+                nsyms += len(s)
+        self.stats = {"symbols": nsyms, "mesh_t": self._n_t,
+                      "sharded": res.stats}
+        logger.info(f"multichip demodulated {nsyms} symbols "
+                    f"over {self._n_t} t-shards")
+
     def process(self):
         if self.multichip:
+            self.compute_rates()
+            self.block_size = self.choose_block_size(self.block_base)
+            if self._build_multichip():
+                return self._process_multichip()
             logger.warning("multichip requested but unavailable "
                            "(need fast + >1 device + no resample); "
                            "falling back to single-device path")

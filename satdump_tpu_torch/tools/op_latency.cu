@@ -1,5 +1,5 @@
 // Latency of the SASS instructions that wait on a scoreboard (conversions,
-// MUFU, shared loads), for tools/sass_chain.py, which reads the latency of
+// MUFU, shared loads, warp shuffles and reductions), for tools/sass_chain.py, which reads the latency of
 // every other instruction off the stall counts in the kernels' own SASS.
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -o op_latency op_latency.cu
@@ -174,6 +174,23 @@ extern "C" __global__ void lat_lds64(const int* in, int* sink,
   sink[0] = static_cast<int>(v);
 }
 
+// shfl.sync.idx.b32 of the value it received, lane 0 alone: SHFL.IDX
+extern "C" __global__ void lat_shfl(const int* in, int* sink,
+                                    long long* cyc) {
+  int v = in[0];
+  TIMED(asm volatile("shfl.sync.idx.b32 %0, %0, 0, 0x1f, 1;" : "+r"(v)))
+  sink[0] = v;
+}
+
+// redux.sync.min.u32 of the value it reduced, lane 0 alone: REDUX (its
+// uniform result moved back to a register each step, a fixed latency)
+extern "C" __global__ void lat_redux(const int* in, int* sink,
+                                     long long* cyc) {
+  unsigned v = in[0];
+  TIMED(asm volatile("redux.sync.min.u32 %0, %0, 1;" : "+r"(v)))
+  sink[0] = static_cast<int>(v);
+}
+
 template <class T>
 static double run(void (*k)(const T*, T*, long long*), T a, T b) {
   T host[2] = {a, b};
@@ -213,11 +230,12 @@ int main() {
       run(lat_f2i_f64, 1.0, 0.0) - i2f64, i2f64,
       run(lat_rcp64h, 1.5, 0.0), run(lat_rsq64h, 1.5, 0.0),
       run(lat_lds, 3, 0), run(lat_lds64, 3, 0),
-      run(lat_rcp, 1.5f, 0.0f) - fadd, run(lat_rsq, 1.5f, 0.0f), fadd};
+      run(lat_rcp, 1.5f, 0.0f) - fadd, run(lat_rsq, 1.5f, 0.0f), fadd,
+      run(lat_shfl, 1, 0), run(lat_redux, 1, 0)};
   const char* keys[] = {"DADD", "F2F.F64.F32", "F2F.F32.F64", "F2I", "I2F",
                         "FRND", "F2I.F64", "I2F.F64", "MUFU.RCP64H",
                         "MUFU.RSQ64H", "LDS", "LDS.64", "MUFU.RCP",
-                        "MUFU.RSQ", "FADD"};
+                        "MUFU.RSQ", "FADD", "SHFL", "REDUX"};
   constexpr int kTests = sizeof(keys) / sizeof(keys[0]);
   printf("{");
   for (int i = 0; i < kTests; ++i) {

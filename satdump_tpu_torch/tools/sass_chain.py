@@ -62,7 +62,7 @@ _REG_RE = re.compile(r"(?<![A-Za-z0-9_])(UR\d+|UP\d|R\d+|P\d)(\.64)?"
 _GUARD_RE = re.compile(r"^@!?(U?P[T0-9])\s+")
 # opcodes that write no register
 _NO_DST = {"ST", "STS", "STG", "STL", "BRA", "BRX", "JMP", "BAR", "EXIT",
-           "RET", "CALL", "BSSY", "BSYNC", "NOP", "WARPSYNC", "RED", "REDUX",
+           "RET", "CALL", "BSSY", "BSYNC", "NOP", "WARPSYNC", "RED",
            "MEMBAR", "DEPBAR", "ERRBAR", "CCTL", "YIELD", "BPT", "KILL",
            "LDGDEPBAR", "ARRIVES", "SYNCS", "BREAK"}
 # opcodes whose first two operands are written (predicate pairs)
@@ -562,7 +562,8 @@ LATENCY_TESTS = {
     "lat_f2f_round_trip": "F2F.F32.F64", "lat_f2i": "F2I", "lat_i2f": "I2F",
     "lat_frnd": "FRND", "lat_f2i_f64": "F2I.F64", "lat_i2f_f64": "I2F.F64",
     "lat_rcp64h": "MUFU.RCP64H", "lat_rsq64h": "MUFU.RSQ64H",
-    "lat_lds": "LDS", "lat_lds64": "LDS.64"}
+    "lat_lds": "LDS", "lat_lds64": "LDS.64", "lat_shfl": "SHFL",
+    "lat_redux": "REDUX"}
 
 
 def latency_program() -> Path:

@@ -2,8 +2,9 @@
 
 The reference (satdump_tpu) and the port carry the same mid-stream state:
 the feedforward demod's `FFClockState`, the input stages' states
-(`FreqShiftState`, `DCBlockState`, `RationalResamplerState`) and the CADU
-chain's seam carries.
+(`FreqShiftState`, `DCBlockState`, `RationalResamplerState`), the CADU
+chain's seam carries and the streaming Viterbi's `ViterbiState` (whose
+decisions the port packs into one int64 word a step).
 These helpers turn numpy arrays (for example `np.asarray` of the
 reference's JAX arrays) into the port's state and back, so both packages
 can be started from the same point of a stream.
@@ -16,6 +17,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from satdump_tpu_torch.ops.fec.convolutional import (ViterbiState,
+                                                     pack_decisions,
+                                                     unpack_decisions)
 from satdump_tpu_torch.ops.ffsync import FFClockState
 from satdump_tpu_torch.ops.resamp import RationalResamplerState
 from satdump_tpu_torch.ops.stages import DCBlockState, FreqShiftState
@@ -110,3 +114,23 @@ def stage_state_to_numpy(state) -> dict:
     """A FreqShiftState, DCBlockState or RationalResamplerState ->
     {field: numpy array}."""
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def viterbi_state_from_numpy(pm, decisions,
+                             device: str | torch.device | None = None
+                             ) -> ViterbiState:
+    """The reference's ViterbiState arrays — pm (B, 64) float32 and
+    decisions (D, B, 64) bool — as the port's: decisions packed into (B, D)
+    int64 words, on `device`."""
+    dev = resolve_device(device)
+    dec = torch.as_tensor(np.array(decisions, np.bool_))
+    return ViterbiState(
+        pm=torch.as_tensor(np.array(pm, np.float32), device=dev),
+        decisions=pack_decisions(dec).to(dev))
+
+
+def viterbi_state_to_numpy(state: ViterbiState) -> dict:
+    """Inverse of viterbi_state_from_numpy: {"pm": (B, 64) float32,
+    "decisions": (D, B, 64) bool}."""
+    return {"pm": state.pm.detach().cpu().numpy(),
+            "decisions": unpack_decisions(state.decisions.cpu()).numpy()}

@@ -95,6 +95,12 @@ SLICE_MODULES = [
     "satdump_tpu_torch.tracking.tracker",
     "satdump_tpu_torch.tracking.scheduler",
     "satdump_tpu_torch.tracking.rotator",
+    "satdump_tpu_torch.parallel",
+    "satdump_tpu_torch.parallel.timeshard",
+    "satdump_tpu_torch.parallel.dryrun",
+    "satdump_tpu_torch.ops.cuda.viterbi_block",
+    "satdump_tpu_torch.bench",
+    "satdump_tpu_torch.tools.plain_viterbi_ab",
 ]
 
 
