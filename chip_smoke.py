@@ -46,7 +46,14 @@ Phases (any failure raises and the script exits non-zero):
     sample at the card's maximum SM clock, the plain version's time, and
     the latency bound: the loop-carried chain read off the SASS
     (tools/sass_chain.py, with the scoreboard latencies tools/op_latency.cu
-    measures) times the steps;
+    measures) times the steps. The Gardner walker (csrc/gardner_clock.cu),
+    on its own generator (GARD_SEED), at the JAX test's sps 100/42 and at
+    MetOp's 18/7: two blocks of 2^15 samples through the port's
+    gardner_clock_recovery on the card (its launches counted there) and
+    on the CPU, the state carried, then a 2^18 block through the wrapper,
+    each equal to the plain version (symbols, valid mask and state), its
+    SASS free of rounding FFMA, its time, cycles a symbol and latency
+    bound as above;
  5. a 12-CADU pass of MetOp AHRPT (6 Msps, sps 18/7) to CADU, and a
     METEOR-M2 LRPT pass (280 ksps, sps 35/9) carrying two strips of MSU-MR
     channels 1-3 to products, through the port on the card and on the CPU:
@@ -177,8 +184,10 @@ Phases (any failure raises and the script exits non-zero):
     a receiver on localhost;
  16. the xRIT image decoders and GOES-R GRB's products on the port's own
     codecs: ELEKTRO-L HRIT (K2 then K1) and GK-2A HRIT from baseband to
-    their images, GRB at 17.33 Msps to ABI and GLM products,
-    HimawariCast's decoder from a .cadu, every committed J2K fixture and
+    their images (GK-2A's J2K channel a 32 x 2,200 12-bit scene encoded
+    by the port's compress_j2k), GRB at 17.33 Msps to ABI and GLM products
+    (its ABI blocks encoded by the port too), HimawariCast's decoder from
+    a .cadu, every committed J2K fixture, the J2K encoder's host ms, and
     the islow IDCT, each on the card and the CPU, identical;
  17. the live path, on its own generator: MetOp AHRPT (6 Msps, sps 18/7;
     2^23 samples, 32 blocks) served unpaced by a RemoteIQServer thread at
@@ -823,7 +832,7 @@ def _walker_sass() -> dict:
         f"{json.dumps(measured)}; dropped (its SASS lacks the instruction): "
         f"{json.dumps(dropped)}")
     funcs, fp32 = [], set()
-    for src in ("sample_walk", "mm_clock"):
+    for src in ("sample_walk", "mm_clock", "gardner_clock"):
         for f in sc.parse_sass(_sass(src)):
             ffma = sum(x.mnemonic == "FFMA" for x in f.ins)
             rounding, inside = sc.rounding_ffma(f)
@@ -850,13 +859,13 @@ def _walker_sass() -> dict:
         f"{json.dumps(fixed, sort_keys=True)}")
     out = {}
     for f in funcs:
-        m = re.search(r"sample_walk_kernelILi(\d)E|mm_clock_kernelILb(\d)E",
-                      f.name)
+        m = re.search(r"sample_walk_kernelILi(\d)E|mm_clock_kernelILb(\d)E"
+                      r"|(gardner_clock_kernel)", f.name)
         if m is None:
             continue
         mode = ({"0": "agc", "1": "pll"}.get(m.group(1), int(m.group(1)))
-                if m.group(1) else ("mm complex" if m.group(2) == "1"
-                                    else "mm real"))
+                if m.group(1) else "gardner" if m.group(3) else
+                ("mm complex" if m.group(2) == "1" else "mm real"))
         lat = sc.Latency(fixed, measured)
         r = sc.chain(f, lat)
         log(f"SASS chain {mode}: {r['cycles_a_step']:.2f} cycles a step "
@@ -866,7 +875,7 @@ def _walker_sass() -> dict:
             f"{json.dumps(r['chain_opcodes'])}; at the smallest latency "
             f"{json.dumps(r['unmeasured'])}")
         out[mode] = r
-    if len(out) != 7:
+    if len(out) != 8:
         raise AssertionError(f"walk loops found for {sorted(map(str, out))}")
     return out
 
@@ -1054,6 +1063,88 @@ def phase_walkers(rng) -> dict:
     if not any(carried):
         raise AssertionError(f"no M&M case carried an inc past a block end "
                              f"({carried})")
+    res.update(_gardner_cases(np.random.default_rng(GARD_SEED), mhz,
+                              chains["gardner"]))
+    return res
+
+
+# the Gardner walker (phase 4b), on a generator of its own so that no later
+# phase's inputs move: (label, sps) at the JAX test's sps and at MetOp's,
+# complex mode, the demods' loop defaults (clock alpha 8.7e-3, omega limit
+# 0.005); neither package's pipelines call Gardner, so its launches come
+# from gardner_clock_recovery driven here
+GARD_SEED = SEED + 20
+GARD_CASES = (("gardner, sps 100/42", 100 / 42), ("gardner, sps 18/7", 18 / 7))
+GARD_ALPHA, GARD_LIMIT = 8.7e-3, 0.005
+
+
+def _gardner_cases(rng, mhz: float, chain: dict) -> dict:
+    """The Gardner walker against its plain version: for each GARD_CASES
+    sps two blocks of WALK_BLOCK through the port's gardner_clock_recovery
+    on the card (the launch count set to 0 just before and read just
+    after) and on the CPU, the state carried, then a WALK_TIMED block
+    through the wrapper: symbols, valid masks and state equal (tolerance
+    0), the block's device time, cycles a symbol and latency bound."""
+    import torch
+    from satdump_tpu_torch.ops import clock_recovery as cr
+    from satdump_tpu_torch.ops.cuda import gardner
+    from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
+    bank = torch.as_tensor(mm_interpolator_bank())
+    bank_dev = bank.cuda()
+    res = {}
+    for label, sps in GARD_CASES:
+        kw = dict(omega_mid=sps, gain_omega=GARD_ALPHA ** 2 / 4,
+                  gain_mu=GARD_ALPHA, omega_relative_limit=GARD_LIMIT)
+        x = _walk_input(rng, 2 * WALK_BLOCK, sps)
+        st = {d: cr.gardner_init(sps, device=d) for d in ("cuda", "cpu")}
+        out = {"cuda": [], "cpu": []}
+        torch.cuda.synchronize()
+        gardner.gardner_walk.launches = 0
+        for blk in range(2):
+            xb = torch.from_numpy(x[blk * WALK_BLOCK:(blk + 1) * WALK_BLOCK])
+            st["cuda"], y, v = cr.gardner_clock_recovery(st["cuda"],
+                                                         xb.cuda(), **kw)
+            out["cuda"].append((y, v, cr._gardner_pack(st["cuda"])))
+        torch.cuda.synchronize()
+        launches = gardner.gardner_walk.launches
+        if launches != 2:
+            raise AssertionError(f"{label}: gardner_clock_recovery launched "
+                                 f"the walker {launches} times in 2 blocks")
+        err, carried = 0.0, []
+        for blk in range(2):
+            xb = torch.from_numpy(x[blk * WALK_BLOCK:(blk + 1) * WALK_BLOCK])
+            st["cpu"], y, v = cr.gardner_clock_recovery(st["cpu"], xb, **kw)
+            carried.append(int(st["cpu"].inc))
+            err = max(err, _held(
+                f"walker {label} block {blk}", out["cuda"][blk],
+                (y, v, cr._gardner_pack(st["cpu"])), 0,
+                f"valid masks and state included, {int(v.sum())} symbols, "
+                f"inc carried {carried[-1]}"))
+        ext = torch.from_numpy(np.concatenate([np.zeros(7, np.complex64),
+                                               _walk_input(rng, WALK_TIMED,
+                                                           sps)]))
+        s0 = cr._gardner_pack(cr.gardner_init(sps, device="cpu"))
+        ext_dev, s0_dev = ext.cuda(), s0.cuda()
+        cap = int(np.ceil(WALK_TIMED / (sps * (1 - GARD_LIMIT)))) + 2
+        wk = dict(omega_mid=sps, gain_omega=GARD_ALPHA ** 2 / 4,
+                  gain_mu=GARD_ALPHA, omega_limit=GARD_LIMIT * sps,
+                  out_cap=cap)
+        out_cpu, plain_ms = _timed_plain(lambda: gardner.gardner_walk_plain(
+            ext, WALK_TIMED, s0, bank, **wk))
+        out_dev = gardner.gardner_walk(ext_dev, WALK_TIMED, s0_dev, bank_dev,
+                                       **wk)
+        nsyms = int(out_cpu[1].sum())
+        e = _held(f"walker {label} at {WALK_TIMED}", out_dev, out_cpu, 0,
+                  f"valid masks and state included, {nsyms} symbols of "
+                  f"out_cap {cap}")
+        t = {"max_abs_err": max(err, e), "plain_ms": plain_ms,
+             "launches": launches, "pipeline_launches": 0,
+             "ms": call_ms(lambda: gardner.gardner_walk(
+                 ext_dev, WALK_TIMED, s0_dev, bank_dev, **wk), WALK_REPS)}
+        # ext in, symbols and valid bytes out, the bank in
+        res[label] = _walk_timing(
+            t, WALK_TIMED, nsyms, (WALK_TIMED + 7) * 8 + cap * 9
+            + 128 * 8 * 4, mhz, chain, label)
     return res
 
 
@@ -3308,16 +3399,23 @@ def phase_host_decoders(rng, work: Path) -> dict:
 # (its file's: 3 Msym/s QPSK, sps 2, the strip path), both through K1, then
 # their data decoders; GOES-R GRB at 17,331,876 sps (2 sps) to ABI and GLM;
 # HimawariCast's decoder from a .cadu (its pipeline feeds it BBFrames, which
-# it reads as CADUs: ROADMAP S6); every committed J2K fixture; the islow
-# IDCT on the card and the host. Segments are cut in lines only: 32 lines
-# at MSU-GS's full-disk 2,784 columns (ELEKTRO) and at GK-2A LRIT's
-# full-disk 2,200 (GK-2A's JPEG and raw channels; its J2K channel at the
-# committed codestreams' 256); GRB's ABI blocks are 32 rows of MESO's 500.
+# it reads as CADUs: ROADMAP S6); every committed J2K fixture; the port's
+# J2K encoder; the islow IDCT on the card and the host. Segments are cut
+# in lines only: 32 lines at MSU-GS's full-disk 2,784 columns (ELEKTRO) and
+# at GK-2A LRIT's full-disk 2,200 (every GK-2A channel, its J2K channel a
+# 12-bit scene encoded by the port's compress_j2k); GRB's ABI blocks are
+# 32 rows of MESO's 500, cut from one 12-bit scene and encoded by the port.
 XRIT2_RATE, XRIT2_SEGMENTS, XRIT2_WIDTH, XRIT2_LINES = 3e6, 4, 2784, 32
 XRIT2_GK2A_RATE, XRIT2_GK2A_WIDTH, XRIT2_GK2A_LINES = 6e6, 2200, 32
 XRIT2_HIMAWARI_WIDTH, XRIT2_HIMAWARI_LINES = 1100, 11
 GRB2_RATE, GRB2_BLOCKS, GRB2_FLASHES = 2 * 8_665_938, 8, 5
 J2K_REPS = 5
+# the scenes the port's J2K encoder encodes (GRB's ABI blocks here, GK-2A's
+# SW038 in sim.gk2a_xrit_files) come from generators of their own, so phase
+# 16's other inputs stay as they were; the encoder is timed on a 32 x 2,200
+# 12-bit segment
+J2KE_SEED = SEED + 21
+J2KE_SHAPE = (32, 2200)
 # an 8-bit JPEG segment at a full-disk product's size for the IDCT's times
 XRIT2_IDCT_SHAPE = (464, 2784)
 XRIT2_SEED = SEED + 16
@@ -3385,9 +3483,13 @@ def _xrit2_gk2a(rng, work: Path) -> dict:
         ("gk2a_hrit.cadu", "*.png", "ADD/*"), need=("viterbi_re",))
     _check_cadus(res["cuda"]["cadu"], cadus, f"{label} (cuda)")
     d = w / "cuda" / "IMAGES" / "AMI"
-    want = {"WV069": truth["wv069"],
-            "SW038": np.concatenate([decompress_j2k(c)
-                                     for c in truth["j2k"]]),
+    # SW038: the 12-bit scene sent, at the decoder's 16-bit scale
+    if not np.array_equal(np.concatenate([decompress_j2k(c)
+                                          for c in truth["j2k"]]),
+                          truth["sw038"]):
+        raise AssertionError(f"{label}: SW038's codestreams do not decode "
+                             "to the scene")
+    want = {"WV069": truth["wv069"], "SW038": truth["sw038"] << 4,
             "VI006": np.concatenate([decompress_jpeg12(j)
                                      for j in truth["jpeg8"]]),
             "IR105": np.concatenate([decompress_jpeg12(j)
@@ -3396,11 +3498,12 @@ def _xrit2_gk2a(rng, work: Path) -> dict:
         if not np.array_equal(load_img(d / f"AMI_{ch}_20260101000000.png"),
                               img):
             raise AssertionError(f"{label}: {ch} differs from what was sent")
-    log(f"{label}: {len(cadus)} CADUs, {len(bb)} samples; 8 segments "
-        f"(DES-encrypted raw, 8- and 12-bit JPEG of {XRIT2_GK2A_LINES} x "
-        f"{XRIT2_GK2A_WIDTH}, J2K with and without the UHRIT preamble) and "
-        f"the additional-data file decoded; the encrypted and J2K images "
-        f"equal what was sent, the JPEG images the CPU's decode")
+    log(f"{label}: {len(cadus)} CADUs, {len(bb)} samples; 8 segments of "
+        f"{XRIT2_GK2A_LINES} x {XRIT2_GK2A_WIDTH} (DES-encrypted raw, 8- and "
+        f"12-bit JPEG, 12-bit J2K by the port's encoder with and without the "
+        f"UHRIT preamble, {sum(map(len, truth['j2k']))} bytes) and the "
+        f"additional-data file decoded; the encrypted and J2K images equal "
+        f"what was sent, the JPEG images the CPU's decode")
     return res
 
 
@@ -3436,20 +3539,28 @@ def _xrit2_himawari(rng, work: Path) -> float:
 
 def _grb2_pass(rng, work: Path) -> dict:
     """16.4 GOES-R GRB at 2 sps: ABI MESO-1 channel 13 in J2K blocks of 32
-    rows at 500 columns and a GLM flash frame, baseband -> products on the
-    card and the CPU."""
+    rows at 500 columns (GRB2_BLOCKS blocks of one 12-bit scene, encoded
+    by the port's compress_j2k) and a GLM flash frame, baseband ->
+    products on the card and the CPU."""
     from satdump_tpu_torch import sim
     from satdump_tpu_torch.image.io import load_img
-    from satdump_tpu_torch.image.j2k import decompress_j2k
+    from satdump_tpu_torch.image.j2k import compress_j2k, decompress_j2k
     from satdump_tpu_torch.io import write_baseband
     from satdump_tpu_torch.models.goes_grb import (ABI_CHANNEL_PARAMS,
                                                    GLM_FLASH,
                                                    parse_glm_frame)
     from satdump_tpu_torch.ops.dvbs2 import tx
+    depth = ABI_CHANNEL_PARAMS[13][1]
+    scene = sim.smooth_scene(np.random.default_rng(J2KE_SEED),
+                             32 * GRB2_BLOCKS, 500, depth)
     blocks = []
     for k in range(GRB2_BLOCKS):
-        cs = sim.j2k_fixture(f"grb_abi_c13_{k % 3}.jp2")
-        blocks.append((cs, decompress_j2k(cs)))
+        rows = scene[32 * k: 32 * (k + 1)]
+        cs = compress_j2k(rows)
+        if not np.array_equal(decompress_j2k(cs), rows):
+            raise AssertionError(f"GRB block {k}: the port's J2K stream "
+                                 "does not decode to its rows")
+        blocks.append((cs, rows))
     cadus, truth = sim.grb_abi_cadus(rng, blocks, glm_flashes=GRB2_FLASHES)
     # fill behind the data: the extractor's look-ahead ends two BBFrames
     # before the stream does
@@ -3466,7 +3577,6 @@ def _grb2_pass(rng, work: Path) -> dict:
         (("baseband", "bbframe", dict(PASS_PARAMS, samplerate=GRB2_RATE)),
          ("bbframe", "cadu", {}), ("cadu", "products", {})),
         ("goes_grb.cadu", "*.png", "*.json"))
-    depth = ABI_CHANNEL_PARAMS[13][1]
     png = next((w / "cuda" / "ABI" / "MESO1").rglob("ABI_MESO1_13_*.png"))
     img = load_img(png)
     n = len(truth["image"])
@@ -3479,8 +3589,9 @@ def _grb2_pass(rng, work: Path) -> dict:
         raise AssertionError(f"{label}: the ABI image or the GLM records "
                              "differ from what was sent")
     log(f"{label}: {len(cadus)} data CADUs, {len(bb)} samples; "
-        f"{GRB2_BLOCKS} ABI J2K blocks ({n} x 500) and {GRB2_FLASHES} GLM "
-        f"flashes equal to what was sent")
+        f"{GRB2_BLOCKS} ABI J2K blocks of one {depth}-bit scene ({n} x 500, "
+        f"encoded by the port) and {GRB2_FLASHES} GLM flashes equal to what "
+        f"was sent")
     return res
 
 
@@ -3515,6 +3626,35 @@ def _j2k_fixtures() -> dict:
         f"{split['tier2']:.3f} ms, tier-1 {split['tier1']:.3f} ms, inverse "
         f"DWT {split['idwt']:.3f} ms (host, mean of {J2K_REPS})")
     return dict(split, total=total, fixtures=len(manifest))
+
+
+def _j2k_encoder() -> dict:
+    """16.5b the port's J2K encoder on the host: a J2KE_SHAPE 12-bit
+    segment (GK-2A's SW038 at full width) encoded lossless (5/3) and 9/7,
+    each the mean of J2K_REPS, its bytes, and its decode: exact (5/3),
+    within the quantization (9/7)."""
+    from satdump_tpu_torch import sim
+    from satdump_tpu_torch.image import j2k
+    img = sim.smooth_scene(np.random.default_rng(J2KE_SEED + 1),
+                           *J2KE_SHAPE, 12)
+    out = {}
+    for name, lossless in (("53", True), ("97", False)):
+        t0 = time.perf_counter()
+        for _ in range(J2K_REPS):
+            data = j2k.compress_j2k(img, lossless=lossless)
+        ms = (time.perf_counter() - t0) / J2K_REPS * 1e3
+        err = int(np.abs(j2k.decompress_j2k(data).astype(np.int64)
+                         - img).max())
+        if err > (0 if lossless else 4):
+            raise AssertionError(f"J2K encoder {name}: its decode is {err} "
+                                 "levels off")
+        out[f"{name}_ms"], out[f"{name}_bytes"] = ms, len(data)
+        out[f"{name}_max_err"] = err
+    log(f"J2K encoder (host), a {J2KE_SHAPE[0]} x {J2KE_SHAPE[1]} 12-bit "
+        f"segment: 5/3 {out['53_ms']:.2f} ms ({out['53_bytes']} bytes, "
+        f"exact), 9/7 {out['97_ms']:.2f} ms ({out['97_bytes']} bytes, within "
+        f"{out['97_max_err']} levels); mean of {J2K_REPS}")
+    return out
 
 
 def _xrit2_idct(rng) -> dict:
@@ -3571,6 +3711,7 @@ def phase_xrit_grb(rng, work: Path) -> dict:
         out[f"{key}_launches"] = _launched(res["launches"])
     out["himawari_s"] = _xrit2_himawari(rng, work)
     out["j2k_ms"] = _j2k_fixtures()
+    out["j2k_encoder"] = _j2k_encoder()
     out["idct"] = _xrit2_idct(rng)
     log(f"xRIT / GRB products phase {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -4935,6 +5076,11 @@ def main() -> int:
                      if k.startswith("costas"))
     mm_err = max(r["max_abs_err"] for k, r in walkers.items()
                  if k.startswith("mm"))
+    # Gardner's launches: gardner_clock_recovery driven in phase 4b (no
+    # pipeline of either package calls it)
+    launches["gardner_walk"] = sum(walkers[k]["launches"]
+                                   for k, _ in GARD_CASES)
+    gard_err = max(walkers[k]["max_abs_err"] for k, _ in GARD_CASES)
     sw_src, sw_rep = "satdump_tpu_torch/csrc/sample_walk.cu", "satdump_tpu/ops"
     hrpt_walk = hrpt["noaa_hrpt_walker_launches"]
     rows = []
@@ -4974,6 +5120,11 @@ def main() -> int:
              f"{sw_rep}/clock_recovery.py:132",
              dict(walkers["mm complex, sps 8"], max_abs_err=mm_err,
                   hrpt_launches=hrpt_walk["mm_walk"])),
+            # the Gardner walker replaces gardner_clock_recovery's lax.scan
+            # (no Pallas); its row is at a 2^18 block at MetOp's sps 18/7
+            ("gardner_walk", "satdump_tpu_torch/csrc/gardner_clock.cu",
+             f"{sw_rep}/clock_recovery.py:227",
+             dict(walkers["gardner, sps 18/7"], max_abs_err=gard_err)),
             # the max-log BCJR replaces the lax.scan recursions of
             # _bcjr_maxlog (no Pallas); its row is at base 1115 with
             # JUICE's 58-frame batch, its launches JUICE's pass's
@@ -4994,7 +5145,8 @@ def main() -> int:
                   "cycles_per_step", "chain_cycles_per_step",
                   "grb_launches", "fy3d_launches", "gac_launches",
                   "hrpt_launches", "jpss_launches", "xrit_launches",
-                  "live_launches", "main_path_launches"):
+                  "live_launches", "main_path_launches",
+                  "pipeline_launches"):
             if k in r:
                 row[k] = r[k]
         rows.append(row)

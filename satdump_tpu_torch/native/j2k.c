@@ -396,15 +396,22 @@ static inline int ncontrib(const T1 *t, int x, int y, int dx, int dy) {
     return (f & F_NEG) ? -1 : 1;
 }
 
-static int decode_sign(T1 *t, int x, int y) {
+/* the sign's context of (x, y), and in *xr the bit it is XORed with */
+static int sign_ctx(const T1 *t, int x, int y, int *xr) {
     int h = ncontrib(t, x, y, -1, 0) + ncontrib(t, x, y, 1, 0);
     int v = ncontrib(t, x, y, 0, -1) + ncontrib(t, x, y, 0, 1);
     h = h > 0 ? 1 : h < 0 ? -1 : 0;
     v = v > 0 ? 1 : v < 0 ? -1 : 0;
-    int ctx, xr = 0;
+    int ctx;
+    *xr = 0;
     if (h == 1) ctx = v == 1 ? 13 : v == 0 ? 12 : 11;
-    else if (h == 0) { ctx = v ? 10 : 9; xr = v == -1; }
-    else { ctx = v == 1 ? 11 : v == 0 ? 12 : 13; xr = 1; }
+    else if (h == 0) { ctx = v ? 10 : 9; *xr = v == -1; }
+    else { ctx = v == 1 ? 11 : v == 0 ? 12 : 13; *xr = 1; }
+    return ctx;
+}
+
+static int decode_sign(T1 *t, int x, int y) {
+    int xr, ctx = sign_ctx(t, x, y, &xr);
     return mq_decode(&t->mq, ctx) ^ xr;
 }
 
@@ -489,6 +496,7 @@ typedef struct { /* a tag tree */
     int w, h, nlev, n;
     int lw[40], lh[40], off[40];
     int *val, *low;
+    uint8_t *known;    /* the encoder's: the node's value was sent */
 } Tag;
 
 typedef struct {
@@ -542,6 +550,7 @@ static int tag_init(Tag *t, int w, int h) {
 static void tag_free(Tag *t) {
     free(t->val);
     free(t->low);
+    free(t->known);
 }
 
 /* ------------------------------------------------- packet header bit I/O */
@@ -1349,3 +1358,705 @@ done:
     free(tiles);
     return rc;
 }
+
+/* ================================================================ encoder
+ *
+ * j2k_encode writes one 8- or 16-bit component as a JP2 file with the
+ * coding parameters that OpenJPEG (through Pillow) writes by default: one
+ * tile, LRCP, one quality layer, no MCT, 64 x 64 code-blocks, no
+ * precincts, no SOP / EPH, code-block style 0, min(5, floor(log2(min(w,
+ * h)))) decomposition levels, guard bits 2; the reversible 5/3 without
+ * quantization or the irreversible 9/7 with OpenJPEG's step sizes. Every
+ * coding pass of every code-block goes into the one layer (no rate
+ * control). The forward transforms are the exact inverses of the
+ * decoder's (the 9/7's scaling included), so a lossless stream decodes to
+ * the input and a 9/7 one to within its quantization.
+ */
+
+/* a growable byte buffer */
+typedef struct {
+    uint8_t *d;
+    size_t n, cap;
+    int oom;
+} Buf;
+
+static int buf_reserve(Buf *b, size_t more) {
+    if (b->oom) return -1;
+    if (b->n + more <= b->cap) return 0;
+    size_t c = b->cap ? b->cap : 256;
+    while (b->n + more > c) c *= 2;
+    uint8_t *nd = realloc(b->d, c);
+    if (!nd) { b->oom = 1; return -1; }
+    b->d = nd;
+    b->cap = c;
+    return 0;
+}
+
+static void put8(Buf *b, unsigned v) {
+    if (!buf_reserve(b, 1)) b->d[b->n++] = (uint8_t)v;
+}
+static void put16(Buf *b, unsigned v) { put8(b, v >> 8); put8(b, v & 0xFF); }
+static void put32(Buf *b, uint32_t v) { put16(b, v >> 16); put16(b, v & 0xFFFF); }
+static void putn(Buf *b, const void *src, size_t n) {
+    if (n && !buf_reserve(b, n)) {
+        memcpy(b->d + b->n, src, n);
+        b->n += n;
+    }
+}
+
+/* ---------------------------------------------------- the MQ encoder (C.2) */
+typedef struct {
+    uint32_t a, c;
+    int ct;
+    Buf *out;          /* out->d[0] is a zero byte ahead of the data */
+    uint8_t idx[NCTX], mps[NCTX];
+} MQE;
+
+static void mqe_reset_ctx(MQE *m) {
+    memset(m->idx, 0, sizeof m->idx);
+    memset(m->mps, 0, sizeof m->mps);
+    m->idx[CTX_UNI] = 46;
+    m->idx[CTX_RL] = 3;
+    m->idx[0] = 4;
+}
+
+static void mqe_init(MQE *m, Buf *out) {
+    m->a = 0x8000;
+    m->c = 0;
+    m->ct = 12;
+    m->out = out;
+    out->n = 0;
+    put8(out, 0);       /* the byte "before" the data: never 0xFF */
+}
+
+/* the last byte written (the zero byte ahead of the data at first) */
+#define MQ_B(m) ((m)->out->d[(m)->out->n - 1])
+
+static void mqe_byteout(MQE *m) {
+    if (m->out->oom) return;
+    if (MQ_B(m) == 0xFF) {
+        put8(m->out, m->c >> 20);
+        m->c &= 0xFFFFF;
+        m->ct = 7;
+    } else if (!(m->c & 0x8000000)) {
+        put8(m->out, m->c >> 19);
+        m->c &= 0x7FFFF;
+        m->ct = 8;
+    } else {
+        MQ_B(m)++;                        /* the carry */
+        if (MQ_B(m) == 0xFF) {
+            m->c &= 0x7FFFFFF;
+            put8(m->out, m->c >> 20);
+            m->c &= 0xFFFFF;
+            m->ct = 7;
+        } else {
+            put8(m->out, m->c >> 19);
+            m->c &= 0x7FFFF;
+            m->ct = 8;
+        }
+    }
+}
+
+static void mqe_renorm(MQE *m) {
+    do {
+        m->a <<= 1;
+        m->c <<= 1;
+        if (!--m->ct) mqe_byteout(m);
+    } while (!(m->a & 0x8000));
+}
+
+static void mqe_encode(MQE *m, int cx, int d) {
+    int i = m->idx[cx];
+    uint32_t qe = QE[i];
+    m->a -= qe;
+    if (d == m->mps[cx]) {                /* CODEMPS */
+        if (m->a & 0x8000) {
+            m->c += qe;
+            return;
+        }
+        if (m->a < qe) m->a = qe;
+        else m->c += qe;
+        m->idx[cx] = NMPS[i];
+    } else {                              /* CODELPS */
+        if (m->a < qe) m->c += qe;
+        else m->a = qe;
+        if (SWITCH[i]) m->mps[cx] = (uint8_t)(1 - m->mps[cx]);
+        m->idx[cx] = NLPS[i];
+    }
+    mqe_renorm(m);
+}
+
+/* FLUSH (C.2.9); returns the code-block's bytes (a last 0xFF dropped) */
+static size_t mqe_flush(MQE *m) {
+    uint32_t t = m->c + m->a;             /* SETBITS */
+    m->c |= 0xFFFF;
+    if (m->c >= t) m->c -= 0x8000;
+    m->c <<= m->ct;
+    mqe_byteout(m);
+    m->c <<= m->ct;
+    mqe_byteout(m);
+    size_t n = m->out->n - 1;
+    if (n && m->out->d[m->out->n - 1] == 0xFF) n--;
+    return n;
+}
+
+/* ------------------------------------------- tier-1: EBCOT's passes (D) */
+typedef struct {
+    T1 t;                 /* the flags, the geometry and the contexts */
+    const uint32_t *mag;  /* |coefficient| of each sample */
+    MQE mq;
+} T1E;
+
+#define EBIT(e, x, y, p) ((int)(((e)->mag[(y) * (e)->t.w + (x)] >> (p)) & 1))
+
+static void enc_sig(T1E *e, int x, int y) {
+    T1 *t = &e->t;
+    int xr, ctx = sign_ctx(t, x, y, &xr);
+    int neg = (FL(t, x, y) & F_NEG) != 0;
+    mqe_encode(&e->mq, ctx, neg ^ xr);
+    FL(t, x, y) |= F_SIG;
+}
+
+static void enc_pass_sig(T1E *e, int p) {
+    T1 *t = &e->t;
+    for (int y0 = 0; y0 < t->h; y0 += 4)
+        for (int x = 0; x < t->w; x++)
+            for (int y = y0; y < y0 + 4 && y < t->h; y++) {
+                uint8_t *f = &FL(t, x, y);
+                if ((*f & F_SIG) || !any_sig(t, x, y)) continue;
+                *f |= F_VIS;
+                int b = EBIT(e, x, y, p);
+                mqe_encode(&e->mq, zc_ctx(t, x, y), b);
+                if (b) enc_sig(e, x, y);
+            }
+}
+
+static void enc_pass_ref(T1E *e, int p) {
+    T1 *t = &e->t;
+    for (int y0 = 0; y0 < t->h; y0 += 4)
+        for (int x = 0; x < t->w; x++)
+            for (int y = y0; y < y0 + 4 && y < t->h; y++) {
+                uint8_t *f = &FL(t, x, y);
+                if ((*f & (F_SIG | F_VIS)) != F_SIG) continue;
+                int ctx = (*f & F_REF) ? 16 : any_sig(t, x, y) ? 15 : 14;
+                mqe_encode(&e->mq, ctx, EBIT(e, x, y, p));
+                *f |= F_REF;
+            }
+}
+
+static void enc_pass_clean(T1E *e, int p) {
+    T1 *t = &e->t;
+    for (int y0 = 0; y0 < t->h; y0 += 4)
+        for (int x = 0; x < t->w; x++) {
+            int y = y0;
+            if (y0 + 4 <= t->h) {
+                int rl = 1;
+                for (int k = 0; k < 4 && rl; k++)
+                    if ((FL(t, x, y0 + k) & (F_SIG | F_VIS))
+                        || any_sig(t, x, y0 + k))
+                        rl = 0;
+                if (rl) {
+                    int r = 0;
+                    while (r < 4 && !EBIT(e, x, y0 + r, p)) r++;
+                    mqe_encode(&e->mq, CTX_RL, r < 4);
+                    if (r == 4) continue;
+                    mqe_encode(&e->mq, CTX_UNI, r >> 1);
+                    mqe_encode(&e->mq, CTX_UNI, r & 1);
+                    y = y0 + r;
+                    enc_sig(e, x, y);
+                    y++;
+                }
+            }
+            for (; y < y0 + 4 && y < t->h; y++) {
+                uint8_t *f = &FL(t, x, y);
+                if (*f & (F_SIG | F_VIS)) continue;
+                int b = EBIT(e, x, y, p);
+                mqe_encode(&e->mq, zc_ctx(t, x, y), b);
+                if (b) enc_sig(e, x, y);
+            }
+        }
+    for (int y = 0; y < t->h; y++)
+        for (int x = 0; x < t->w; x++) FL(t, x, y) &= (uint8_t)~F_VIS;
+}
+
+/* one code-block of w x h magnitudes and signs (1: negative): all its
+ * passes into c->data; c->passes 0 when every magnitude is 0 */
+static int encode_cblk(Cblk *c, const Band *B, T1E *e, const uint32_t *mag,
+                       const uint8_t *neg, int w, int h, Buf *mqbuf,
+                       Err *err) {
+    uint32_t mx = 0;
+    for (int i = 0; i < w * h; i++) mx |= mag[i];
+    int nbp = 0;
+    while (nbp < 32 && (mx >> nbp)) nbp++;
+    c->passes = 0;
+    c->len = 0;
+    if (!nbp) return 0;
+    if (nbp > B->mb)
+        return fail(err, -8, "a coefficient needs %d magnitude bit planes "
+                    "of the band's %d", nbp, B->mb);
+    c->zbp = B->mb - nbp;
+    T1 *t = &e->t;
+    t->w = w;
+    t->h = h;
+    t->orient = B->orient;
+    t->vsc = 0;
+    e->mag = mag;
+    memset(t->f, 0, (size_t)(w + 2) * (h + 2));
+    for (int y = 0; y < h; y++)
+        for (int x = 0; x < w; x++)
+            if (neg[y * w + x]) FL(t, x, y) |= F_NEG;
+    mqe_init(&e->mq, mqbuf);
+    mqe_reset_ctx(&e->mq);
+    enc_pass_clean(e, nbp - 1);
+    for (int p = nbp - 2; p >= 0; p--) {
+        enc_pass_sig(e, p);
+        enc_pass_ref(e, p);
+        enc_pass_clean(e, p);
+    }
+    size_t n = mqe_flush(&e->mq);
+    if (mqbuf->oom) return fail(err, -4, "out of memory");
+    c->passes = 3 * nbp - 2;
+    c->data = malloc(n ? n : 1);
+    if (!c->data) return fail(err, -4, "out of memory");
+    memcpy(c->data, mqbuf->d + 1, n);
+    c->len = n;
+    c->cap = n;
+    return 0;
+}
+
+/* -------------------------------------------- tier-2: packet headers (B) */
+typedef struct {
+    Buf *out;
+    unsigned buf;
+    int ct;
+} BioW;
+
+static void biow_byteout(BioW *b) {
+    b->buf = (b->buf << 8) & 0xFFFF;
+    b->ct = b->buf == 0xFF00 ? 7 : 8;   /* a bit stuffed after 0xFF */
+    put8(b->out, b->buf >> 8);
+}
+
+static void biow_bit(BioW *b, int v) {
+    if (!b->ct) biow_byteout(b);
+    b->ct--;
+    b->buf |= (unsigned)(v & 1) << b->ct;
+}
+
+static void biow_bits(BioW *b, unsigned v, int n) {
+    while (n--) biow_bit(b, (int)((v >> n) & 1));
+}
+
+static void biow_flush(BioW *b) {
+    biow_byteout(b);
+    if (b->ct == 7) biow_byteout(b);    /* never end on 0xFF */
+}
+
+/* the tag tree's nodes above the leaves: the least of their children */
+static int tag_fill(Tag *t, const int *leaves) {
+    t->known = calloc((size_t)(t->n ? t->n : 1), 1);
+    if (!t->known) return -1;
+    for (int i = 0; i < t->w * t->h; i++) t->val[i] = leaves[i];
+    for (int l = 1; l < t->nlev; l++)
+        for (int y = 0; y < t->lh[l]; y++)
+            for (int x = 0; x < t->lw[l]; x++) {
+                int m = 1 << 30;
+                for (int dy = 0; dy < 2; dy++)
+                    for (int dx = 0; dx < 2; dx++) {
+                        int cx = 2 * x + dx, cy = 2 * y + dy;
+                        if (cx >= t->lw[l - 1] || cy >= t->lh[l - 1]) continue;
+                        int v = t->val[t->off[l - 1] + cy * t->lw[l - 1] + cx];
+                        if (v < m) m = v;
+                    }
+                t->val[t->off[l] + y * t->lw[l] + x] = m;
+            }
+    return 0;
+}
+
+/* the leaf's value against thresholds up to thr (B.10.2), root first */
+static void tag_encode(Tag *t, BioW *b, int leaf, int thr) {
+    int path[40];
+    int x = leaf % t->w, y = leaf / t->w;
+    for (int l = 0; l < t->nlev; l++) {
+        path[l] = t->off[l] + y * t->lw[l] + x;
+        x >>= 1;
+        y >>= 1;
+    }
+    int low = 0;
+    for (int l = t->nlev - 1; l >= 0; l--) {
+        int k = path[l];
+        if (low > t->low[k]) t->low[k] = low;
+        else low = t->low[k];
+        while (low < thr) {
+            if (low >= t->val[k]) {
+                if (!t->known[k]) {
+                    biow_bit(b, 1);
+                    t->known[k] = 1;
+                }
+                break;
+            }
+            biow_bit(b, 0);
+            low++;
+        }
+        t->low[k] = low;
+    }
+}
+
+static void put_passes(BioW *b, int n) {
+    if (n == 1) biow_bits(b, 0, 1);
+    else if (n == 2) biow_bits(b, 2, 2);
+    else if (n <= 5) biow_bits(b, 0xC | (unsigned)(n - 3), 4);
+    else if (n <= 36) biow_bits(b, 0x1E0 | (unsigned)(n - 6), 9);
+    else biow_bits(b, 0xFF80 | (unsigned)(n - 37), 16);
+}
+
+/* the one layer's packet of (resolution r, precinct k) */
+static int write_packet(Tile *t, int r, int k, Buf *out, Err *e) {
+    Res *R = &t->res[r];
+    BioW b = {out, 0, 8};
+    int any = 0;
+    for (int bb = 0; bb < R->nb; bb++) {
+        PrecBand *pb = &R->prec[k * R->nb + bb];
+        for (int i = 0; i < pb->cw * pb->ch; i++) any |= pb->cb[i].passes > 0;
+    }
+    biow_bit(&b, any);
+    for (int bb = 0; any && bb < R->nb; bb++) {
+        PrecBand *pb = &R->prec[k * R->nb + bb];
+        int ncb = pb->cw * pb->ch;
+        if (!ncb) continue;
+        int *leaves = malloc(sizeof(int) * (size_t)ncb);
+        if (!leaves) return fail(e, -4, "out of memory");
+        for (int i = 0; i < ncb; i++) leaves[i] = pb->cb[i].passes ? 0 : 1;
+        int rc = tag_fill(&pb->incl, leaves);
+        for (int i = 0; i < ncb && !rc; i++)
+            leaves[i] = pb->cb[i].passes ? pb->cb[i].zbp : R->band[bb].mb;
+        if (!rc) rc = tag_fill(&pb->zbp, leaves);
+        free(leaves);
+        if (rc) return fail(e, -4, "out of memory");
+        for (int i = 0; i < ncb; i++) {
+            Cblk *c = &pb->cb[i];
+            tag_encode(&pb->incl, &b, i, 1);
+            if (!c->passes) continue;
+            tag_encode(&pb->zbp, &b, i, c->zbp + 1);
+            put_passes(&b, c->passes);
+            int fl = floorlog2((unsigned)c->passes);
+            while ((uint64_t)c->len >> (c->lblock + fl)) {
+                biow_bit(&b, 1);
+                c->lblock++;
+            }
+            biow_bit(&b, 0);
+            biow_bits(&b, (unsigned)c->len, c->lblock + fl);
+        }
+    }
+    biow_flush(&b);
+    for (int bb = 0; any && bb < R->nb; bb++) {
+        PrecBand *pb = &R->prec[k * R->nb + bb];
+        for (int i = 0; i < pb->cw * pb->ch; i++)
+            putn(out, pb->cb[i].data, pb->cb[i].len);
+    }
+    return out->oom ? fail(e, -4, "out of memory") : 0;
+}
+
+/* ----------------------------------------------------- forward DWT (F.4) */
+/* one line of n samples, interleaved in place (cas 0), then the low half
+ * ahead of the high half */
+static void fdwt53_1d(int32_t *x, int n, int32_t *tmp) {
+    if (n < 2) return;
+#define XF(i) x[(i) < 0 ? -(i) : (i) >= n ? 2 * (n - 1) - (i) : (i)]
+    for (int i = 1; i < n; i += 2) x[i] -= (XF(i - 1) + XF(i + 1)) >> 1;
+    for (int i = 0; i < n; i += 2) x[i] += (XF(i - 1) + XF(i + 1) + 2) >> 2;
+#undef XF
+    int sn = (n + 1) / 2;
+    for (int i = 0; i < n; i++) tmp[(i & 1) ? sn + i / 2 : i / 2] = x[i];
+    memcpy(x, tmp, sizeof(int32_t) * (size_t)n);
+}
+
+static void fdwt97_1d(float *x, int n, float *tmp) {
+    if (n < 2) return;
+#define XF(i) x[(i) < 0 ? -(i) : (i) >= n ? 2 * (n - 1) - (i) : (i)]
+    const float c[4] = {ALPHA, BETA, GAMMA, DELTA};
+    for (int s = 0; s < 4; s++)
+        for (int i = (s & 1) ? 0 : 1; i < n; i += 2)
+            x[i] += (XF(i - 1) + XF(i + 1)) * c[s];
+#undef XF
+    int sn = (n + 1) / 2;
+    for (int i = 0; i < n; i++)
+        tmp[(i & 1) ? sn + i / 2 : i / 2] = (i & 1) ? x[i] / TWO_INVK
+                                                    : x[i] / KK;
+    memcpy(x, tmp, sizeof(float) * (size_t)n);
+}
+
+/* NL levels over the (h, w) plane: columns, then rows, each level on the
+ * previous level's low part (the decoder's layout) */
+static void fdwt(void *plane, int w, int h, int nl, int rev, void *tmp,
+                 void *col) {
+    for (int l = 0; l < nl; l++) {
+        int rw = (int)ceilpow2(w, l), rh = (int)ceilpow2(h, l);
+        for (int x = 0; x < rw; x++) {
+            if (rev) {
+                int32_t *p = plane, *cc = col;
+                for (int y = 0; y < rh; y++) cc[y] = p[(size_t)y * w + x];
+                fdwt53_1d(cc, rh, tmp);
+                for (int y = 0; y < rh; y++) p[(size_t)y * w + x] = cc[y];
+            } else {
+                float *p = plane, *cc = col;
+                for (int y = 0; y < rh; y++) cc[y] = p[(size_t)y * w + x];
+                fdwt97_1d(cc, rh, tmp);
+                for (int y = 0; y < rh; y++) p[(size_t)y * w + x] = cc[y];
+            }
+        }
+        for (int y = 0; y < rh; y++) {
+            if (rev) fdwt53_1d((int32_t *)plane + (size_t)y * w, rw, tmp);
+            else fdwt97_1d((float *)plane + (size_t)y * w, rw, tmp);
+        }
+    }
+}
+
+/* --------------------------------------------- quantization step sizes */
+/* OpenJPEG 2.5.4's 9/7 step sizes (its opj_dwt_calc_explicit_stepsizes),
+ * as (exponent - precision + 8, mantissa): read off the QCD segments that
+ * Pillow 12.1 writes for 8- and 16-bit images of 1 to 5 levels (the
+ * exponent moves with the precision, the mantissa does not). The LL band
+ * by the number of levels; the detail bands by their level (1: the
+ * finest), HL and LH alike, then HH. */
+static const uint8_t Q97_LL_E[6] = {8, 9, 11, 12, 13, 14};
+static const uint16_t Q97_LL_M[6] = {0, 36, 1874, 1848, 1824, 1824};
+static const uint8_t Q97_D_E[5][2] = {{10, 10}, {10, 10}, {12, 12},
+                                      {13, 13}, {14, 14}};
+static const uint16_t Q97_D_M[5][2] = {{2003, 1890}, {5, 71}, {1872, 1896},
+                                       {1792, 1760}, {1776, 1728}};
+#define ENC_MAXNL 5
+
+static void enc_style(Style *s, int nl, int rev, int prec) {
+    memset(s, 0, sizeof *s);
+    s->nl = nl;
+    s->xcb = s->ycb = 6;
+    s->rev = rev;
+    for (int r = 0; r <= nl; r++) s->ppx[r] = s->ppy[r] = 15;
+    s->layers = 1;
+    s->guard = 2;
+    s->qstyle = rev ? 0 : 2;
+    s->nq = 3 * nl + 1;
+    for (int k = 0; k < s->nq; k++) {
+        int r = k ? (k - 1) / 3 + 1 : 0, b = k ? (k - 1) % 3 : 0;
+        if (rev) {   /* no quantization: precision + the band's gain */
+            s->eps[k] = prec + (r ? (b == 2 ? 2 : 1) : 0);
+        } else if (!r) {
+            s->eps[k] = prec - 8 + Q97_LL_E[nl];
+            s->mu[k] = Q97_LL_M[nl];
+        } else {
+            int lev = nl - r + 1, hh = b == 2;
+            s->eps[k] = prec - 8 + Q97_D_E[lev - 1][hh];
+            s->mu[k] = Q97_D_M[lev - 1][hh];
+        }
+    }
+}
+
+/* ------------------------------------------------------------- the file */
+static void put_codestream_header(Buf *o, const Style *s, int w, int h,
+                                  int prec) {
+    put16(o, 0xFF4F);                     /* SOC */
+    put16(o, 0xFF51);                     /* SIZ */
+    put16(o, 41);
+    put16(o, 0);
+    put32(o, (uint32_t)w);
+    put32(o, (uint32_t)h);
+    put32(o, 0);
+    put32(o, 0);
+    put32(o, (uint32_t)w);                /* one tile */
+    put32(o, (uint32_t)h);
+    put32(o, 0);
+    put32(o, 0);
+    put16(o, 1);
+    put8(o, (unsigned)(prec - 1));
+    put8(o, 1);
+    put8(o, 1);
+    put16(o, 0xFF52);                     /* COD */
+    put16(o, 12);
+    put8(o, 0);                           /* no precincts, SOP or EPH */
+    put8(o, 0);                           /* LRCP */
+    put16(o, 1);                          /* one layer */
+    put8(o, 0);                           /* no MCT */
+    put8(o, (unsigned)s->nl);
+    put8(o, (unsigned)(s->xcb - 2));
+    put8(o, (unsigned)(s->ycb - 2));
+    put8(o, 0);                           /* code-block style */
+    put8(o, (unsigned)s->rev);
+    put16(o, 0xFF5C);                     /* QCD */
+    put16(o, (unsigned)(3 + (s->rev ? 1 : 2) * s->nq));
+    put8(o, (unsigned)(s->guard << 5 | s->qstyle));
+    for (int k = 0; k < s->nq; k++) {
+        if (s->rev) put8(o, (unsigned)(s->eps[k] << 3));
+        else put16(o, (unsigned)(s->eps[k] << 11 | s->mu[k]));
+    }
+}
+
+static void put_jp2_header(Buf *o, int w, int h, int prec, size_t cslen) {
+    static const uint8_t sig[12] = {0, 0, 0, 12, 'j', 'P', ' ', ' ',
+                                    0x0D, 0x0A, 0x87, 0x0A};
+    putn(o, sig, 12);
+    put32(o, 20);
+    putn(o, "ftypjp2 ", 8);
+    put32(o, 0);
+    putn(o, "jp2 ", 4);
+    put32(o, 45);
+    putn(o, "jp2h", 4);
+    put32(o, 22);
+    putn(o, "ihdr", 4);
+    put32(o, (uint32_t)h);
+    put32(o, (uint32_t)w);
+    put16(o, 1);                          /* one component */
+    put8(o, (unsigned)(prec - 1));
+    put8(o, 7);                           /* compression: JPEG 2000 */
+    put8(o, 0);
+    put8(o, 0);
+    put32(o, 15);
+    putn(o, "colr", 4);
+    put8(o, 1);                           /* enumerated */
+    put8(o, 0);
+    put8(o, 0);
+    put32(o, 17);                         /* greyscale */
+    put32(o, (uint32_t)(8 + cslen));
+    putn(o, "jp2c", 4);
+}
+
+/* img: (h, w) samples, uint8 (prec 8) or uint16 (prec 16), row-major.
+ * *out (freed by j2k_free) holds *outlen bytes of a JP2 file. */
+int j2k_encode(const void *img, int w, int h, int prec, int lossless,
+               uint8_t **out, size_t *outlen, char *err, int errlen) {
+    Err e = {err, errlen};
+    *out = NULL;
+    *outlen = 0;
+    if (prec != 8 && prec != 16) return fail(&e, -3, "precision %d", prec);
+    if (w < 1 || h < 1 || (int64_t)w * h > J2K_MAX_PIXELS)
+        return fail(&e, -2, "image of %d x %d", w, h);
+    int m = w < h ? w : h, nl = floorlog2((unsigned)m);
+    if (nl > ENC_MAXNL) nl = ENC_MAXNL;
+    int rev = lossless != 0;
+    Image im;
+    memset(&im, 0, sizeof im);
+    im.x1 = w;
+    im.y1 = h;
+    im.tw = w;
+    im.th = h;
+    im.prec = prec;
+    im.ntx = im.nty = 1;
+    enc_style(&im.def, nl, rev, prec);
+    Tile t;
+    memset(&t, 0, sizeof t);
+    t.x1 = w;
+    t.y1 = h;
+    t.st = im.def;
+    size_t npx = (size_t)w * h, mx = (size_t)(w > h ? w : h);
+    int32_t *ibuf = rev ? malloc(npx * sizeof(int32_t)) : NULL;
+    float *fbuf = rev ? NULL : malloc(npx * sizeof(float));
+    void *tmp = malloc((mx + 2) * sizeof(int32_t));
+    void *col = malloc((mx + 2) * sizeof(int32_t));
+    uint32_t *mag = malloc(64 * 64 * sizeof(uint32_t));
+    uint8_t *neg = malloc(64 * 64);
+    T1E t1;
+    memset(&t1, 0, sizeof t1);
+    t1.t.f = malloc(66 * 66);
+    Buf mqbuf = {0}, o = {0}, body = {0};
+    int rc = 0;
+    if ((!ibuf && !fbuf) || !tmp || !col || !mag || !neg || !t1.t.f) {
+        rc = fail(&e, -4, "out of memory");
+        goto done;
+    }
+    rc = tile_setup(&t, &im, &e);
+    if (rc) goto done;
+    /* DC level shift, forward DWT */
+    int32_t shift = 1 << (prec - 1);
+    for (size_t i = 0; i < npx; i++) {
+        int32_t v = prec == 8 ? ((const uint8_t *)img)[i]
+                              : ((const uint16_t *)img)[i];
+        if (rev) ibuf[i] = v - shift;
+        else fbuf[i] = (float)(v - shift);
+    }
+    fdwt(rev ? (void *)ibuf : (void *)fbuf, w, h, nl, rev, tmp, col);
+    /* quantization and tier-1, code-block by code-block */
+    for (int r = 0; r < t.nres && !rc; r++) {
+        Res *R = &t.res[r];
+        for (int pk = 0; pk < R->pw * R->ph && !rc; pk++)
+            for (int bb = 0; bb < R->nb && !rc; bb++) {
+                Band *B = &R->band[bb];
+                PrecBand *pb = &R->prec[pk * R->nb + bb];
+                int64_t ox = 0, oy = 0;
+                if (r) {
+                    Res *Rl = &t.res[r - 1];
+                    if (B->orient & 1) ox = Rl->x1 - Rl->x0;
+                    if (B->orient & 2) oy = Rl->y1 - Rl->y0;
+                }
+                /* the decoder's value is (q + 1/2) * 2 * B->step */
+                double inv = rev ? 1.0 : 1.0 / (2.0 * B->step);
+                for (int k = 0; k < pb->cw * pb->ch && !rc; k++) {
+                    Cblk *c = &pb->cb[k];
+                    int cw = (int)(c->x1 - c->x0), ch = (int)(c->y1 - c->y0);
+                    for (int y = 0; y < ch; y++) {
+                        size_t row = (size_t)(c->y0 - B->y0 + oy + y) * w
+                                     + (size_t)(c->x0 - B->x0 + ox);
+                        for (int x = 0; x < cw; x++) {
+                            int64_t q;
+                            if (rev) {
+                                q = ibuf[row + x];
+                            } else {
+                                double v = (double)fbuf[row + x] * inv;
+                                q = (int64_t)(v < 0 ? -floor(-v) : floor(v));
+                            }
+                            neg[y * cw + x] = q < 0;
+                            uint64_t a = (uint64_t)(q < 0 ? -q : q);
+                            mag[y * cw + x] = a > 0x7FFFFFFF ? 0x7FFFFFFF
+                                                             : (uint32_t)a;
+                        }
+                    }
+                    rc = encode_cblk(c, B, &t1, mag, neg, cw, ch, &mqbuf, &e);
+                }
+            }
+    }
+    /* tier-2: LRCP with one layer */
+    for (int r = 0; r < t.nres && !rc; r++)
+        for (int k = 0; k < t.res[r].pw * t.res[r].ph && !rc; k++)
+            rc = write_packet(&t, r, k, &body, &e);
+    if (rc) goto done;
+    Buf cs = {0};
+    put_codestream_header(&cs, &t.st, w, h, prec);
+    put16(&cs, 0xFF90);                   /* SOT */
+    put16(&cs, 10);
+    put16(&cs, 0);
+    put32(&cs, (uint32_t)(14 + body.n));
+    put8(&cs, 0);
+    put8(&cs, 1);
+    put16(&cs, 0xFF93);                   /* SOD */
+    putn(&cs, body.d, body.n);
+    put16(&cs, 0xFFD9);                   /* EOC */
+    if (cs.oom) {
+        free(cs.d);
+        rc = fail(&e, -4, "out of memory");
+        goto done;
+    }
+    put_jp2_header(&o, w, h, prec, cs.n);
+    putn(&o, cs.d, cs.n);
+    free(cs.d);
+    if (o.oom) {
+        rc = fail(&e, -4, "out of memory");
+        goto done;
+    }
+    *out = o.d;
+    *outlen = o.n;
+    o.d = NULL;
+done:
+    tile_free(&t);
+    free(ibuf);
+    free(fbuf);
+    free(tmp);
+    free(col);
+    free(mag);
+    free(neg);
+    free(t1.t.f);
+    free(mqbuf.d);
+    free(body.d);
+    free(o.d);
+    return rc;
+}
+
+void j2k_free(void *p) { free(p); }

@@ -10,8 +10,11 @@ is the M&M walker (ops/cuda/mm_clock.py: a hand kernel on the card, its
 plain version on the CPU). Interpolation uses the 128-branch Nuttall
 windowed-sinc bank (firdes.mm_interpolator_bank).
 
+`gardner_clock_recovery` (ref clock_recovery_gardner.cpp) walks the same
+way on the Gardner walker (ops/cuda/gardner.py); as in the JAX package, no
+pipeline calls it.
+
 The feedforward (Oerder & Meyr) fast path lives in ops/ffsync.py.
-(`gardner_clock_recovery` has no caller in the port yet.)
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from satdump_tpu_torch.ops.cuda import mm_clock
+from satdump_tpu_torch.ops.cuda import gardner, mm_clock
 from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
 from satdump_tpu_torch.utils.device import resolve_device
 
@@ -128,3 +131,74 @@ def mm_clock_recovery_packed(v: torch.Tensor, history: torch.Tensor,
         omega_limit=omega_relative_limit * omega_mid, out_cap=out_cap,
         complex_mode=complex_mode)
     return v, ext[n:], syms, valid
+
+
+class GardnerState(NamedTuple):
+    mu: torch.Tensor           # float32, fractional interpolation phase
+    omega: torch.Tensor        # float32, samples/symbol estimate
+    inc: torch.Tensor          # int32, input offset carried into the next block
+    history: torch.Tensor      # (ntaps-1,) last input samples
+    last_sample: torch.Tensor  # complex64, the previous on-time sample
+
+
+def gardner_init(omega: float, mu: float = 0.5, ntaps: int = 8,
+                 dtype=torch.complex64,
+                 device: str | torch.device | None = None) -> GardnerState:
+    dev = resolve_device(device)
+    return GardnerState(
+        mu=torch.tensor(mu, dtype=F32, device=dev),
+        omega=torch.tensor(omega, dtype=F32, device=dev),
+        inc=torch.zeros((), dtype=torch.int32, device=dev),
+        history=torch.zeros(ntaps - 1, dtype=dtype, device=dev),
+        last_sample=torch.zeros((), dtype=torch.complex64, device=dev),
+    )
+
+
+def _gardner_pack(state: GardnerState) -> torch.Tensor:
+    """GardnerState -> the walker's float32[STATE_SLOTS] vector."""
+    g = gardner
+    v = torch.zeros(g.STATE_SLOTS, dtype=F32, device=state.mu.device)
+    v[g.MU] = state.mu
+    v[g.OMEGA] = state.omega
+    v[g.INC:g.INC + 1] = state.inc.to(torch.int32).reshape(1).view(F32)
+    v[g.LAST:g.LAST + 2] = torch.view_as_real(
+        state.last_sample.to(torch.complex64))
+    return v
+
+
+def _gardner_unpack(v: torch.Tensor, history: torch.Tensor) -> GardnerState:
+    g = gardner
+    return GardnerState(
+        mu=v[g.MU], omega=v[g.OMEGA],
+        inc=v[g.INC:g.INC + 1].view(torch.int32)[0], history=history,
+        last_sample=torch.view_as_complex(v[g.LAST:g.LAST + 2]))
+
+
+def gardner_clock_recovery(state: GardnerState, x: torch.Tensor, *,
+                           omega_mid: float, gain_omega: float,
+                           gain_mu: float, omega_relative_limit: float,
+                           bank: torch.Tensor | None = None,
+                           out_cap: int | None = None
+                           ) -> Tuple[GardnerState, torch.Tensor,
+                                      torch.Tensor]:
+    """Gardner timing-error-detector clock recovery over one block of (n,)
+    complex64 x (ref common/dsp/clock_recovery/clock_recovery_gardner.cpp:
+    33-100): per output symbol interpolate the on-time sample and the
+    zero-crossing sample half a symbol earlier; the TED is
+    Re{zc} (Re{last} - Re{cur}) + Im{zc} (Im{last} - Im{cur}). Returns
+    (state', symbols (out_cap,), valid (out_cap,) bool); symbols past the
+    valid count are zeros. out_cap defaults to
+    ceil(n / (omega_mid*(1-limit)))+2."""
+    if bank is None:
+        bank = torch.as_tensor(mm_interpolator_bank(), device=x.device)
+    nfilt, ntaps = bank.shape
+    n = x.shape[-1]
+    if out_cap is None:
+        out_cap = int(np.ceil(n / (omega_mid * (1.0 - omega_relative_limit)))
+                      ) + 2
+    ext = torch.cat([state.history[: ntaps - 1], x])
+    syms, valid, v = gardner.gardner_walk(
+        ext, n, _gardner_pack(state), bank, omega_mid=omega_mid,
+        gain_omega=gain_omega, gain_mu=gain_mu,
+        omega_limit=omega_relative_limit * omega_mid, out_cap=out_cap)
+    return _gardner_unpack(v, ext[n:]), syms, valid

@@ -27,7 +27,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("viterbi_re", "resample_arith", "probe_affine", "sample_walk",
-           "mm_clock", "turbo_bcjr", "viterbi_block")
+           "mm_clock", "turbo_bcjr", "viterbi_block", "gardner_clock")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -31,7 +31,9 @@ import numpy as np
 import torch
 
 from satdump_tpu_torch.ops.cuda.turbo_bcjr import turbo_bcjr
-from satdump_tpu_torch.ops.fec.turbo_trellis import MEMORY, _trellis
+# MEMORY and NSTATES are this module's names in the JAX package too
+from satdump_tpu_torch.ops.fec.turbo_trellis import (MEMORY, NSTATES,  # noqa: F401
+                                                     _trellis)
 from satdump_tpu_torch.utils.device import resolve_device, to_numpy
 
 # (upper component list, lower component list) per nominal rate

@@ -264,9 +264,50 @@ def to_soft_int8(sym: torch.Tensor, scale: float) -> torch.Tensor:
     return (sym * scale).clamp(-127.0, 127.0).to(torch.int8)
 
 
+def qpsk_soft_interleave(sym: torch.Tensor, scale: float = 100.0
+                         ) -> torch.Tensor:
+    """Complex symbols -> interleaved int8 [re,im,re,im,...] (x100 clamp)."""
+    out = torch.stack([sym.real, sym.imag], dim=-1).reshape(-1)
+    return to_soft_int8(out, scale)
+
+
 def bpsk_soft(sym: torch.Tensor, scale: float = 50.0) -> torch.Tensor:
     """BPSK uses only the real branch, x50 (module_psk_demod.cpp:198-202)."""
     return to_soft_int8(sym.real if sym.is_complex() else sym, scale)
+
+
+# ---------------------------------------------------------------------------
+# Averaged spectrum — ref common/dsp/fft/fft_pan.{h,cpp}
+# ---------------------------------------------------------------------------
+class FFTPanState(NamedTuple):
+    avg: torch.Tensor   # (nbins,) running average magnitude (linear)
+
+
+def fft_pan_init(nbins: int = 512,
+                 device: str | torch.device | None = None) -> FFTPanState:
+    return FFTPanState(avg=torch.zeros(nbins, dtype=F32,
+                                       device=resolve_device(device)))
+
+
+def fft_pan(state: FFTPanState, x: torch.Tensor, rate: float = 0.1
+            ) -> Tuple[FFTPanState, torch.Tensor]:
+    """Streaming averaged spectrum for displays and status: segment the
+    block into nbins-point FFTs, average the shifted magnitudes, and fold
+    them into an exponential running average, on the state's device.
+    Returns (state', spectrum_dB (nbins,)). A block shorter than nbins
+    averages no segments (NaN), as the JAX stage does."""
+    nbins = state.avg.shape[0]
+    x = x.to(state.avg.device)
+    nseg = x.shape[-1] // nbins
+    segs = x[: nseg * nbins].reshape(nseg, nbins)
+    if nseg:
+        mag = torch.fft.fftshift(torch.fft.fft(segs, dim=-1), dim=-1).abs()
+    else:                   # torch.fft refuses an empty batch
+        mag = torch.empty((0, nbins), dtype=F32, device=x.device)
+    m = mag.mean(dim=0) / nbins
+    avg = state.avg * (1.0 - rate) + m * rate
+    db = 20.0 * torch.log10(torch.clamp_min(avg, 1e-12))
+    return FFTPanState(avg=avg), db
 
 
 # ---------------------------------------------------------------------------

@@ -1528,15 +1528,24 @@ def j2k_fixture(name: str) -> bytes:
     return (J2K_TESTDATA / name).read_bytes()
 
 
+GK2A_SW038_SEED = 0x5038
+
+
 def gk2a_xrit_files(rng: np.random.Generator, width: int, seg_lines: int,
-                    key_index: int = 3):
+                    key_index: int = 3, sw038: str = "encode"):
     """GK-2A AMI segment files, two segments a channel of `seg_lines` x
     `width`: VI006 as 8-bit JPEG, IR105 as 12-bit JPEG (both through
-    jpeg12.c in the decoder), WV069 uncompressed and DES-encrypted; SW038
-    as J2K at the committed codestreams' own size (32 x 256; the second
-    behind an 85-byte UHRIT preamble); and one additional-data file. Returns (files, key file bytes (the
-    decrypted xrit-rx format), {"jpeg8", "jpeg12": [payloads], "wv069":
-    image, "j2k": [codestreams]})."""
+    jpeg12.c in the decoder), WV069 uncompressed and DES-encrypted, SW038
+    as J2K (the second segment behind an 85-byte UHRIT preamble), and one
+    additional-data file. SW038 is a 12-bit scene of the same size, drawn
+    from a generator of its own (GK2A_SW038_SEED: `rng` draws what it drew
+    before the scene was added) and encoded by the port's compress_j2k
+    (`sw038="encode"`),
+    or the committed codestreams at their own 32 x 256, 8-bit
+    (`sw038="fixtures"`). Returns (files, key file bytes (the decrypted
+    xrit-rx format), {"jpeg8", "jpeg12": [payloads], "wv069": image,
+    "j2k": [codestreams], "sw038": the encoded scene or None})."""
+    from satdump_tpu_torch.image.j2k import compress_j2k
     from satdump_tpu_torch.image.jpeg12 import compress_jpeg12
     from satdump_tpu_torch.utils.des import DES
     from satdump_tpu_torch.xrit import ImageStructureRecord, build_xrit_file
@@ -1545,11 +1554,23 @@ def gk2a_xrit_files(rng: np.random.Generator, width: int, seg_lines: int,
     vis = smooth_scene(rng, 2 * seg_lines, width, 8)
     ir = smooth_scene(rng, 2 * seg_lines, width, 12)
     wv = rng.integers(0, 256, (2 * seg_lines, width)).astype(np.uint8)
-    j2k = [j2k_fixture(f"gk2a_sw038_{s}.j2k") for s in range(2)]
-    j2k_lines, j2k_width = json.loads(
-        (J2K_TESTDATA / "MANIFEST.json").read_text())["gk2a_sw038_0.j2k"][
-            "shape"]
-    files, truth = [], {"jpeg8": [], "jpeg12": [], "wv069": wv, "j2k": j2k}
+    if sw038 == "encode":
+        sw = smooth_scene(np.random.default_rng(GK2A_SW038_SEED),
+                          2 * seg_lines, width, 12)
+        j2k = [compress_j2k(sw[s * seg_lines: (s + 1) * seg_lines])
+               for s in range(2)]
+        j2k_lines, j2k_width, j2k_bpp = seg_lines, width, 12
+    elif sw038 == "fixtures":
+        sw = None
+        j2k = [j2k_fixture(f"gk2a_sw038_{s}.j2k") for s in range(2)]
+        j2k_lines, j2k_width = json.loads(
+            (J2K_TESTDATA / "MANIFEST.json").read_text())[
+                "gk2a_sw038_0.j2k"]["shape"]
+        j2k_bpp = 8
+    else:
+        raise ValueError(f"sw038: 'encode' or 'fixtures', not {sw038!r}")
+    files, truth = [], {"jpeg8": [], "jpeg12": [], "wv069": wv, "j2k": j2k,
+                        "sw038": sw}
 
     def isr(bpp, flag, lines=seg_lines, columns=width):
         return ImageStructureRecord(bit_per_pixel=bpp, columns_count=columns,
@@ -1568,7 +1589,7 @@ def gk2a_xrit_files(rng: np.random.Generator, width: int, seg_lines: int,
                 ("VI006", j8, isr(8, 2), []),
                 ("IR105", j12, isr(12, 2), []),
                 ("SW038", (bytes(85) if s else b"") + j2k[s],
-                 isr(8, 1, j2k_lines, j2k_width), []),
+                 isr(j2k_bpp, 1, j2k_lines, j2k_width), []),
                 ("WV069", enc, isr(8, 0), [gk2a_key_record(key_index)])):
             files.append(build_xrit_file(
                 f"IMG_FD_xx_{ch}_20260101_000000_{s:03d}.lrit", payload,

@@ -3,8 +3,9 @@
 The reference (satdump_tpu) and the port carry the same mid-stream state:
 the feedforward demod's `FFClockState`, the input stages' states
 (`FreqShiftState`, `DCBlockState`, `RationalResamplerState`), the CADU
-chain's seam carries and the streaming Viterbi's `ViterbiState` (whose
-decisions the port packs into one int64 word a step).
+chain's seam carries, the Gardner clock recovery's `GardnerState` and the
+streaming Viterbi's `ViterbiState` (whose decisions the port packs into
+one int64 word a step).
 These helpers turn numpy arrays (for example `np.asarray` of the
 reference's JAX arrays) into the port's state and back, so both packages
 can be started from the same point of a stream.
@@ -17,6 +18,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from satdump_tpu_torch.ops.clock_recovery import GardnerState
 from satdump_tpu_torch.ops.fec.convolutional import (ViterbiState,
                                                      pack_decisions,
                                                      unpack_decisions)
@@ -113,6 +115,24 @@ def rational_resampler_state_from_numpy(history, pos_num,
 def stage_state_to_numpy(state) -> dict:
     """A FreqShiftState, DCBlockState or RationalResamplerState ->
     {field: numpy array}."""
+    return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def gardner_state_from_numpy(fields: Mapping[str, np.ndarray],
+                             device: str | torch.device | None = None
+                             ) -> GardnerState:
+    """{GardnerState field: numpy array} -> GardnerState on `device`: mu
+    and omega float32, inc int32, history and last_sample complex64."""
+    dev = resolve_device(device)
+    dt = dict(mu=np.float32, omega=np.float32, inc=np.int32,
+              history=np.complex64, last_sample=np.complex64)
+    return GardnerState(**{k: torch.as_tensor(np.array(fields[k], dt[k]),
+                                              device=dev)
+                           for k in GardnerState._fields})
+
+
+def gardner_state_to_numpy(state: GardnerState) -> dict:
+    """GardnerState -> {field: numpy array}."""
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
 
 

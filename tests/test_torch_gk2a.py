@@ -3,7 +3,9 @@ the same inputs made from a seed: DES (FIPS 46-3 vector and round trips),
 the key files (encrypted and decrypted formats), and
 `gk2a_lrit_data_decoder` on a pass of encrypted, 8- and 12-bit JPEG and
 J2K segments (one behind the 85-byte UHRIT preamble) and an
-additional-data file.
+additional-data file. The J2K segments are a 12-bit scene at the other
+channels' width, encoded by the port's `compress_j2k`, or the committed
+codestreams at their own 32 x 256.
 
 Everything is byte-identical (PNGs compared by their pixels). The JAX
 module decodes J2K with Pillow, the port with its own decoder
@@ -74,8 +76,10 @@ def test_key_files_equal_jax(tmp_path, rng):
     assert tgk2a.load_key_file(str(p)) == jgk2a.load_key_file(str(p))
 
 
-def _pass(tmp: Path, rng, with_keys: bool, width: int = 256):
-    files, keyfile, truth = sim.gk2a_xrit_files(rng, width, 32)
+def _pass(tmp: Path, rng, with_keys: bool, width: int = 256,
+          sw038: str = "encode"):
+    files, keyfile, truth = sim.gk2a_xrit_files(rng, width, 32,
+                                                sw038=sw038)
     (tmp / "keys.bin").write_bytes(keyfile)
     cadus = sim.xrit_geo_cadus(files)
     cadus.tofile(tmp / "x.cadu")
@@ -99,9 +103,12 @@ def test_gk2a_pass_equals_jax(tmp_path, rng):
     d = tmp_path / "torch" / "IMAGES" / "AMI"
     np.testing.assert_array_equal(load_img(d / "AMI_WV069_20260101000000.png"),
                                   truth["wv069"])
+    # SW038: the 12-bit scene sent, at the decoder's 16-bit scale
+    sw = load_img(d / "AMI_SW038_20260101000000.png")
+    assert truth["sw038"].shape == (64, 256) and truth["sw038"].max() > 255
+    np.testing.assert_array_equal(sw, truth["sw038"] << 4)
     np.testing.assert_array_equal(
-        load_img(d / "AMI_SW038_20260101000000.png"),
-        np.concatenate([decompress_j2k(c) for c in truth["j2k"]]))
+        sw, np.concatenate([decompress_j2k(c) for c in truth["j2k"]]) << 4)
     np.testing.assert_array_equal(
         load_img(d / "AMI_VI006_20260101000000.png"),
         np.concatenate([decompress_jpeg12(j) for j in truth["jpeg8"]]))
@@ -111,13 +118,17 @@ def test_gk2a_pass_equals_jax(tmp_path, rng):
 
 
 def test_gk2a_channels_wider_than_the_j2k_segments(tmp_path, rng):
-    """The JPEG and raw channels at 600 columns, SW038 at its codestreams'
-    256: each channel's image takes its own segments' width."""
-    mods, truth = _pass(tmp_path, rng, True, width=600)
+    """The JPEG and raw channels at 600 columns, SW038 the committed
+    codestreams at their 256: each channel's image takes its own segments'
+    width."""
+    mods, truth = _pass(tmp_path, rng, True, width=600, sw038="fixtures")
     assert mods["torch"].stats == {"files": 9, "images": 4}
     _trees_equal(tmp_path / "jax", tmp_path / "torch")
     d = tmp_path / "torch" / "IMAGES" / "AMI"
-    assert load_img(d / "AMI_SW038_20260101000000.png").shape == (64, 256)
+    np.testing.assert_array_equal(
+        load_img(d / "AMI_SW038_20260101000000.png"),
+        np.concatenate([decompress_j2k(c) for c in truth["j2k"]]))
+    assert truth["sw038"] is None
     np.testing.assert_array_equal(load_img(d / "AMI_WV069_20260101000000.png"),
                                   truth["wv069"])
     assert truth["wv069"].shape == (64, 600)
