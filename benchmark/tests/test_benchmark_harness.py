@@ -1,0 +1,372 @@
+"""The benchmark's harness on the CPU at tiny sizes: BENCHMARK.json against
+the contract's limits, the configurations against their pipeline files, the
+generator, the plain reference and its control, the kernels' counts, the
+import check, a dry run of every cell, and a run with the timed path broken
+underneath for each fault a cell can have."""
+
+import re
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import run as bench
+from harness import check, program, spec, trace, tx
+from reference import psk_ff
+
+SPEC = spec.load_json(spec.ROOT / "BENCHMARK.json")
+CELLS = [w["name"] for w in SPEC["workloads"]]
+CONFIGS = [c["name"] for c in SPEC["configs"]]
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
+# dry-run sizes: ~2.5 demod blocks offline; live: 2^14-sample chunks, one
+# block of warm-up, a short flush
+TINY = {"samples": 655360, "warmup_samples": 262144, "chunk_samples": 16384,
+        "warmup_chunks": 16, "recording_factor": 1.0, "flush_chunks": 48,
+        "trace_sessions": 1, "pushes_per_session": 4}
+SEED = 2 ** 31 + 12345
+
+
+def _one_line(s):
+    return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s \
+        and "\t" not in s
+
+
+def test_benchmark_json_keeps_to_the_contract():
+    assert set(SPEC) == {"command", "paths", "run_seconds", "configs",
+                         "workloads", "end_to_end", "per_layer"}
+    assert SPEC["paths"] == ["benchmark"]
+    assert 1 <= SPEC["run_seconds"] <= 51
+    assert all(_one_line(w) for w in SPEC["command"])
+    names = [x["name"] for k in ("configs", "workloads", "end_to_end",
+                                 "per_layer") for x in SPEC[k]]
+    assert len(names) == len(set(names))
+    for n in names:
+        assert NAME.fullmatch(n), n
+    for c in SPEC["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert _one_line(c["source"]) and _one_line(c["why"])
+        assert c["file"].startswith("benchmark/")
+        assert all(NAME.fullmatch(k) for k in c["reduced"])
+    for w in SPEC["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert w["chips"] == 1 and _one_line(w["why"])
+        assert NAME.fullmatch(w["traffic"]) and w["config"] in CONFIGS
+    for m in SPEC["end_to_end"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
+                                          "source"}
+        assert 0.01 <= m["bound"] <= 0.25
+        assert m["source"] in ("host_clock", "device_trace")
+    for m in SPEC["per_layer"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "source",
+                                          "layer", "moves"}
+        assert _one_line(m["layer"])
+        assert m["moves"] in [e["name"] for e in SPEC["end_to_end"]]
+    for m in SPEC["end_to_end"] + SPEC["per_layer"]:
+        assert UNIT.fullmatch(m["unit"]) and m["better"] in ("lower",
+                                                             "higher")
+        assert set(m.get("workloads", CELLS)) <= set(CELLS)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_cell_finds_its_pieces_and_reports_enough(cell):
+    c = spec.Cell(cell, SPEC)
+    e2e = {m["name"] for m in c.end_to_end}
+    assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
+    for m in c.end_to_end + c.per_layer:
+        assert callable(c.reader(m).read)
+        if "workloads" in m and m in c.per_layer:
+            assert m["moves"] in e2e
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_follows_its_pipeline_file(name):
+    entry = [c for c in SPEC["configs"] if c["name"] == name][0]
+    cfg = spec.load_json(spec.ROOT / entry["file"])
+    program.pipeline(cfg, "baseband", "cadu")      # raises on a mismatch
+    p, s = cfg["pipeline_parameters"], cfg["signal"]
+    assert s["samplerate"] == p["samplerate"]
+    up, down = s["sps"]
+    assert abs(up / down - p["samplerate"] / p["soft"]["symbolrate"]) < 1e-6
+    assert s["rrc_alpha"] == p["soft"]["rrc_alpha"]
+    assert set(entry["reduced"]) <= set(cfg["reduced_from"])
+
+
+def _config(name):
+    entry = [c for c in SPEC["configs"] if c["name"] == name][0]
+    cfg = spec.load_json(spec.ROOT / entry["file"])
+    return cfg, spec.load_module(spec.BENCH / "codes" /
+                                 f"{cfg['signal']['code']}.py")
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_generator_is_deterministic_in_the_seed(name):
+    cfg, code = _config(name)
+    a = tx.make_recording(cfg, code, 50000, SEED, "cpu")
+    b = tx.make_recording(cfg, code, 50000, SEED, "cpu")
+    c = tx.make_recording(cfg, code, 50000, SEED + 1, "cpu")
+    assert torch.equal(a.iq, b.iq) and (a.cadus == b.cadus).all()
+    assert not torch.equal(a.iq, c.iq)
+    assert (a.cadus[:, :4] == tx.ASM).all()
+
+
+def test_rs_encoder_gives_codewords():
+    """Each codeword's syndromes vanish: evaluated at the generator's
+    roots, in the conventional basis."""
+    gen = tx.generator(SEED, "cpu")
+    cw = tx.make_cadus(3, gen)[:, 4:].numpy().reshape(3, 255, 4)
+    exp, mul = tx._gf_tables()
+    _, from_dual = tx._dual_tables()
+    for k in range(4):
+        for row in from_dual[cw[:, :, k]]:
+            for j in range(32):
+                root = exp[(tx.RS_PRIM * (tx.RS_FCR + j)) % 255]
+                acc = 0
+                for byte in row:
+                    acc = mul[acc, root] ^ byte
+                assert acc == 0
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_reference_demodulates_the_generator(name):
+    """At 18 dB the reference's hard decisions are the channel bits sent,
+    up to QPSK's four rotations and a few symbols of offset."""
+    cfg, code = _config(name)
+    rec = tx.make_recording(cfg, code, 300000, SEED, "cpu")
+    soft, lens = psk_ff.demod(tx.cs16_to_complex(rec.iq), cfg)
+    assert lens.sum() == len(soft)
+    gen = tx.generator(SEED, "cpu")
+    cadus = tx.make_cadus(len(rec.cadus), gen, cfg["signal"]["rs_depth"])
+    chan, _ = code.channel_bits(tx.unpack_bits(tx.randomize(cadus)))
+    sent = tx.qpsk_symbols(chan).numpy()
+    got = soft[0::2].astype(np.float32) + 1j * soft[1::2]
+    L = 20000
+
+    def errors(r, d):
+        g, t = (got[d:], sent) if d >= 0 else (got, sent[-d:])
+        return np.mean(np.sign((g[:L] * 1j ** r).real) != np.sign(t[:L].real))
+    assert min(errors(r, d) for r in range(4) for d in range(-8, 9)) < 1e-3
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_control_fails_the_soft_limit(name):
+    """bfloat16 in place of float32 moves far more softs than the limit
+    lets through."""
+    cfg, code = _config(name)
+    x = tx.cs16_to_complex(tx.make_recording(cfg, code, 300000, SEED,
+                                             "cpu").iq)
+    ref = psk_ff.demod(x, cfg)[0]
+    bad, total = check.soft_mismatch(psk_ff.demod(x, cfg, "bfloat16")[0], ref)
+    assert bad / total > 3 * cfg["limits"]["soft_mismatch"]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", CONFIGS)
+def test_control_fails_the_soft_limit_on_the_card(name, card):
+    cfg, code = _config(name)
+    x = tx.cs16_to_complex(tx.make_recording(cfg, code, 1 << 20, SEED,
+                                             card).iq)
+    ref = psk_ff.demod(x, cfg)[0]
+    bad, total = check.soft_mismatch(psk_ff.demod(x.cpu(), cfg)[0], ref)
+    assert bad / total < cfg["limits"]["soft_mismatch"]
+    bad, total = check.soft_mismatch(psk_ff.demod(x, cfg, "bfloat16")[0], ref)
+    assert bad / total > 3 * cfg["limits"]["soft_mismatch"]
+
+
+def test_kernel_counts_on_known_shapes():
+    k1 = spec.rooflines()["viterbi_re"]
+    T = (1 << 20) + 1024
+    ops, nbytes = k1.count((0, T, T // 1024, 1024, 128, 0))
+    assert ops == T * 200 and nbytes == T * 9
+    assert k1.bound_s((0, T, 0, 0, 0, 0)) == pytest.approx(T * 200 / 33.5e12)
+    k2 = spec.rooflines()["resample_arith_grid"]
+    n_ext, cap = (1 << 18) + 7, 102977
+    flops, nbytes = k2.count((0, n_ext, 0, 0, 0, 0, cap))
+    assert flops == cap * 38
+    assert nbytes == n_ext * 8 + 4096 + 8 + cap * 8
+    assert k2.bound_s((0, n_ext, 0, 0, 0, 0, cap)) == \
+        pytest.approx(nbytes / 3.35e12)
+
+
+def test_import_check_compares_whole_top_level_names(monkeypatch):
+    import satdump_tpu_torch  # noqa: F401
+    assert spec.forbidden_modules() == []
+    monkeypatch.setitem(__import__("sys").modules, "jax.numpy",
+                        types.ModuleType("jax.numpy"))
+    assert spec.forbidden_modules() == ["jax"]
+
+
+def test_checks_count_what_they_say():
+    sent = np.arange(40, dtype=np.uint8).reshape(10, 4)
+    due = np.ones(10, bool)
+    due[-1] = False
+    assert check.cadus_failed(sent[:9].reshape(-1), sent, due) == (9, 0)
+    assert check.cadus_failed(sent[1:].reshape(-1), sent, due) == (9, 1)
+    twice = np.concatenate([sent[:9].reshape(-1), sent[0], [7]])
+    assert check.cadus_failed(twice.astype(np.uint8), sent, due) == (9, 2)
+    assert check.soft_mismatch(np.array([1, 2, 3]),
+                               np.array([1, 2, 4, 5])) == (2, 4)
+
+
+def test_union_of_intervals():
+    s, e = trace._union(np.array([5, 0, 1, 10]), np.array([6, 2, 3, 12]))
+    assert s.tolist() == [0, 5, 10] and e.tolist() == [3, 6, 12]
+
+
+def _session(layer, lost=""):
+    """A traced session as the card gives one: K1 and K2 launched twice
+    each, every launch with its record."""
+    T, n_ext, cap = (1 << 20) + 1024, (1 << 18) + 7, 102977
+    return trace.Session(
+        layer, 10.0, wall_s=2.0, busy_s=0.1, launches=600,
+        kernel_records=600, lost=lost,
+        by_kernel={"viterbi_re_kernel": [2, 2e-4],
+                   "resample_arith_kernel": [2, 1e-5]},
+        args={"viterbi_re": [(0, T, 0, 0, 0, 0)] * 2,
+              "resample_arith": [(0, n_ext, 0, 0, 0, 0, cap)] * 2},
+        counters={"viterbi_re": 2, "resample_arith_grid": 2})
+
+
+DEVICE_METRICS = [m for m in SPEC["per_layer"]
+                  if m["source"] == "device_trace"]
+
+
+@pytest.mark.parametrize("lost", ("psk_demod", "decoder"))
+def test_a_lost_session_leaves_every_device_metric_out(lost):
+    """One session that lost records, and not the other layer's session
+    alone, gives every device metric of the traced run as missing."""
+    c = spec.Cell(CELLS[0], SPEC)
+    whole = {"sessions": [_session("psk_demod"), _session("decoder")]}
+    part = {"sessions": [_session(x, "4 kernel records for 8 launches"
+                                  if x == lost else "")
+                         for x in ("psk_demod", "decoder")]}
+    assert {m["name"] for m in DEVICE_METRICS} >= {
+        "device.idle_share", "host.launches_per_air_s"}
+    for m in DEVICE_METRICS:
+        assert c.reader(m).read(whole) is not None, m["name"]
+        assert c.reader(m).read(part) is None, m["name"]
+    assert c.reader({"name": "host.launches_per_air_s"}).read(whole) == 60.0
+    assert c.reader({"name": "device.idle_share"}).read(whole) == \
+        pytest.approx(95.0)
+
+
+def test_a_counter_holds_only_the_kernels_it_counts(monkeypatch):
+    """A kernel whose wrapper `launch_counts()` does not count (K3) is
+    held to the launches seen alone; one it counts, to both."""
+    k3 = types.SimpleNamespace(DEVICE_NAME="viterbi_block_acs",
+                               ENTRY="viterbi_block_acs")
+    monkeypatch.setattr(spec, "rooflines", lambda: {"viterbi_block": k3})
+    s = _session("decoder")
+    s.by_kernel["viterbi_block_acs_kernel"] = [3, 1e-4]
+    s.args["viterbi_block_acs"] = [()] * 3
+    bench.held_to_counts([s], "cuda")
+    assert s.lost == ""
+    s.args["viterbi_block_acs"] = [()] * 4
+    bench.held_to_counts([s], "cuda")
+    assert "viterbi_block" in s.lost
+    k1 = spec.load_module(spec.BENCH / "roofline" / "viterbi_re.py")
+    monkeypatch.setattr(spec, "rooflines", lambda: {"viterbi_re": k1})
+    s = _session("decoder")
+    s.counters["viterbi_re"] = 3
+    bench.held_to_counts([s], "cuda")
+    assert "counter 3" in s.lost
+
+
+def test_traced_calls_run_again_while_a_session_loses_records():
+    class Flaky:
+        def __init__(self, losses):
+            self.losses, self.tries = losses, 0
+
+        def traced(self):
+            self.tries += 1
+            lost = "lost" if self.tries <= self.losses else ""
+            return [_session("psk_demod", lost), _session("decoder")]
+    d = Flaky(1)
+    got = bench.traced_sessions(d, "cuda")
+    assert d.tries == 2 and trace.kept(got) == got
+    d = Flaky(trace.TRIES)
+    got = bench.traced_sessions(d, "cuda")
+    assert d.tries == trace.TRIES and trace.kept(got) == []
+
+
+@pytest.mark.parametrize("traced", (0, 1))
+@pytest.mark.parametrize("cell", CELLS)
+def test_dry_run_on_the_cpu(cell, traced):
+    out = bench.run_cell(cell, SEED, 0.5, traced, "cpu", TINY, SPEC)
+    assert out["correct"] and out["attempted"] > 0 and out["failed"] == 0
+    assert out["checks"]["soft_mismatch"]["value"] == 0
+    c = spec.Cell(cell, SPEC)
+    if traced:
+        assert out["metrics"] and "breakdown" in out
+    else:
+        assert {m["name"] for m in c.end_to_end} == set(out["metrics"])
+
+
+def _altered_softs(monkeypatch):
+    from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
+    inner = PSKDemodModule.stream_work
+
+    def altered(self, *a, **k):
+        out = inner(self, *a, **k).copy()
+        out[::50] = -out[::50]
+        return out
+    monkeypatch.setattr(PSKDemodModule, "stream_work", altered)
+
+
+class _Faulty:
+    """A binary file whose writes of whole CADUs come out altered (one
+    byte of each) or with every second CADU left out."""
+
+    def __init__(self, f, fault):
+        self.f, self.fault, self.k = f, fault, 0
+
+    def write(self, b):
+        a = np.frombuffer(b, np.uint8).reshape(-1, 1024).copy()
+        if self.fault == "altered":
+            a[:, 500] ^= 0x10
+        else:
+            keep = (np.arange(len(a)) + self.k) % 2 == 0
+            self.k += len(a)
+            a = a[keep]
+        return self.f.write(a.tobytes())
+
+    def __getattr__(self, name):
+        return getattr(self.f, name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.f.close()
+
+
+def _faulty_cadus(monkeypatch, cell, fault):
+    """Patch `open` where the cell's .cadu file is opened for writing."""
+    import builtins
+    from satdump_tpu_torch.models import fengyun3
+    from satdump_tpu_torch.pipeline import live
+    from satdump_tpu_torch.pipeline.modules.ccsds import conv_concat
+    mod = live if ".live" in cell else \
+        fengyun3 if cell.startswith("fy3d") else conv_concat
+
+    def faulty_open(path, mode="r", *a, **k):
+        f = builtins.open(path, mode, *a, **k)
+        return _Faulty(f, fault) if str(path).endswith(".cadu") and \
+            "w" in mode else f
+    monkeypatch.setattr(mod, "open", faulty_open, raising=False)
+
+
+@pytest.mark.parametrize("fault", ("softs altered", "cadus altered",
+                                   "half the cadus left out"))
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
+    if fault == "softs altered":
+        _altered_softs(monkeypatch)
+    else:
+        _faulty_cadus(monkeypatch, cell, fault.split()[1])
+    out = bench.run_cell(cell, SEED, 0.5, 0, "cpu", TINY, SPEC)
+    assert out["correct"] is False
+    key = "soft_mismatch" if fault == "softs altered" else "cadus_failed"
+    c = out["checks"][key]
+    assert c["value"] > c["limit"]
