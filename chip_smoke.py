@@ -29,6 +29,11 @@ Phases (any failure raises and the script exits non-zero):
     (METEOR-M2 and METEOR-M2-x at 1 Msps, GOES HRIT at 6 Msps); the same
     numbers, the device time both with ext warm in L2 and after a 64 MB
     write, at the main path's block and at those three;
+ 4a. CaduChain's RS decode replayed from its CUDA graph, on its own
+    generator (RS_SEED): two batches of 64 MetOp payloads (4 interleaved
+    RS(255,223) codewords, dual basis) with 0-16 byte errors a codeword and
+    17-20 in one of four, through one graph, equal to the direct decode
+    and to the host codec; each one's time a call;
  4b. the classic chain's walkers (csrc/sample_walk.cu: the AGC, the PLL,
     the Costas loop at orders 2, 4 and 8; csrc/mm_clock.cu: M&M, complex at
     sps 4.5 and at INTEGRAL's sps 8 with its out_cap, and real): their SASS
@@ -686,6 +691,60 @@ def phase_k2(rng):
         if label == K2_TIMED[0]:                  # the main path's block
             res.update(t)
     return res
+
+
+# CaduChain's RS decode replayed from its CUDA graph (phase 4a), on a
+# generator of its own so that no later phase's inputs move
+RS_SEED = SEED + 21
+RS_FRAMES = 64
+
+
+def _rs_case(rng, frames: int):
+    """`frames` MetOp payloads of 4 interleaved RS(255,223) codewords in the
+    dual basis, with 0-16 byte errors a codeword and 17-20 (past what RS
+    corrects) in one codeword of four; and the host codec's decode."""
+    from satdump_tpu_torch.ops.fec.reed_solomon import ReedSolomon
+    rs = ReedSolomon(223)
+    msgs = rng.integers(0, 256, (frames, 223 * 4)).astype(np.uint8)
+    data = rs.encode_interleaved(msgs, True, 4)
+    for f in range(frames):
+        for b in range(4):
+            n = int(rng.integers(17, 21)) if b == f % 4 and f % 2 \
+                else int(rng.integers(0, 17))
+            pos = rng.choice(255, n, replace=False) * 4 + b
+            data[f, pos] ^= rng.integers(1, 256, n).astype(np.uint8)
+    return (data,) + tuple(rs.decode_interleaved(data, True, 4))
+
+
+def phase_rs_graph(rng) -> dict:
+    """The RS decode of `CaduChain` on the card, replayed from its CUDA
+    graph, equal to the direct decode and to the host codec on two batches
+    through one graph; and each one's time a call."""
+    import torch
+    from satdump_tpu_torch.ops.fec import cadu_chain
+    chain = cadu_chain.CaduChain(cadu_bits=8192, chunk_pairs=1 << 14,
+                                 rs_i=4, device="cuda")
+    for batch in range(2):
+        data, want, want_err = _rs_case(rng, RS_FRAMES)
+        x = torch.as_tensor(data.astype(np.int32), device="cuda")
+        got, got_err = chain._rs_decode(x)
+        ref, ref_err = chain.rs.decode_interleaved(x, 4)
+        for name, a, b in (("graph", got, want), ("graph", got_err, want_err),
+                           ("direct", ref, want),
+                           ("direct", ref_err, want_err)):
+            if not np.array_equal(a.cpu().numpy(), b):
+                raise AssertionError(f"RS decode {name} differs from the "
+                                     f"host codec in batch {batch}")
+    if not cadu_chain._RS_GRAPHS:
+        raise AssertionError("CaduChain's RS decode was not graphed")
+    t = {"graph_ms": call_ms(lambda: chain._rs_decode(x), 20),
+         "direct_ms": call_ms(lambda: chain.rs.decode_interleaved(x, 4), 20),
+         "failed_codewords": int((want_err < 0).sum())}
+    log(f"RS decode of {RS_FRAMES} CADUs x 4 codewords: graph replay equal "
+        f"to the direct decode and the host codec ({t['failed_codewords']} "
+        f"codewords past correction), {t['graph_ms']:.3f} ms a call "
+        f"replayed, {t['direct_ms']:.3f} ms direct (events)")
+    return t
 
 
 # the classic chain's walkers (phase 4b): two blocks of WALK_BLOCK samples
@@ -5034,6 +5093,7 @@ def main() -> int:
     probe = phase_probe(rng)
     k1 = phase_k1(rng)
     k2 = phase_k2(rng)
+    phase_rs_graph(np.random.default_rng(RS_SEED))
     walkers = phase_walkers(rng)
     work = ROOT / "satdump_tpu_torch" / "_build" / "smoke"
     try:

@@ -23,6 +23,7 @@ import numpy as np
 
 from satdump_tpu_torch.ccsds import (Demuxer, parse_ccsds_time_full_raw,
                                      parse_vcdu)
+from satdump_tpu_torch.core import trace
 from satdump_tpu_torch.core.log import logger
 from satdump_tpu_torch.ops.fec.codings_misc import SimpleDeframer
 from satdump_tpu_torch.ops.fec.deframer import CCSDSDeframer
@@ -360,34 +361,42 @@ class FengyunAHRPTDecoderModule(ProcessingModule):
     def process(self):
         out_path = self.d_output_file_hint + ".cadu"
         self.d_output_file = out_path
-        soft = np.fromfile(self.d_input_file, np.int8)
+        with trace.span("decoder.read", "host"):
+            soft = np.fromfile(self.d_input_file, np.int8)
         rails = [soft[0::2], soft[1::2]]
         bits = []
         bers = []
         for rail in rails:
-            v = Viterbi12Sync(0.30, 10, phases=[PHASE_0, PHASE_180],
-                              device=self.torch_device)
-            bits.append(v.work(rail, last=True))
+            with trace.span("decoder.rail"):
+                v = Viterbi12Sync(0.30, 10, phases=[PHASE_0, PHASE_180],
+                                  device=self.torch_device)
+                bits.append(v.work(rail, last=True))
             bers.append(v.ber)
         rs = ReedSolomon(k=223)
         best = None
         for order in ((0, 1), (1, 0)):
-            stream = fengyun_diff_decode(bits[order[0]], bits[order[1]])
-            frames = CCSDSDeframer(1024 * 8).work(stream)
+            with trace.span("decoder.diff_decode", "host"):
+                stream = fengyun_diff_decode(bits[order[0]], bits[order[1]])
+            with trace.span("decoder.deframe", "host"):
+                frames = CCSDSDeframer(1024 * 8).work(stream)
             if best is None or len(frames) > len(best):
                 best = frames
         nframes = 0
         rs_avg = []
         with open(out_path, "wb") as f:
             if best:
-                cadus = np.stack(best).astype(np.uint8)
-                cadus[:, 4:] = derand_ccsds(cadus[:, 4:])
-                corrected, errs = rs.decode_interleaved(
-                    cadus[:, 4: 4 + 255 * 4], True, 4)
-                cadus[:, 4: 4 + 255 * 4] = corrected
+                with trace.span("decoder.derand", "host"):
+                    cadus = np.stack(best).astype(np.uint8)
+                    cadus[:, 4:] = derand_ccsds(cadus[:, 4:])
+                with trace.span("decoder.rs", "host"):
+                    corrected, errs = rs.decode_interleaved(
+                        cadus[:, 4: 4 + 255 * 4], True, 4)
+                    cadus[:, 4: 4 + 255 * 4] = corrected
                 rs_avg.append(errs.reshape(-1))
-                f.write(cadus.tobytes())
+                with trace.span("decoder.write", "host"):
+                    f.write(cadus.tobytes())
                 nframes = len(cadus)
+                trace.count("decoder.cadus", nframes)
         self.stats = {"frames": nframes,
                       "viterbi_ber": float(np.mean(bers)) if bers else 1.0,
                       "rs_avg": float(np.mean(np.concatenate(rs_avg)))

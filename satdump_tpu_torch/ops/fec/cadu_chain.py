@@ -17,7 +17,8 @@ Per stage:
   hits (an inverted stream has distance 32-d). Frames are then one periodic
   slice, since a locked stream is exactly periodic;
 * derandomization: XOR with the tiled CCSDS PN;
-* RS(255,223/239): batched device decode (rs_device.py).
+* RS(255,223/239): batched device decode (rs_device.py); on the card it
+  is captured once a shape as a CUDA graph and replayed (`_GraphedRS`).
 
 The host streams overlapping chunks (carry = last cadu+31 bits) so frames
 straddling a seam are recovered in the next call; emitted frames are
@@ -26,11 +27,13 @@ deduplicated by absolute bit position.
 
 from __future__ import annotations
 
+import threading
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from satdump_tpu_torch.core import trace
 from satdump_tpu_torch.ops.cuda.viterbi import viterbi_re
 from satdump_tpu_torch.ops.fec import convolutional as cc
 from satdump_tpu_torch.ops.fec.deframer import CCSDS_ASM, asm_bits
@@ -41,6 +44,11 @@ from satdump_tpu_torch.utils.device import resolve_device, to_numpy
 SEG = 1024     # Viterbi lane segment (pairs)
 HALO = 128     # Viterbi lane overlap / seam context (pairs)
 I32 = torch.int32
+
+# the card's RS decodes as CUDA graphs, by (device, k, dual, depth, shape),
+# shared by every chain of a process
+_RS_GRAPHS: dict = {}
+_RS_GRAPHS_LOCK = threading.Lock()
 
 
 def _conv_encode_dev(bits: torch.Tensor) -> torch.Tensor:
@@ -73,6 +81,34 @@ def _asm_distance(bits: torch.Tensor, pattern: np.ndarray) -> torch.Tensor:
     for j in range(m):
         dist = dist + (bits[j: j + nv] ^ int(pattern[j]))
     return dist
+
+
+class _GraphedRS:
+    """`RSDevice.decode_interleaved` of one payload shape on the card,
+    captured once as a CUDA graph and replayed. The Berlekamp-Massey loop
+    issues ~1,000 small kernels a call; replayed, they are one launch, and
+    the host no longer spends a chunk's time issuing them."""
+
+    def __init__(self, rs: RSDevice, depth: int, shape):
+        dev = rs.device
+        self.rs = rs        # the graph reads its tables where they lie
+        self.lock = threading.Lock()
+        self.x = torch.zeros(shape, dtype=I32, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):      # first use outside the capture
+            rs.decode_interleaved(self.x, depth)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out, self.nerr = rs.decode_interleaved(self.x, depth)
+
+    def __call__(self, data: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        with self.lock:
+            self.x.copy_(data)
+            self.graph.replay()
+            return self.out.clone(), self.nerr.clone()
 
 
 class CaduChain:
@@ -185,9 +221,12 @@ class CaduChain:
         # torch.argmax takes the first index on ties, as jnp.argmax
         best_n = torch.argmax(hits_n)
         best_i = torch.argmax(hits_i)
-        inverted = hits_i[best_i] > hits_n[best_n]
+        # indexing by a 0-dim card tensor reads the index on the host
+        with trace.span("decoder.lock_peak", "wait"):
+            inverted = hits_i[best_i] > hits_n[best_n]
         r = torch.where(inverted, best_i, best_n).to(I32)
-        nhits = torch.maximum(hits_n[best_n], hits_i[best_i])
+        with trace.span("decoder.lock_peak", "wait"):
+            nhits = torch.maximum(hits_n[best_n], hits_i[best_i])
 
         # periodic frame extraction: an index gather from r (a device scalar,
         # so no host sync); the zero pad keeps every index in range
@@ -213,7 +252,7 @@ class CaduChain:
             fbytes[:, self.derand_from:] ^= self._pn_t
         if self.rs is not None:
             payload = fbytes[:, 4: 4 + 255 * self.rs_i]
-            corrected, rs_errs = self.rs.decode_interleaved(payload, self.rs_i)
+            corrected, rs_errs = self._rs_decode(payload)
             fbytes[:, 4: 4 + 255 * self.rs_i] = corrected
         if self.derand and self.derand_after_rs:
             fbytes[:, self.derand_from:] ^= self._pn_t
@@ -234,6 +273,21 @@ class CaduChain:
         return (words, fdist, rs_errs, r, inverted.to(I32),
                 nhits, new_carry, new_ctx, new_nrzm, ber)
 
+    def _rs_decode(self, payload: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The interleaved RS decode: replayed from its CUDA graph on the
+        card (captured at the first call of a shape), direct elsewhere."""
+        if payload.device.type != "cuda":
+            return self.rs.decode_interleaved(payload, self.rs_i)
+        key = (str(payload.device), self.rs.k, self.rs.dual, self.rs_i,
+               tuple(payload.shape))
+        with _RS_GRAPHS_LOCK:
+            graphed = _RS_GRAPHS.get(key)
+            if graphed is None:
+                graphed = _RS_GRAPHS[key] = _GraphedRS(self.rs, self.rs_i,
+                                                       payload.shape)
+        return graphed(payload)
+
     # ----------------------------------------------------------------- host
     def init_state(self):
         dev = self.device
@@ -251,46 +305,56 @@ class CaduChain:
              ) -> Tuple[np.ndarray, np.ndarray, dict]:
         """One chunk of signed int8 softs (interleaved IQ; length <=
         2*chunk_pairs, padded internally). Returns (cadus (F', bytes) uint8,
-        rs_errs (F', rs_i), stats dict). Mutates `state`."""
+        rs_errs (F', rs_i), stats dict). Mutates `state`. Spans: the
+        pad, copy and device chain (`decoder.chain`, its copies the wait
+        `decoder.to_device`), the copies back (`decoder.to_host`), the
+        unpacking and dedup on the host (`decoder.unpack`)."""
         dev = self.device
-        soft = np.asarray(soft, np.int8)
-        n_pairs = len(soft) // 2
-        buf = np.zeros((self.chunk_pairs, 2), np.int8)
-        buf.reshape(-1)[: n_pairs * 2] = np.where(
-            soft[: n_pairs * 2] == -128, -127, soft[: n_pairs * 2])
-        rot = torch.tensor(self._ROT[phase], dtype=torch.float32, device=dev)
-        swap = torch.tensor(1.0 if iq_swap else 0.0, device=dev)
-        (words, fdist, rs_errs, r, inv, nhits, new_carry, new_ctx,
-         new_nrzm, ber) = \
-            self._step(torch.from_numpy(buf).to(dev), state["soft_ctx"], rot,
-                       swap, state["bit_carry"], state["nrzm_carry"], n_pairs)
+        with trace.span("decoder.chain"):
+            soft = np.asarray(soft, np.int8)
+            n_pairs = len(soft) // 2
+            buf = np.zeros((self.chunk_pairs, 2), np.int8)
+            buf.reshape(-1)[: n_pairs * 2] = np.where(
+                soft[: n_pairs * 2] == -128, -127, soft[: n_pairs * 2])
+            with trace.span("decoder.to_device", "wait"):
+                rot = torch.tensor(self._ROT[phase], dtype=torch.float32,
+                                   device=dev)
+                swap = torch.tensor(1.0 if iq_swap else 0.0, device=dev)
+                pairs = torch.from_numpy(buf).to(dev)
+            (words, fdist, rs_errs, r, inv, nhits, new_carry, new_ctx,
+             new_nrzm, ber) = \
+                self._step(pairs, state["soft_ctx"], rot, swap,
+                           state["bit_carry"], state["nrzm_carry"], n_pairs)
         state["bit_carry"] = new_carry
         state["soft_ctx"] = new_ctx
         state["nrzm_carry"] = new_nrzm
-        words = to_numpy(words)
-        fdist = to_numpy(fdist)
-        rs_errs = to_numpy(rs_errs)
-        r = int(r)
-        # unpack words -> bytes
-        F = words.shape[0]
-        by = np.empty((F, words.shape[1] * 4), np.uint8)
-        by[:, 0::4] = (words >> 24) & 0xFF
-        by[:, 1::4] = (words >> 16) & 0xFF
-        by[:, 2::4] = (words >> 8) & 0xFF
-        by[:, 3::4] = words & 0xFF
-        by = by[:, : self.cadu_bytes]
+        with trace.span("decoder.to_host", "wait"):
+            words = to_numpy(words)
+            fdist = to_numpy(fdist)
+            rs_errs = to_numpy(rs_errs)
+            r = int(r)
+            stats = dict(ber=float(ber), nhits=int(nhits),
+                         inverted=bool(int(inv)))
+        with trace.span("decoder.unpack", "host"):
+            # unpack words -> bytes
+            F = words.shape[0]
+            by = np.empty((F, words.shape[1] * 4), np.uint8)
+            by[:, 0::4] = (words >> 24) & 0xFF
+            by[:, 1::4] = (words >> 16) & 0xFF
+            by[:, 2::4] = (words >> 8) & 0xFF
+            by[:, 3::4] = words & 0xFF
+            by = by[:, : self.cadu_bytes]
 
-        # absolute-position dedup + validity
-        abs_start = state["abs_base"] + r + np.arange(F) * self.L
-        abs_end = abs_start + self.L
-        valid_end = state["abs_base"] + self.carry_bits + n_pairs
-        keep = (fdist <= self.asm_thr) & (abs_start > state["last_emitted"]) \
-            & (abs_end <= valid_end)
-        if keep.any():
-            state["last_emitted"] = int(abs_start[keep].max())
-        state["abs_base"] += n_pairs
-        stats = dict(ber=float(ber), nhits=int(nhits), inverted=bool(int(inv)))
-        return by[keep], rs_errs[keep], stats
+            # absolute-position dedup + validity
+            abs_start = state["abs_base"] + r + np.arange(F) * self.L
+            abs_end = abs_start + self.L
+            valid_end = state["abs_base"] + self.carry_bits + n_pairs
+            keep = (fdist <= self.asm_thr) \
+                & (abs_start > state["last_emitted"]) & (abs_end <= valid_end)
+            if keep.any():
+                state["last_emitted"] = int(abs_start[keep].max())
+            state["abs_base"] += n_pairs
+            return by[keep], rs_errs[keep], stats
 
     def flush(self, state: dict, phase: int = 0, iq_swap: bool = False
               ) -> Tuple[np.ndarray, np.ndarray, dict]:

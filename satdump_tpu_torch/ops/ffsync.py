@@ -19,6 +19,9 @@ None (MetOp's sps ≈ 2.571, METEOR's ≈ 3.889) `ff_clock_recovery` picks the
 symbols with `resample_arith_grid` (ops/cuda/resample.py): the CUDA kernel
 K2 on the card, its plain version on the CPU. Outputs use the reference's
 fixed-capacity + valid-mask convention, and state stays on the device.
+Each host read of a card value and each host constant a block copies to
+the card makes the host wait for the card: each is a `wait` span
+`psk_demod.<what>` (core/trace.py).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from satdump_tpu_torch.core import trace
 from satdump_tpu_torch.ops.cuda.resample import interp_at, resample_arith_grid
 from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
 from satdump_tpu_torch.utils.device import resolve_device
@@ -76,9 +80,13 @@ def cfo_estimate(x: torch.Tensor, order: int,
         xm = 0.5 * (xm + torch.roll(xm, -1))
     p = torch.fft.fft(xm).abs()
     k = torch.argmax(p)
-    pm1 = p[(k - 1) % n]
-    p0 = p[k]
-    pp1 = p[(k + 1) % n]
+    # indexing by a 0-dim card tensor reads the index on the host: a wait
+    with trace.span("psk_demod.cfo_peak", "wait"):
+        pm1 = p[(k - 1) % n]
+    with trace.span("psk_demod.cfo_peak", "wait"):
+        p0 = p[k]
+    with trace.span("psk_demod.cfo_peak", "wait"):
+        pp1 = p[(k + 1) % n]
     denom = pm1 - 2.0 * p0 + pp1
     delta = torch.where(denom.abs() > 1e-9, 0.5 * (pm1 - pp1) / denom,
                         torch.zeros_like(denom))
@@ -119,8 +127,10 @@ def vv_phase_track(x: torch.Tensor, order: int, sub: int,
     un = u / u.abs().clamp_min(1e-12)
     s = _ipow(un, order).sum(dim=-1)                     # (nsub,)
     if const_rotation:
-        rot = torch.exp(torch.tensor(-1j * order * const_rotation,
-                                     dtype=C64, device=x.device))
+        with trace.span("psk_demod.rotation", "wait"):
+            rot = torch.tensor(-1j * order * const_rotation, dtype=C64,
+                               device=x.device)
+        rot = torch.exp(rot)
         s = s * rot
     ph = torch.angle(s) / order                          # (-π/M, π/M]
     period = 2 * math.pi / order
@@ -158,8 +168,16 @@ def _half_sample_taps(ntaps: int = 15) -> np.ndarray:
 _HALF_SAMPLE_FIR = _half_sample_taps()
 
 
-def _f32(a: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+def _f32(a: np.ndarray, device, span: str) -> torch.Tensor:
+    """A host array as float32 on `device`, in the wait span `span`."""
+    with trace.span(span, "wait"):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
+def _c64(a: np.ndarray, device, span: str) -> torch.Tensor:
+    """A host array as complex64 on `device`, in the wait span `span`."""
+    with trace.span(span, "wait"):
+        return torch.as_tensor(a.astype(np.complex64), device=device)
 
 
 def om_timing_fit(x: torch.Tensor, sps: float, sub: int
@@ -193,12 +211,12 @@ def om_timing_fit(x: torch.Tensor, sps: float, sub: int
         tke = np.exp(-2j * np.pi * ((2.0 * np.arange(sub)) % sps2) / sps2)
         tko = np.exp(-2j * np.pi * ((2.0 * np.arange(sub) + 1) % sps2)
                      / sps2)
-        cr = ex @ _f32(tke.real, dev) + eh @ _f32(tko.real, dev)
-        ci = ex @ _f32(tke.imag, dev) + eh @ _f32(tko.imag, dev)
+        tones = "psk_demod.tones"
+        cr = ex @ _f32(tke.real, dev, tones) + eh @ _f32(tko.real, dev, tones)
+        ci = ex @ _f32(tke.imag, dev, tones) + eh @ _f32(tko.imag, dev, tones)
         tj = np.exp(-2j * np.pi * ((np.arange(nsub2) * float(2 * sub))
                                    % sps2) / sps2)
-        c = torch.as_tensor(tj.astype(np.complex64), device=dev) \
-            * torch.complex(cr, ci)
+        c = _c64(tj, dev, tones) * torch.complex(cr, ci)
         tau_e, skew = _om_fit(c, sps2, 2 * sub)
         return tau_e * 0.5, skew
     return _om_core(_pw(x), sps, sub)
@@ -221,10 +239,9 @@ def _om_core(e_sig: torch.Tensor, sps: float, sub: int
     dev = e_sig.device
     tk = np.exp(-2j * np.pi * (np.arange(sub) % sps) / sps)
     tj = np.exp(-2j * np.pi * ((np.arange(nsub) * float(sub)) % sps) / sps)
-    cr = e @ _f32(tk.real, dev)
-    ci = e @ _f32(tk.imag, dev)
-    c = torch.as_tensor(tj.astype(np.complex64), device=dev) \
-        * torch.complex(cr, ci)                                 # (nsub,)
+    cr = e @ _f32(tk.real, dev, "psk_demod.tones")
+    ci = e @ _f32(tk.imag, dev, "psk_demod.tones")
+    c = _c64(tj, dev, "psk_demod.tones") * torch.complex(cr, ci)  # (nsub,)
     return _om_fit(c, sps, sub)
 
 
@@ -399,9 +416,10 @@ def resample_strip(ext: torch.Tensor, start: torch.Tensor,
     d = d.clamp(0, D - 1)
 
     coefs = _bank_poly_coefs(bank)                # (deg+1, ntaps) host np
-    tp = _f32(coefs[0], dev)[None, :].expand(cap, ntaps)
+    taps_span = "psk_demod.strip_taps"
+    tp = _f32(coefs[0], dev, taps_span)[None, :].expand(cap, ntaps)
     for row in coefs[1:]:
-        tp = tp * frac[:, None] + _f32(row, dev)[None, :]
+        tp = tp * frac[:, None] + _f32(row, dev, taps_span)[None, :]
     taps = tp.reshape(nseg, G, ntaps)
 
     M = D + ntaps
@@ -462,8 +480,11 @@ def ff_clock_recovery(state: FFClockState, x: torch.Tensor, *, sps: float,
     ext = torch.cat([state.history[: ntaps - 1], x])
     strip_geo = _strip_geometry(sps, ntaps)
     if strip_geo is not None:
-        bank_np = bank if isinstance(bank, np.ndarray) \
-            else bank_t.cpu().numpy()
+        if isinstance(bank, np.ndarray):
+            bank_np = bank
+        else:
+            with trace.span("psk_demod.bank", "wait"):
+                bank_np = bank_t.cpu().numpy()
         syms, valid = resample_strip(ext, start, omega, bank_np,
                                      out_cap=out_cap, sps=sps, n_in=n)
     else:
@@ -518,7 +539,7 @@ def _segmented_mf(x: torch.Tensor, taps: np.ndarray,
     n = x.shape[-1]
     if ntaps <= 64:
         return _direct_mf(x, taps)
-    H_taps = _f32(taps, x.device)
+    H_taps = _f32(taps, x.device, "psk_demod.mf_taps")
     if n <= seg:
         nfft = max(256, 1 << int(np.ceil(np.log2(n + ntaps - 1))))
         X = torch.fft.fft(x, nfft)

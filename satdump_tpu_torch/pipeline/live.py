@@ -26,13 +26,15 @@ from typing import Iterable, List, Optional
 
 import numpy as np
 
+from satdump_tpu_torch.core import trace
 from satdump_tpu_torch.core.exceptions import PipelineError
 from satdump_tpu_torch.ops.cuda import launch_counts
 from satdump_tpu_torch.pipeline.module import (module_registry,
                                                register_all_modules)
 from satdump_tpu_torch.pipeline.pipeline import Pipeline
 
-# the parts of a block's host time that `times` accumulates (seconds)
+# the parts of a block's host time that `times` accumulates (seconds),
+# each the span `live.<part>`
 TIMED_PARTS = ("rebuffer", "fft_tap", "demod", "decoder", "soft_write")
 
 
@@ -107,52 +109,54 @@ class LivePipeline:
         self._fft_avg = None
         self.blocks = 0
         self.times = dict.fromkeys(TIMED_PARTS, 0.0)
+        self._laps = trace.Laps(self.times, "live.")
         # kernel launches of this pipeline's blocks, by wrapper
         self.launches = dict.fromkeys(launch_counts(), 0)
 
     def push(self, samples: np.ndarray, last: bool = False) -> None:
-        """Feed source samples; runs the chain on every full block."""
-        clock = time.perf_counter
-        t = clock()
-        self._buf = np.concatenate(
-            [self._buf, np.asarray(samples, np.complex64)])
-        self._nsamples += len(samples)
-        while len(self._buf) >= self.block_size or (last and len(self._buf)):
-            blk = self._buf[: self.block_size]
-            self._buf = self._buf[self.block_size:]
-            valid = len(blk)
-            if valid < self.block_size:
-                blk = np.concatenate(
-                    [blk, np.zeros(self.block_size - valid, np.complex64)])
-            is_last = last and len(self._buf) == 0
-            t = self._lap("rebuffer", t)
-            counts = launch_counts()
-            self._fft_tap(blk)
-            t = self._lap("fft_tap", t)
-            out = self.modules[0].stream_work(blk, valid=valid, last=is_last)
-            t = self._lap("demod", t)
-            self._soft_f.write(out.tobytes())
-            t = self._lap("soft_write", t)
-            # only the first decoder is fed: chained decoders past it read
-            # from files (the reference's demod + decoder fusion,
-            # live_pipeline.cpp); the later steps' files stay empty
-            if len(self.modules) > 1:
-                self.modules[1].stream_work(out, self._dec_f[0],
-                                            last=is_last)
-                t = self._lap("decoder", t)
-            for k, v in launch_counts().items():
-                self.launches[k] += v - counts[k]
-            self.blocks += 1
-            self._update_stats()
-            t = clock()
-            if is_last:
-                break
-        self._lap("rebuffer", t)
-
-    def _lap(self, part: str, t: float) -> float:
-        now = time.perf_counter()
-        self.times[part] += now - t
-        return now
+        """Feed source samples; runs the chain on every full block. Each
+        part of a block's host time is a span `live.<part>`."""
+        lap = self._laps.lap
+        lap("rebuffer")
+        try:
+            self._buf = np.concatenate(
+                [self._buf, np.asarray(samples, np.complex64)])
+            self._nsamples += len(samples)
+            while len(self._buf) >= self.block_size or \
+                    (last and len(self._buf)):
+                blk = self._buf[: self.block_size]
+                self._buf = self._buf[self.block_size:]
+                valid = len(blk)
+                if valid < self.block_size:
+                    blk = np.concatenate(
+                        [blk, np.zeros(self.block_size - valid,
+                                       np.complex64)])
+                is_last = last and len(self._buf) == 0
+                lap("fft_tap")
+                counts = launch_counts()
+                self._fft_tap(blk)
+                lap("demod")
+                out = self.modules[0].stream_work(blk, valid=valid,
+                                                  last=is_last)
+                lap("soft_write")
+                self._soft_f.write(out.tobytes())
+                # only the first decoder is fed: chained decoders past it
+                # read from files (the reference's demod + decoder fusion,
+                # live_pipeline.cpp); the later steps' files stay empty
+                if len(self.modules) > 1:
+                    lap("decoder")
+                    self.modules[1].stream_work(out, self._dec_f[0],
+                                                last=is_last)
+                lap()
+                for k, v in launch_counts().items():
+                    self.launches[k] += v - counts[k]
+                self.blocks += 1
+                self._update_stats()
+                lap("rebuffer")
+                if is_last:
+                    break
+        finally:
+            lap()
 
     def _update_stats(self) -> None:
         self.stats = {

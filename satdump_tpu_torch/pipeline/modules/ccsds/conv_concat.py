@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from satdump_tpu_torch.core import trace
 from satdump_tpu_torch.core.exceptions import PipelineError
 from satdump_tpu_torch.core.log import logger
 from satdump_tpu_torch.ops.fec import differential
@@ -153,7 +154,10 @@ class CCSDSConvConcatDecoderModule(ProcessingModule):
             self._rs_avg.append(rs_errs.reshape(-1))
             if self.rs_usecheck:
                 cadus = cadus[(rs_errs >= 0).all(axis=1)]
-        fout.write(np.ascontiguousarray(cadus[:, : self.cadu_bytes]).tobytes())
+        with trace.span("decoder.write", "host"):
+            fout.write(np.ascontiguousarray(
+                cadus[:, : self.cadu_bytes]).tobytes())
+        trace.count("decoder.cadus", len(cadus))
         return len(cadus)
 
     def _process_frames(self, frames, fout, rs_avg):
@@ -178,6 +182,7 @@ class CCSDSConvConcatDecoderModule(ProcessingModule):
         if self.rs_usecheck:
             cadus = cadus[valid]
         fout.write(cadus[:, : self.cadu_bytes].tobytes())
+        trace.count("decoder.cadus", len(cadus))
         return len(cadus)
 
     # -- streaming interface (shared by the offline and live runners) -------
@@ -191,7 +196,8 @@ class CCSDSConvConcatDecoderModule(ProcessingModule):
         if self.bpsk_90 or self.iq_invert:
             chunk = rotate_soft(chunk, PHASE_0, iq_swap=True)
         if self.use_device:
-            return self._stream_work_device(chunk, fout, last)
+            with trace.span("decoder.chunk"):
+                return self._stream_work_device(chunk, fout, last)
         bits = self.viterbi.work(chunk, last=last)
         if len(bits) == 0:
             return 0
@@ -220,7 +226,8 @@ class CCSDSConvConcatDecoderModule(ProcessingModule):
         out_path = self.d_output_file_hint + ext
         self.d_output_file = out_path
         self.stream_start()
-        soft = np.fromfile(self.d_input_file, dtype=np.int8)
+        with trace.span("decoder.read", "host"):
+            soft = np.fromfile(self.d_input_file, dtype=np.int8)
         with open(out_path, "wb") as fout:
             for off in range(0, len(soft), self.block):
                 chunk = soft[off: off + self.block]

@@ -22,6 +22,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from satdump_tpu_torch.core import trace
 from satdump_tpu_torch.ops.fec import convolutional as cc
 from satdump_tpu_torch.ops.fec.depuncture import BER_SCALE, Depuncturer
 from satdump_tpu_torch.ops.fec.rotation import (PHASE_0, PHASE_90, PHASE_180,
@@ -135,8 +136,15 @@ class Viterbi12Sync:
         lane-parallel decodes of ≤ max_lanes hypotheses each.
 
         Returns the soft index where lock was established (state/phase/
-        shift/iq_swap updated), or -1 after scanning everything."""
-        soft = np.asarray(soft, np.int8)
+        shift/iq_swap updated), or -1 after scanning everything. The span
+        `decoder.lock_search`, its copies the waits `decoder.lock_wait`,
+        its re-encoding and BER on the host `decoder.lock_ber`."""
+        with trace.span("decoder.lock_search"):
+            return self._search_stream(np.asarray(soft, np.int8), stride,
+                                       max_lanes)
+
+    def _search_stream(self, soft: np.ndarray, stride: int, max_lanes: int
+                       ) -> int:
         if len(soft) < TEST_BITS:
             return -1
         n_hyp = len(self.phases) * len(self._shift_range()) * \
@@ -167,17 +175,23 @@ class Viterbi12Sync:
                             windows.append(w)
             wlen = min(len(w) for w in windows) // 2 * 2
             W = np.stack([w[:wlen] for w in windows]).astype(np.float32)
-            bits, _ = cc.viterbi_decode_block(
-                torch.from_numpy(W.reshape(len(hyps), -1, 2)).to(self.device))
-            bits = to_numpy(bits).astype(np.uint8)
-            reenc = cc.conv_encode_batch(bits)
-            best = None  # (offset, ber, i): EARLIEST offset wins, as the
-            for i, (ph, shift, swap, o) in enumerate(hyps):  # ref locks at
-                b = _ber(windows[i][:wlen].astype(np.uint8), reenc[i],
-                         self.berscale)  # the first passing buffer
-                if b < self.ber_threshold and \
-                        (best is None or (o, b) < (best[0], best[1])):
-                    best = (o, b, i)
+            with trace.span("decoder.lock_wait", "wait"):
+                W = torch.from_numpy(W.reshape(len(hyps), -1, 2)).to(
+                    self.device)
+            bits, _ = cc.viterbi_decode_block(W)
+            with trace.span("decoder.lock_wait", "wait"):
+                bits = to_numpy(bits)
+            with trace.span("decoder.lock_ber", "host"):
+                reenc = cc.conv_encode_batch(bits.astype(np.uint8))
+                # (offset, ber, i): the EARLIEST offset wins, as the ref
+                # locks at the first passing buffer
+                best = None
+                for i, (ph, shift, swap, o) in enumerate(hyps):
+                    b = _ber(windows[i][:wlen].astype(np.uint8), reenc[i],
+                             self.berscale)
+                    if b < self.ber_threshold and \
+                            (best is None or (o, b) < (best[0], best[1])):
+                        best = (o, b, i)
             if best is not None:
                 o, b, i = best
                 self.phase, self.shift, self.iq_swap, _ = hyps[i]
@@ -217,29 +231,35 @@ class Viterbi12Sync:
             if self.depunc is None:
                 drop = self.shift
 
-        rotated = rotate_soft(soft, self.phase, self.iq_swap)
-        u8 = cc.soft_int8_to_u8(rotated)
-        if drop:
-            u8 = u8[drop:]
-        if self.depunc is not None:
-            u8 = self.depunc.depunc_cont(u8)
-        buf = np.concatenate([self._carry, u8]) if len(self._carry) else u8
-        n_pairs = len(buf) // 2
-        tail_keep = 0 if last else HALO
-        if n_pairs - self._emit_from - tail_keep <= 0:
-            self._carry = buf
-            return np.zeros(0, np.uint8)
+        with trace.span("decoder.rotate", "host"):
+            rotated = rotate_soft(soft, self.phase, self.iq_swap)
+            u8 = cc.soft_int8_to_u8(rotated)
+            if drop:
+                u8 = u8[drop:]
+            if self.depunc is not None:
+                u8 = self.depunc.depunc_cont(u8)
+            buf = np.concatenate([self._carry, u8]) if len(self._carry) \
+                else u8
+            n_pairs = len(buf) // 2
+            tail_keep = 0 if last else HALO
+            if n_pairs - self._emit_from - tail_keep <= 0:
+                self._carry = buf
+                return np.zeros(0, np.uint8)
 
-        T = -(-n_pairs // SEG) * SEG
-        pairs = np.full((T, 2), 128.0, np.float32)
-        pairs[:n_pairs] = buf[: 2 * n_pairs].reshape(-1, 2)
+            T = -(-n_pairs // SEG) * SEG
+            pairs = np.full((T, 2), 128.0, np.float32)
+            pairs[:n_pairs] = buf[: 2 * n_pairs].reshape(-1, 2)
         # register-exchange for rate 1/2 (the CUDA kernel K1 on the card;
         # truncation depth 63 is ample); punctured rates have a much longer
         # effective constraint, so they use the full-traceback tiled decoder
         decode = viterbi_re if self.depunc is None \
             else cc.viterbi_decode_tiled
-        bits = to_numpy(decode(torch.from_numpy(pairs).to(self.device),
-                               seg=SEG, ovl=HALO)).astype(np.uint8)[:n_pairs]
+        with trace.span("decoder.to_device", "wait"):
+            pairs = torch.from_numpy(pairs).to(self.device)
+        bits = decode(pairs, seg=SEG, ovl=HALO)
+        with trace.span("decoder.to_host", "wait"):
+            bits = to_numpy(bits)
+        bits = bits.astype(np.uint8)[:n_pairs]
         out = bits[self._emit_from: n_pairs - tail_keep]
 
         # BER via re-encode over a mid-stream window (ref viterbi_1_2.cpp:

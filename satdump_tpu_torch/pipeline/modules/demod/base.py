@@ -15,6 +15,7 @@ import math
 import numpy as np
 import torch
 
+from satdump_tpu_torch.core import trace
 from satdump_tpu_torch.core.exceptions import PipelineError
 from satdump_tpu_torch.core.log import logger
 from satdump_tpu_torch.io.baseband import BasebandReader
@@ -165,15 +166,24 @@ class BaseDemodModule(ProcessingModule):
         return s
 
     def process(self):
-        """Every block of the input through stream_work into the .soft."""
+        """Every block of the input through stream_work into the .soft;
+        each block's read and write are host spans `<id>.read` and
+        `<id>.write`."""
         self.stream_start()
         out_path = self.d_output_file_hint + ".soft"
         self.d_output_file = out_path
-        reader = self.open_input(self.block_size)
+        blocks = self.open_input(self.block_size).blocks()
+        read, write = f"{self.id}.read", f"{self.id}.write"
         with open(out_path, "wb") as f:
-            for blk in reader.blocks():
-                f.write(self.stream_work(blk.samples, valid=blk.valid,
-                                         last=blk.last).tobytes())
+            while True:
+                with trace.span(read, "host"):
+                    blk = next(blocks, None)
+                if blk is None:
+                    break
+                soft = self.stream_work(blk.samples, valid=blk.valid,
+                                        last=blk.last)
+                with trace.span(write, "host"):
+                    f.write(soft.tobytes())
         logger.info(f"{self.id}: demodulated {self._nsyms} symbols")
 
     def to_device(self, samples: np.ndarray) -> torch.Tensor:

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from satdump_tpu_torch.core import trace
 from satdump_tpu_torch.core.exceptions import PipelineError
 from satdump_tpu_torch.core.log import logger
 from satdump_tpu_torch.io.baseband import read_baseband
@@ -151,20 +152,32 @@ class PSKDemodModule(BaseDemodModule):
     def stream_work(self, samples: np.ndarray, valid: int | None = None,
                     last: bool = False) -> np.ndarray:
         """One fixed-size complex64 block (pad the tail with zeros) ->
-        int8 soft symbols."""
-        x = self.to_device(samples)
-        syms, vmask, snr = (self._fast_block if self.fast
-                            else self._classic_block)(x)
-        s = self.keep_valid(syms, vmask, valid, last)
-        self._snr = float(snr)
-        self._peak_snr = max(self._peak_snr, self._snr)
-        if self.is_bpsk:
-            out = to_numpy(stages.bpsk_soft(s, 50.0))
-        else:
-            s = to_numpy(s)
-            out = np.empty(2 * len(s), np.int8)
-            out[0::2] = np.clip(s.real * 100.0, -127, 127).astype(np.int8)
-            out[1::2] = np.clip(s.imag * 100.0, -127, 127).astype(np.int8)
+        int8 soft symbols: the span `psk_demod.block`, holding one span
+        for each of its parts and for each wait on the card."""
+        with trace.span("psk_demod.block"):
+            with trace.span("psk_demod.to_device", "wait"):
+                x = self.to_device(samples)
+            with trace.span("psk_demod.chain"):
+                syms, vmask, snr = (self._fast_block if self.fast
+                                    else self._classic_block)(x)
+            with trace.span("psk_demod.pick", "wait"):
+                s = self.keep_valid(syms, vmask, valid, last)
+            with trace.span("psk_demod.snr", "wait"):
+                self._snr = float(snr)
+            self._peak_snr = max(self._peak_snr, self._snr)
+            if self.is_bpsk:
+                soft = stages.bpsk_soft(s, 50.0)
+                with trace.span("psk_demod.to_host", "wait"):
+                    out = to_numpy(soft)
+            else:
+                with trace.span("psk_demod.to_host", "wait"):
+                    s = to_numpy(s)
+                with trace.span("psk_demod.quantize", "host"):
+                    out = np.empty(2 * len(s), np.int8)
+                    out[0::2] = np.clip(s.real * 100.0, -127,
+                                        127).astype(np.int8)
+                    out[1::2] = np.clip(s.imag * 100.0, -127,
+                                        127).astype(np.int8)
         self._nsyms += len(s)
         self.stats = {"snr": self._snr, "peak_snr": self._peak_snr,
                       "symbols": self._nsyms}

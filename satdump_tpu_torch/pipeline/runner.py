@@ -11,12 +11,12 @@ pipeline's `torch_device`.
 
 from __future__ import annotations
 
-import time
 from pathlib import Path
 from typing import Optional
 
 from satdump_tpu_torch.core.events import PipelineDoneProcessingEvent, event_bus
 from satdump_tpu_torch.core.exceptions import PipelineError
+from satdump_tpu_torch.core import trace
 from satdump_tpu_torch.core.log import logger
 from satdump_tpu_torch.pipeline.module import module_registry, register_all_modules
 from satdump_tpu_torch.pipeline.pipeline import Pipeline
@@ -54,13 +54,13 @@ def run_pipeline(pipeline: Pipeline, input_file: str, output_dir: str,
         cls = module_registry.get(step.module_id)
         mod = cls(cur_input, hint, params)
         logger.info(f"[{pipeline.id}] {step.module_id}: {cur_input} -> level '{step.level}'")
-        t0 = time.time()
-        mod.init()
-        mod.process()
-        mod.stop()
-        dt = time.time() - t0
+        with trace.timed(f"step.{step.module_id}") as span:
+            mod.init()
+            mod.process()
+            mod.stop()
         stats = mod.getModuleStats()
-        logger.info(f"[{pipeline.id}] {step.module_id} done in {dt:.1f}s "
+        logger.info(f"[{pipeline.id}] {step.module_id} done in "
+                    f"{span.ns / 1e9:.1f}s "
                     + (f"stats={stats}" if stats else ""))
         if mod.d_output_file:
             cur_input = mod.d_output_file
