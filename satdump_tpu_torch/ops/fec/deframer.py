@@ -5,10 +5,11 @@ Reference semantics: src-core/common/codings/deframing/bpsk_ccsds_deframer.cpp
 per-state hamming tolerance) and codings/correlator.h.
 
 TPU-native reformulation (SURVEY.md A.2): the heavy part — comparing every
-bit offset against the syncword — is a vectorized correlation over the whole
-block (hamming distance at all offsets for both polarities at once); the
-residual state machine walks only the *candidate* positions, which is O(frames)
-per block instead of O(bits), done host-side in NumPy.
+bit offset against the syncword — is one vectorized pass over the whole
+block (hamming distance at all offsets, on bit-packed words; the inverted
+syncword's distance is its length less that); the residual state machine
+walks only the *candidate* positions, which is O(frames) per block instead
+of O(bits), done host-side in NumPy.
 """
 
 from __future__ import annotations
@@ -32,18 +33,44 @@ def asm_bits(asm: int = CCSDS_ASM, nbits: int = ASM_SIZE) -> np.ndarray:
 
 def correlate_bits(bits: np.ndarray, pattern: np.ndarray) -> np.ndarray:
     """Hamming distance of `pattern` against every offset of `bits`.
-    Returns dist[i] for i in [0, len(bits)-len(pattern)]. Implemented as a
-    correlation (polynomial multiply via FFT for long patterns, direct sum
-    otherwise) — the matched-filter form that vectorizes on TPU."""
+    Returns dist[i] (int32) for i in [0, len(bits)-len(pattern)]: the sum,
+    over the pattern's 64-bit pieces, of each piece's distance on packed
+    words (`_packed_distance`)."""
     n, m = len(bits), len(pattern)
     if n < m:
         return np.zeros(0, dtype=np.int32)
-    b = bits.astype(np.int32)
-    p = pattern.astype(np.int32)
-    # dist = sum(p XOR b) = sum(p) + sum(b) - 2*corr(p, b)
-    win_sum = np.convolve(b, np.ones(m, dtype=np.int32), "valid")
-    corr = np.convolve(b, p[::-1], "valid")
-    return (p.sum() + win_sum - 2 * corr).astype(np.int32)
+    cnt = n - m + 1
+    dist = _packed_distance(bits[:cnt + min(m, 64) - 1], pattern[:64])
+    for c in range(64, m, 64):
+        q = pattern[c: c + 64]
+        dist += _packed_distance(bits[c: c + cnt + len(q) - 1], q)
+    return dist
+
+
+def _packed_distance(bits: np.ndarray, pattern: np.ndarray) -> np.ndarray:
+    """correlate_bits for a pattern of m <= 64 bits: the m-bit window at
+    each offset as one big-endian uint32 (m <= 32) or uint64 word, XOR the
+    pattern, popcount. Offsets 8j + r take their words from the bytes
+    that `np.packbits` makes of the stream from bit r on."""
+    n, m = len(bits), len(pattern)
+    cnt = n - m + 1
+    dt = np.uint32 if m <= 32 else np.uint64
+    nb = np.dtype(dt).itemsize
+    k = -(-cnt // 8)                    # offsets of each bit phase
+    buf = np.zeros(8 * (k + nb), np.uint8)   # zeros past the end
+    buf[:n] = bits
+    p = dt(int("".join(str(int(b)) for b in pattern), 2))
+    out = np.empty(8 * k, np.int32)
+    for r in range(8):
+        w = np.packbits(buf[r: r + 8 * (k + nb - 1)]).astype(dt)
+        s = 1
+        while s < nb:                   # word j: bytes j .. j + 2s - 1
+            w = (w[:-s] << dt(8 * s)) | w[s:]
+            s *= 2
+        w >>= dt(8 * nb - m)
+        w ^= p
+        out[r::8] = np.bitwise_count(w)
+    return out[:cnt]
 
 
 @dataclass
@@ -74,7 +101,6 @@ class CCSDSDeframer:
         self.cadu_bits = cadu_size
         self.asm = asm
         self.pattern = asm_bits(asm)
-        self.pattern_inv = 1 - self.pattern
         self.thr_syncing = syncing_threshold
         self.thr_synced = synced_threshold
         self.good_to_lock = good_to_lock
@@ -100,8 +126,9 @@ class CCSDSDeframer:
             st.tail = stream
             return []
 
-        dist_n = correlate_bits(stream, self.pattern)
-        dist_i = correlate_bits(stream, self.pattern_inv)
+        # one correlation: the inverted ASM's distance is ASM_SIZE - dist
+        dist = correlate_bits(stream, self.pattern)
+        exact = np.flatnonzero((dist == 0) | (dist == ASM_SIZE))
 
         frames: List[np.ndarray] = []
         pos = 0  # index into stream
@@ -112,29 +139,19 @@ class CCSDSDeframer:
             if pos == 0 and first_prechecked and st.state != STATE_NOSYNC:
                 first_prechecked = False  # ASM already counted last call
             elif st.state == STATE_NOSYNC:
-                # find next exact ASM (either polarity) from pos
-                dn = dist_n[pos:]
-                di = dist_i[pos:]
-                hitn = np.flatnonzero(dn == 0)
-                hiti = np.flatnonzero(di == 0)
-                cand = None
-                if len(hitn) and len(hiti):
-                    cand = min(hitn[0], hiti[0])
-                elif len(hitn):
-                    cand = hitn[0]
-                elif len(hiti):
-                    cand = hiti[0]
-                if cand is None:
+                # next exact ASM (either polarity) at or after pos
+                i = np.searchsorted(exact, pos)
+                if i == len(exact):
                     pos = n  # nothing in this block
                     break
-                pos += int(cand)
-                st.bit_inversion = dist_n[pos] != 0  # exact hit was the inverted ASM
+                pos = int(exact[i])
+                st.bit_inversion = dist[pos] != 0  # exact hit was the inverted ASM
                 st.state = STATE_SYNCING
                 st.d_good = st.d_invalid = 0
                 # fall through to frame extraction
             else:
                 # expect an ASM exactly at pos
-                d = dist_i[pos] if st.bit_inversion else dist_n[pos]
+                d = ASM_SIZE - dist[pos] if st.bit_inversion else dist[pos]
                 thr = self.thr_syncing if st.state == STATE_SYNCING else self.thr_synced
                 if d >= thr:
                     if st.state == STATE_SYNCING:
