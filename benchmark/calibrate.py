@@ -36,7 +36,7 @@ def main() -> int:
     n = cell.driver.recording_samples(cell.cfg, cell.traffic,
                                       bench["run_seconds"])
     for seed in (int(s) for s in a.seeds.split(",")):
-        rec = tx.make_recording(cell.cfg, cell.code, n, seed, "cuda")
+        rec = cell.code.make_recording(cell.cfg, n, seed, "cuda")
         x = tx.cs16_to_complex(rec.iq)
         del rec
         ref = cell.reference.demod(x, cell.cfg)[0]

@@ -15,3 +15,9 @@ def channel_bits(bits):
     chan[0::2] = tx.conv_encode(x)
     chan[1::2] = tx.conv_encode(y)
     return chan, 2
+
+
+def make_recording(cfg: dict, n_samples: int, seed: int, device
+                   ) -> tx.Recording:
+    """`n_samples` of the configuration's QPSK downlink from `seed`."""
+    return tx.make_recording(cfg, channel_bits, n_samples, seed, device)

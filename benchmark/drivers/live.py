@@ -72,8 +72,8 @@ class Driver:
         self.reserve = _reserve_chunks(tr) * self.chunk
         n = recording_samples(self.cfg, tr, run.seconds)
         t0 = time.perf_counter()
-        rec = tx.make_recording(self.cfg, run.cell.code, n, run.seed,
-                                run.device)
+        rec = run.cell.code.make_recording(self.cfg, n, run.seed,
+                                           run.device)
         self.x = tx.cs16_to_complex(rec.iq).cpu().numpy()
         self.sent, self.end = rec.cadus, rec.cadu_end
         del rec
@@ -173,7 +173,7 @@ class Driver:
 
     def finish(self) -> None:
         t0 = time.perf_counter()
-        self.soft_path, self.cadu_path = self.lp.stop()[:2]
+        self.mid_path, self.cadu_path = self.lp.stop()[:2]
         self.pushes.append((t0, time.perf_counter(), self.pos, self.written))
         self._latencies()
 
@@ -198,7 +198,7 @@ class Driver:
         self.run.record["latencies_ms"] = lat
 
     def outputs(self):
-        yield (self.soft_path, self.pos, np.fromfile(self.cadu_path,
+        yield (self.mid_path, self.pos, np.fromfile(self.cadu_path,
                                                      np.uint8), self.due)
 
     def stream(self, device) -> torch.Tensor:

@@ -1,13 +1,18 @@
 """Offline traffic: a recording written once in set-up and decoded by whole
-`run_pipeline` calls, baseband -> .cadu, back to back (a closed loop), each
-call building its modules as a user's call does. Calls start until the
-window's seconds have passed; the window ends with the last of them.
+`run_pipeline` calls, baseband -> the last level, back to back (a closed
+loop), each call building its modules as a user's call does. Calls start
+until the window's seconds have passed; the window ends with the last of
+them.
 
 The configuration's `levels` name the pipeline's three levels (baseband,
-soft symbols, frames). In a traced run each call runs the levels one at a
-time, as the runner does, with the host clock around each level (the
+the middle level, frames). In a traced run each call runs the levels one at
+a time, as the runner does, with the host clock around each level (the
 per-layer spans), and after the window `trace_calls` more calls run with
-each level in a profiler session of its own.
+each level in a profiler session of its own. The first level's span and
+session are named by the middle level's module (`psk_demod`), the second's
+`decoder`. Set-up's warm-up runs level by level too, and the files that it
+gets back from the pipeline name the files each call writes, which the
+reference's `check` reads through `outputs()`.
 
 The traffic file gives `warmup_samples` (the recording's prefix that set-up
 decodes through the same entry), `trace_calls`, and `tail_guard` (samples:
@@ -19,11 +24,14 @@ from __future__ import annotations
 
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from harness import program, trace, tx
+
+DECODER = "decoder"
 
 
 def recording_samples(cfg: dict, tr: dict, seconds: float) -> int:
@@ -40,14 +48,15 @@ class Driver:
         self._run_pipeline = run_pipeline
         self.params = program.user_params(run.device)
         base, self.mid, last = self.cfg["levels"]
+        self.layer = self.cfg["pipeline_parameters"][self.mid]["module"]
         self.full = program.pipeline(self.cfg, base, last)
-        self.soft_pipe = program.pipeline(self.cfg, base, self.mid)
-        self.cadu_pipe = program.pipeline(self.cfg, self.mid, last)
+        self.mid_pipe = program.pipeline(self.cfg, base, self.mid)
+        self.last_pipe = program.pipeline(self.cfg, self.mid, last)
         self.n = recording_samples(self.cfg, self.tr, run.seconds)
         self.air_s = self.n / self.cfg["signal"]["samplerate"]
         t0 = time.perf_counter()
-        rec = tx.make_recording(self.cfg, run.cell.code, self.n, run.seed,
-                                run.device)
+        rec = run.cell.code.make_recording(self.cfg, self.n, run.seed,
+                                           run.device)
         self.iq = rec.iq.cpu().numpy()
         self.sent = rec.cadus
         self.due = rec.cadu_end + self.tr["tail_guard"] <= self.n
@@ -58,34 +67,39 @@ class Driver:
         warm = run.work / f"warm.{fmt}"
         self.iq[: self.tr["warmup_samples"]].tofile(warm)
         t1 = time.perf_counter()
-        self._call(warm, run.work / "warm")
+        files = self._call(warm, run.work / "warm", self._spans())
+        self.names = [Path(f).name for f in files]
         self.calls = []
         print(f"benchmark: recording of {self.n} samples made and written in "
               f"{t1 - t0:.1f} s, warm-up {time.perf_counter() - t1:.1f} s",
               file=sys.stderr)
 
-    def _call(self, src, out, spans=None) -> None:
-        """One call, baseband -> .cadu; with `spans`, level by level with
-        the host clock around each, ended by a synchronize."""
+    def _spans(self) -> dict:
+        return dict.fromkeys((self.layer, DECODER), 0.0)
+
+    def _call(self, src, out, spans=None):
+        """One call, baseband -> the last level; with `spans`, level by
+        level with the host clock around each, ended by a synchronize, and
+        then the files of the middle and the last level."""
         dev = self.run.device
         if spans is None:
             self._run_pipeline(self.full, str(src), str(out), self.params)
             program.sync(dev)
-            return
+            return None
         t0 = time.perf_counter()
-        soft = self._run_pipeline(self.soft_pipe, str(src), str(out),
-                                  self.params)
+        mid = self._run_pipeline(self.mid_pipe, str(src), str(out),
+                                 self.params)
         program.sync(dev)
         t1 = time.perf_counter()
-        self._run_pipeline(self.cadu_pipe, soft, str(out), self.params,
-                           start_level=self.mid)
+        last = self._run_pipeline(self.last_pipe, mid, str(out), self.params,
+                                  start_level=self.mid)
         program.sync(dev)
-        spans["psk_demod"] += t1 - t0
-        spans["decoder"] += time.perf_counter() - t1
+        spans[self.layer] += t1 - t0
+        spans[DECODER] += time.perf_counter() - t1
+        return mid, last
 
     def window(self, seconds: float) -> None:
-        spans = dict.fromkeys(("psk_demod", "decoder"), 0.0) \
-            if self.run.trace else None
+        spans = self._spans() if self.run.trace else None
         t0 = time.perf_counter()
         walls = []
         while time.perf_counter() - t0 < seconds:
@@ -108,11 +122,11 @@ class Driver:
         sessions, dev = [], self.run.device
         for _ in range(self.tr["trace_calls"]):
             out = self.run.work / f"call{len(self.calls)}"
-            with trace.session("psk_demod", self.air_s, dev) as s1:
-                soft = self._run_pipeline(self.soft_pipe, str(self.path),
-                                          str(out), self.params)
-            with trace.session("decoder", self.air_s, dev) as s2:
-                self._run_pipeline(self.cadu_pipe, soft, str(out),
+            with trace.session(self.layer, self.air_s, dev) as s1:
+                mid = self._run_pipeline(self.mid_pipe, str(self.path),
+                                         str(out), self.params)
+            with trace.session(DECODER, self.air_s, dev) as s2:
+                self._run_pipeline(self.last_pipe, mid, str(out),
                                    self.params, start_level=self.mid)
             self.calls.append(out)
             sessions += [s1, s2]
@@ -122,12 +136,13 @@ class Driver:
         """Every call has ended: nothing to flush."""
 
     def outputs(self):
-        """Per call: (.soft path, samples of the stream it demodulated,
-        .cadu bytes, due mask over the CADUs sent)."""
-        pid = self.full.id
+        """Per call: (the middle level's file, samples of the stream it
+        demodulated, the last level's bytes, due mask over the CADUs
+        sent)."""
+        mid, last = self.names
         for c in self.calls:
-            yield (c / f"{pid}.soft", self.n,
-                   np.fromfile(c / f"{pid}.cadu", np.uint8), self.due)
+            yield (c / mid, self.n, np.fromfile(c / last, np.uint8),
+                   self.due)
 
     def stream(self, device) -> torch.Tensor:
         """The recording as the program's reader scales it, complex64."""

@@ -1,11 +1,15 @@
 """Finding a cell's pieces by the names in BENCHMARK.json.
 
-A configuration is `configs/<config>.json`; it names its channel code
-(`codes/<code>.py`) and its plain reference (`reference/<reference>.py`). A
-traffic mix is `traffic/<traffic>.json`; it names its driver
-(`drivers/<driver>.py`). Every metric, end to end or per layer, is a reader
-`metrics/<name>.py`, and every kernel with a roofline is
-`roofline/<wrapper>.py`. Adding any of them adds files and entries only.
+A configuration is `configs/<config>.json`; it names its code module
+(`codes/<code>.py`), whose `make_recording(cfg, n_samples, seed, device)`
+makes the link's recording (`tx.Recording`), and its plain reference
+(`reference/<reference>.py`), whose `check(run, driver)` decides `correct`.
+Neither the drivers nor `run.py` name a code module or a reference, so a
+link of another kind is new files too. A traffic mix is
+`traffic/<traffic>.json`; it names its driver (`drivers/<driver>.py`).
+Every metric, end to end or per layer, is a reader `metrics/<name>.py`, and
+every kernel with a roofline is `roofline/<wrapper>.py`. Adding any of them
+adds files and entries only.
 """
 
 from __future__ import annotations

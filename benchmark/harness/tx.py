@@ -280,18 +280,20 @@ def cs16_to_complex(iq: torch.Tensor) -> torch.Tensor:
     return torch.complex(f[:, 0], f[:, 1])
 
 
-def make_recording(cfg: dict, code, n_samples: int, seed: int, device
-                   ) -> Recording:
-    """`n_samples` of the configuration's downlink from `seed`: consecutive
-    random CADUs, randomized, through `code.channel_bits` (the link's
-    channel coding), QPSK, the RRC pulse and the channel, as int16 IQ."""
+def make_recording(cfg: dict, channel_bits, n_samples: int, seed: int,
+                   device) -> Recording:
+    """`n_samples` of a QPSK downlink from `seed`: consecutive random CADUs,
+    randomized, through `channel_bits` (the link's channel coding, two
+    channel bits a CADU bit: bits -> (channel bits, symbols ahead of the
+    first CADU's first bit)), QPSK, the RRC pulse and the channel, as int16
+    IQ. The QPSK links' code modules make their recordings with it."""
     s, ch = cfg["signal"], cfg["channel"]
     up, down = s["sps"]
     gen = generator(seed, device)
     spc = s["cadu_bytes"] * 8                 # symbols a CADU, both codes
     n_cadus = -(-n_samples * down // (up * spc)) + 1
     cadus = make_cadus(n_cadus, gen, s["rs_depth"])
-    chan, lead = code.channel_bits(unpack_bits(randomize(cadus)))
+    chan, lead = channel_bits(unpack_bits(randomize(cadus)))
     y = pulse_shape(qpsk_symbols(chan), up, down, s["rrc_alpha"])
     if y.shape[0] < n_samples:
         raise ValueError(f"{y.shape[0]} samples made, {n_samples} asked")

@@ -12,6 +12,9 @@ program made: taps, bank and states are worked out here again.
 
 `precision="bfloat16"` is the control: each stage's output, the taps and the
 bank rounded to bfloat16 (float32 arithmetic in between).
+
+`check(run, driver)` decides a run's `correct`: the program's softs against
+`demod` of the same samples, and its CADUs against those sent.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from harness.check import softs_and_cadus
 from harness.tx import root_raised_cosine
 
 F32, C64 = torch.float32, torch.complex64
@@ -358,3 +362,9 @@ def demod(x: torch.Tensor, cfg: dict, precision: str | None = None):
                                               device=x.device)])
         outs.append(ref.block(blk, valid, a + B >= n))
     return np.concatenate(outs), np.array([len(o) for o in outs])
+
+
+def check(run, driver) -> dict:
+    """`soft_mismatch` and `cadus_failed` of the run's outputs, with
+    `attempted` and `failed` CADUs (`harness/check.py`)."""
+    return softs_and_cadus(run, driver, demod)

@@ -28,8 +28,6 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
-import numpy as np  # noqa: E402
-
 BENCH = Path(__file__).resolve().parent
 sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 CACHE = BENCH / "_cache"
@@ -39,7 +37,7 @@ for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
                  ("CUDA_CACHE_PATH", "nv")):
     os.environ[var] = str(CACHE / sub)
 
-from harness import check, spec  # noqa: E402
+from harness import spec  # noqa: E402
 
 TOP_OPS = 10
 
@@ -118,31 +116,15 @@ def breakdown(sessions) -> dict:
 
 
 def verify(run, driver) -> dict:
-    """The numbers compared, each {"value", "limit"}, and attempted and
-    failed CADUs. The reference runs after the program's state is freed,
-    on the same device."""
+    """The cell's reference's `check`: the numbers compared, each
+    {"value", "limit"}, and attempted and failed frames. It runs after the
+    program's state is freed, on the same device; the card's cache is freed
+    after it."""
     import torch
-    cfg = run.cell.cfg
-    limits = cfg["limits"]
-    ref_by_n, bad, total, attempted, failed = {}, 0, 0, 0, 0
-    stream = None
-    for soft_path, n, cadu_raw, due in driver.outputs():
-        a, f = check.cadus_failed(cadu_raw, driver.sent, due)
-        attempted, failed = attempted + a, failed + f
-        if n not in ref_by_n:
-            if stream is None:
-                stream = driver.stream(run.device)
-            ref_by_n[n] = run.cell.reference.demod(stream[:n], cfg)[0]
-        b, t = check.soft_mismatch(np.fromfile(soft_path, np.int8),
-                                   ref_by_n[n])
-        bad, total = bad + b, total + t
-    del stream
+    result = run.cell.reference.check(run, driver)
     if run.device == "cuda":
         torch.cuda.empty_cache()
-    return {"attempted": attempted, "failed": failed, "checks": {
-        "soft_mismatch": {"value": bad / max(total, 1),
-                          "limit": limits["soft_mismatch"]},
-        "cadus_failed": {"value": failed, "limit": limits["cadus_failed"]}}}
+    return result
 
 
 def run_cell(name, seed, seconds, trace, device="cuda", sizes=None,

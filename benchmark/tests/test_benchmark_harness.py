@@ -1,8 +1,10 @@
 """The benchmark's harness on the CPU at tiny sizes: BENCHMARK.json against
-the contract's limits, the configurations against their pipeline files, the
-generator, the plain reference and its control, the kernels' counts, the
-import check, a dry run of every cell, and a run with the timed path broken
-underneath for each fault a cell can have."""
+the contract's limits, the configurations against their pipeline files,
+each configuration's code module (its recording) and reference (its
+`check`), the generator, the plain reference and its control, the kernels'
+counts, the import check, a dry run of every cell, the checks against the
+loop they replaced, and a run with the timed path broken underneath for
+each fault a cell can have."""
 
 import re
 import types
@@ -18,6 +20,13 @@ from reference import psk_ff
 SPEC = spec.load_json(spec.ROOT / "BENCHMARK.json")
 CELLS = [w["name"] for w in SPEC["workloads"]]
 CONFIGS = [c["name"] for c in SPEC["configs"]]
+CONFIG_FILES = {c["name"]: spec.ROOT / c["file"] for c in SPEC["configs"]}
+# the configurations whose reference is the soft-symbol demodulator, and
+# their cells
+PSK_FF = [n for n in CONFIGS
+          if spec.load_json(CONFIG_FILES[n])["reference"] == "psk_ff"]
+PSK_FF_CELLS = [w["name"] for w in SPEC["workloads"]
+                if w["config"] in PSK_FF]
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
 # dry-run sizes: ~2.5 demod blocks offline; live: 2^14-sample chunks, one
@@ -84,28 +93,56 @@ def test_every_cell_finds_its_pieces_and_reports_enough(cell):
 def test_config_follows_its_pipeline_file(name):
     entry = [c for c in SPEC["configs"] if c["name"] == name][0]
     cfg = spec.load_json(spec.ROOT / entry["file"])
-    program.pipeline(cfg, "baseband", "cadu")      # raises on a mismatch
+    levels = cfg["levels"]
+    program.pipeline(cfg, levels[0], levels[-1])    # raises on a mismatch
     p, s = cfg["pipeline_parameters"], cfg["signal"]
+    mid = p[levels[1]]
     assert s["samplerate"] == p["samplerate"]
-    up, down = s["sps"]
-    assert abs(up / down - p["samplerate"] / p["soft"]["symbolrate"]) < 1e-6
-    assert s["rrc_alpha"] == p["soft"]["rrc_alpha"]
+    if "sps" in s:
+        up, down = s["sps"]
+        assert abs(up / down - p["samplerate"] / mid["symbolrate"]) < 1e-6
+    if "rrc_alpha" in s:
+        assert s["rrc_alpha"] == mid["rrc_alpha"]
     assert set(entry["reduced"]) <= set(cfg["reduced_from"])
 
 
 def _config(name):
-    entry = [c for c in SPEC["configs"] if c["name"] == name][0]
-    cfg = spec.load_json(spec.ROOT / entry["file"])
+    cfg = spec.load_json(CONFIG_FILES[name])
     return cfg, spec.load_module(spec.BENCH / "codes" /
                                  f"{cfg['signal']['code']}.py")
 
 
 @pytest.mark.parametrize("name", CONFIGS)
+def test_config_names_a_code_that_records_and_a_reference_that_checks(name):
+    cfg, code = _config(name)
+    ref = spec.load_module(spec.BENCH / "reference" /
+                           f"{cfg['reference']}.py")
+    assert callable(code.make_recording) and callable(ref.check)
+    c = spec.Cell([w["name"] for w in SPEC["workloads"]
+                   if w["config"] == name][0], SPEC)
+    assert c.code is code and c.reference is ref
+
+
+@pytest.mark.parametrize("seed", (SEED, 7))
+@pytest.mark.parametrize("name", PSK_FF)
+def test_code_module_makes_the_qpsk_recording(name, seed):
+    """The QPSK links' code modules give what the shared QPSK transmitter
+    gives with their channel coding, bit for bit."""
+    cfg, code = _config(name)
+    a = code.make_recording(cfg, 50000, seed, "cpu")
+    b = tx.make_recording(cfg, code.channel_bits, 50000, seed, "cpu")
+    assert torch.equal(a.iq, b.iq) and a.iq.shape == (50000, 2)
+    assert np.array_equal(a.cadus, b.cadus)
+    assert np.array_equal(a.cadu_end, b.cadu_end)
+    assert a.samplerate == b.samplerate == cfg["signal"]["samplerate"]
+
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_generator_is_deterministic_in_the_seed(name):
     cfg, code = _config(name)
-    a = tx.make_recording(cfg, code, 50000, SEED, "cpu")
-    b = tx.make_recording(cfg, code, 50000, SEED, "cpu")
-    c = tx.make_recording(cfg, code, 50000, SEED + 1, "cpu")
+    a = code.make_recording(cfg, 50000, SEED, "cpu")
+    b = code.make_recording(cfg, 50000, SEED, "cpu")
+    c = code.make_recording(cfg, 50000, SEED + 1, "cpu")
     assert torch.equal(a.iq, b.iq) and (a.cadus == b.cadus).all()
     assert not torch.equal(a.iq, c.iq)
     assert (a.cadus[:, :4] == tx.ASM).all()
@@ -128,12 +165,12 @@ def test_rs_encoder_gives_codewords():
                 assert acc == 0
 
 
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", PSK_FF)
 def test_reference_demodulates_the_generator(name):
     """At 18 dB the reference's hard decisions are the channel bits sent,
     up to QPSK's four rotations and a few symbols of offset."""
     cfg, code = _config(name)
-    rec = tx.make_recording(cfg, code, 300000, SEED, "cpu")
+    rec = code.make_recording(cfg, 300000, SEED, "cpu")
     soft, lens = psk_ff.demod(tx.cs16_to_complex(rec.iq), cfg)
     assert lens.sum() == len(soft)
     gen = tx.generator(SEED, "cpu")
@@ -149,24 +186,24 @@ def test_reference_demodulates_the_generator(name):
     assert min(errors(r, d) for r in range(4) for d in range(-8, 9)) < 1e-3
 
 
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", PSK_FF)
 def test_control_fails_the_soft_limit(name):
     """bfloat16 in place of float32 moves far more softs than the limit
     lets through."""
     cfg, code = _config(name)
-    x = tx.cs16_to_complex(tx.make_recording(cfg, code, 300000, SEED,
-                                             "cpu").iq)
+    x = tx.cs16_to_complex(code.make_recording(cfg, 300000, SEED,
+                                               "cpu").iq)
     ref = psk_ff.demod(x, cfg)[0]
     bad, total = check.soft_mismatch(psk_ff.demod(x, cfg, "bfloat16")[0], ref)
     assert bad / total > 3 * cfg["limits"]["soft_mismatch"]
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name", CONFIGS)
+@pytest.mark.parametrize("name", PSK_FF)
 def test_control_fails_the_soft_limit_on_the_card(name, card):
     cfg, code = _config(name)
-    x = tx.cs16_to_complex(tx.make_recording(cfg, code, 1 << 20, SEED,
-                                             card).iq)
+    x = tx.cs16_to_complex(code.make_recording(cfg, 1 << 20, SEED,
+                                               card).iq)
     ref = psk_ff.demod(x, cfg)[0]
     bad, total = check.soft_mismatch(psk_ff.demod(x.cpu(), cfg)[0], ref)
     assert bad / total < cfg["limits"]["soft_mismatch"]
@@ -301,6 +338,62 @@ def test_dry_run_on_the_cpu(cell, traced):
         assert out["metrics"] and "breakdown" in out
     else:
         assert {m["name"] for m in c.end_to_end} == set(out["metrics"])
+
+
+def _old_verify(run, driver):
+    """The oracle: `run.py::verify` and the offline driver's `outputs` as
+    they were before each configuration's reference decided `correct`
+    (softs at `{pid}.soft`, CADUs at `{pid}.cadu`, `psk_ff.demod` as the
+    reference)."""
+    cfg = run.cell.cfg
+    limits = cfg["limits"]
+    outputs = driver.outputs()
+    if run.cell.traffic["driver"] == "offline":
+        pid = driver.full.id
+        outputs = [(c / f"{pid}.soft", driver.n,
+                    np.fromfile(c / f"{pid}.cadu", np.uint8), driver.due)
+                   for c in driver.calls]
+    ref_by_n, bad, total, attempted, failed = {}, 0, 0, 0, 0
+    stream = None
+    for soft_path, n, cadu_raw, due in outputs:
+        a, f = check.cadus_failed(cadu_raw, driver.sent, due)
+        attempted, failed = attempted + a, failed + f
+        if n not in ref_by_n:
+            if stream is None:
+                stream = driver.stream(run.device)
+            ref_by_n[n] = psk_ff.demod(stream[:n], cfg)[0]
+        b, t = check.soft_mismatch(np.fromfile(soft_path, np.int8),
+                                   ref_by_n[n])
+        bad, total = bad + b, total + t
+    return {"attempted": attempted, "failed": failed, "checks": {
+        "soft_mismatch": {"value": bad / max(total, 1),
+                          "limit": limits["soft_mismatch"]},
+        "cadus_failed": {"value": failed, "limit": limits["cadus_failed"]}}}
+
+
+@pytest.mark.parametrize("softs", ("as written", "altered"))
+@pytest.mark.parametrize("cell", PSK_FF_CELLS)
+def test_checks_equal_the_loop_they_replaced(cell, softs, monkeypatch):
+    """`run_cell`'s checks and counts, through the configuration's
+    reference, equal the oracle's on the same run's outputs: on a sound
+    run, and on one whose softs are altered (a nonzero mismatch)."""
+    if softs == "altered":
+        _altered_softs(monkeypatch)
+    seen = {}
+    verify = bench.verify
+
+    def both(run, driver):
+        seen["old"] = _old_verify(run, driver)
+        return verify(run, driver)
+    monkeypatch.setattr(bench, "verify", both)
+    out = bench.run_cell(cell, SEED + 3, 0.5, 0, "cpu", TINY, SPEC)
+    old = seen["old"]
+    assert out["checks"] == old["checks"]
+    assert (out["attempted"], out["failed"]) == (old["attempted"],
+                                                 old["failed"])
+    assert out["attempted"] > 0
+    assert (out["checks"]["soft_mismatch"]["value"] > 0) == \
+        (softs == "altered")
 
 
 def _altered_softs(monkeypatch):
