@@ -14,7 +14,9 @@ program made: taps, bank and states are worked out here again.
 bank rounded to bfloat16 (float32 arithmetic in between).
 
 `check(run, driver)` decides a run's `correct`: the program's softs against
-`demod` of the same samples, and its CADUs against those sent.
+`demod` of the same samples, and its CADUs against those sent. `READS` says
+which of its numbers reads each level that the program writes, and
+`control(x, cfg)` gives the control's reading of the number it moves.
 """
 
 from __future__ import annotations
@@ -24,13 +26,18 @@ import math
 import numpy as np
 import torch
 
-from harness.check import softs_and_cadus
+from harness.check import soft_mismatch, softs_and_cadus
 from harness.tx import root_raised_cosine
 
 F32, C64 = torch.float32, torch.complex64
 FIRST_SNAP = 0.25
 STRIP_FRONT = 32
 NFILT, NTAPS = 128, 8
+# the number of `check` that reads each level of the configuration's
+# `levels` that the program writes
+READS = {"soft": "soft_mismatch", "cadu": "cadus_failed"}
+# the precision of the control: the one below the configurations' float32
+CONTROL = "bfloat16"
 
 
 def _rounder(precision: str):
@@ -368,3 +375,12 @@ def check(run, driver) -> dict:
     """`soft_mismatch` and `cadus_failed` of the run's outputs, with
     `attempted` and `failed` CADUs (`harness/check.py`)."""
     return softs_and_cadus(run, driver, demod)
+
+
+def control(x: torch.Tensor, cfg: dict) -> dict:
+    """The control's reading, {check: value}: `demod` of the complex64
+    stream `x` in `CONTROL` against `demod` in the configuration's
+    precision, by `soft_mismatch` (the upper reading of its limit)."""
+    ref = demod(x, cfg)[0]
+    bad, total = soft_mismatch(demod(x, cfg, CONTROL)[0], ref)
+    return {"soft_mismatch": bad / total}

@@ -3,11 +3,20 @@ the contract's limits, the configurations against their pipeline files,
 each configuration's code module (its recording) and reference (its
 `check`), the generator, the plain reference and its control, the kernels'
 counts, the import check, a dry run of every cell, the checks against the
-loop they replaced, and a run with the timed path broken underneath for
-each fault a cell can have."""
+loop they replaced, a run with the timed path broken underneath for each
+fault a cell can have, planted by level and frame width, and a
+configuration of another kind added to a copy of the benchmark as new files
+and entries only."""
 
+import builtins
+import copy
+import json
 import re
+import shutil
+import subprocess
+import sys
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -118,6 +127,7 @@ def test_config_names_a_code_that_records_and_a_reference_that_checks(name):
     ref = spec.load_module(spec.BENCH / "reference" /
                            f"{cfg['reference']}.py")
     assert callable(code.make_recording) and callable(ref.check)
+    assert set(ref.READS) == set(cfg["levels"][1:])
     c = spec.Cell([w["name"] for w in SPEC["workloads"]
                    if w["config"] == name][0], SPEC)
     assert c.code is code and c.reference is ref
@@ -186,16 +196,18 @@ def test_reference_demodulates_the_generator(name):
     assert min(errors(r, d) for r in range(4) for d in range(-8, 9)) < 1e-3
 
 
-@pytest.mark.parametrize("name", PSK_FF)
+@pytest.mark.parametrize("name", CONFIGS)
 def test_control_fails_the_soft_limit(name):
-    """bfloat16 in place of float32 moves far more softs than the limit
-    lets through."""
+    """The reference's control (`psk_ff`: bfloat16 in place of float32)
+    reads a number at more than three times its limit."""
     cfg, code = _config(name)
+    ref = spec.load_module(spec.BENCH / "reference" /
+                           f"{cfg['reference']}.py")
     x = tx.cs16_to_complex(code.make_recording(cfg, 300000, SEED,
                                                "cpu").iq)
-    ref = psk_ff.demod(x, cfg)[0]
-    bad, total = check.soft_mismatch(psk_ff.demod(x, cfg, "bfloat16")[0], ref)
-    assert bad / total > 3 * cfg["limits"]["soft_mismatch"]
+    got = ref.control(x, cfg)
+    assert got and set(got) <= set(cfg["limits"])
+    assert any(v > 3 * cfg["limits"][k] for k, v in got.items())
 
 
 @pytest.mark.card
@@ -207,8 +219,8 @@ def test_control_fails_the_soft_limit_on_the_card(name, card):
     ref = psk_ff.demod(x, cfg)[0]
     bad, total = check.soft_mismatch(psk_ff.demod(x.cpu(), cfg)[0], ref)
     assert bad / total < cfg["limits"]["soft_mismatch"]
-    bad, total = check.soft_mismatch(psk_ff.demod(x, cfg, "bfloat16")[0], ref)
-    assert bad / total > 3 * cfg["limits"]["soft_mismatch"]
+    assert psk_ff.control(x, cfg)["soft_mismatch"] > \
+        3 * cfg["limits"]["soft_mismatch"]
 
 
 def test_kernel_counts_on_known_shapes():
@@ -332,8 +344,10 @@ def test_traced_calls_run_again_while_a_session_loses_records():
 def test_dry_run_on_the_cpu(cell, traced):
     out = bench.run_cell(cell, SEED, 0.5, traced, "cpu", TINY, SPEC)
     assert out["correct"] and out["attempted"] > 0 and out["failed"] == 0
-    assert out["checks"]["soft_mismatch"]["value"] == 0
+    assert out["checks"] and all(c["value"] == 0
+                                 for c in out["checks"].values())
     c = spec.Cell(cell, SPEC)
+    assert set(c.reference.READS.values()) <= set(out["checks"])
     if traced:
         assert out["metrics"] and "breakdown" in out
     else:
@@ -378,7 +392,7 @@ def test_checks_equal_the_loop_they_replaced(cell, softs, monkeypatch):
     reference, equal the oracle's on the same run's outputs: on a sound
     run, and on one whose softs are altered (a nonzero mismatch)."""
     if softs == "altered":
-        _altered_softs(monkeypatch)
+        plant(monkeypatch, cell, MIDDLE)
     seen = {}
     verify = bench.verify
 
@@ -396,32 +410,35 @@ def test_checks_equal_the_loop_they_replaced(cell, softs, monkeypatch):
         (softs == "altered")
 
 
-def _altered_softs(monkeypatch):
-    from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
-    inner = PSKDemodModule.stream_work
-
-    def altered(self, *a, **k):
-        out = inner(self, *a, **k).copy()
-        out[::50] = -out[::50]
-        return out
-    monkeypatch.setattr(PSKDemodModule, "stream_work", altered)
+# the faults planted underneath a cell's timed path, in the files that the
+# program writes: (the level, by its index in the configuration's `levels`;
+# what happens to the bytes written)
+MIDDLE = "middle level altered"
+FAULTS = {MIDDLE: (1, "altered"),
+          "last level's frames altered": (-1, "altered"),
+          "half of the last level's frames left out": (-1, "left out")}
+# one byte in this many of the middle level is altered
+MIDDLE_EVERY = 50
 
 
 class _Faulty:
-    """A binary file whose writes of whole CADUs come out altered (one
-    byte of each) or with every second CADU left out."""
+    """A file that the program writes a level to, whose bytes come out
+    with a fault planted by their place in the file: `altered` flips the
+    top bit of one byte in every `width` (an int8 soft moves by 128 and
+    changes its sign), `left out` drops every second frame of `width`
+    bytes."""
 
-    def __init__(self, f, fault):
-        self.f, self.fault, self.k = f, fault, 0
+    def __init__(self, f, fault, width):
+        self.f, self.fault, self.width, self.pos = f, fault, width, 0
 
     def write(self, b):
-        a = np.frombuffer(b, np.uint8).reshape(-1, 1024).copy()
+        a = np.frombuffer(b, np.uint8).copy()
+        at = self.pos + np.arange(len(a))
+        self.pos += len(a)
         if self.fault == "altered":
-            a[:, 500] ^= 0x10
+            a[at % self.width == self.width // 2] ^= 0x80
         else:
-            keep = (np.arange(len(a)) + self.k) % 2 == 0
-            self.k += len(a)
-            a = a[keep]
+            a = a[at // self.width % 2 == 0]
         return self.f.write(a.tobytes())
 
     def __getattr__(self, name):
@@ -434,32 +451,171 @@ class _Faulty:
         self.f.close()
 
 
-def _faulty_cadus(monkeypatch, cell, fault):
-    """Patch `open` where the cell's .cadu file is opened for writing."""
-    import builtins
-    from satdump_tpu_torch.models import fengyun3
-    from satdump_tpu_torch.pipeline import live
-    from satdump_tpu_torch.pipeline.modules.ccsds import conv_concat
-    mod = live if ".live" in cell else \
-        fengyun3 if cell.startswith("fy3d") else conv_concat
+def plant(monkeypatch, cell, fault, spec_dict=SPEC) -> str:
+    """Plant `fault` underneath the cell's timed path: every file that the
+    program opens for writing with the suffix of the fault's level
+    (`.<level>`) writes through `_Faulty`, with the width of the frames sent
+    (the recording's CADUs) on the last level. Returns the number of the
+    cell's reference that reads that level (its `READS`)."""
+    c = spec.Cell(cell, spec_dict)
+    index, what = FAULTS[fault]
+    level = c.cfg["levels"][index]
+    width = {}
+    make = c.code.make_recording
+
+    def recording(*a, **k):
+        rec = make(*a, **k)
+        width["frames"] = rec.cadus.shape[1]
+        return rec
+    monkeypatch.setattr(c.code, "make_recording", recording)
+    real_open = builtins.open
 
     def faulty_open(path, mode="r", *a, **k):
-        f = builtins.open(path, mode, *a, **k)
-        return _Faulty(f, fault) if str(path).endswith(".cadu") and \
-            "w" in mode else f
-    monkeypatch.setattr(mod, "open", faulty_open, raising=False)
+        f = real_open(path, mode, *a, **k)
+        if str(path).endswith("." + level) and "w" in mode:
+            return _Faulty(f, what, width["frames"] if index == -1
+                           else MIDDLE_EVERY)
+        return f
+    monkeypatch.setattr(builtins, "open", faulty_open)
+    return c.reference.READS[level]
 
 
-@pytest.mark.parametrize("fault", ("softs altered", "cadus altered",
-                                   "half the cadus left out"))
+@pytest.mark.parametrize("fault", FAULTS)
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
-    if fault == "softs altered":
-        _altered_softs(monkeypatch)
-    else:
-        _faulty_cadus(monkeypatch, cell, fault.split()[1])
+    key = plant(monkeypatch, cell, fault)
     out = bench.run_cell(cell, SEED, 0.5, 0, "cpu", TINY, SPEC)
     assert out["correct"] is False
-    key = "soft_mismatch" if fault == "softs altered" else "cadus_failed"
     c = out["checks"][key]
     assert c["value"] > c["limit"]
+
+
+# A configuration of another kind, added to a copy of the benchmark as new
+# files and entries only: GOES-R GRB (DVB-S2 to BBFrames, then 2,048-byte
+# CADUs) at exactly 2 samples a symbol, the rate that `chip_smoke.py`'s
+# phase 13 runs; the files under `grb_fixture/` are copied into the copy
+# alone and are never a configuration of the benchmark
+GRB = "goes_grb_2sps"
+GRB_CELL = f"{GRB}.offline"
+GRB_FIXTURE = spec.BENCH / "tests" / "grb_fixture"
+GRB_ENTRIES = {
+    "configs": {"name": GRB, "source": "https://github.com/SatDump/SatDump "
+                "pipelines/GOES.json, pipeline goes_grb",
+                "file": f"benchmark/configs/{GRB}.json",
+                "reduced": ["samplerate", "recording_s"],
+                "why": "GOES-R GRB at exactly 2 sps: DVB-S2 MODCOD 11 "
+                       "(dvbs2_demod) to BBFrames, then 2,048-byte CADUs"},
+    "workloads": {"name": GRB_CELL, "config": GRB, "traffic": "offline",
+                  "chips": 1, "why": "GRB recordings by whole run_pipeline "
+                  "calls: dvbs2_demod's PL layer, LDPC and BCH, the CADU "
+                  "extractor"}}
+# the metrics whose cells the new cell joins
+GRB_METRICS = ("realtime_x", "decoder.ms_per_air_s")
+
+
+def _files(root):
+    """{path under root: bytes} of every file, but the work and cache
+    directories' and Python's caches."""
+    skip = {"_work", "_cache", "__pycache__"}
+    return {p.relative_to(root): p.read_bytes() for p in root.rglob("*")
+            if p.is_file() and not skip & set(p.relative_to(root).parts)}
+
+
+def _fixture_files():
+    """The fixture's files, by their paths under the benchmark."""
+    return [p.relative_to(GRB_FIXTURE) for p in GRB_FIXTURE.rglob("*.*")
+            if p.suffix in (".py", ".json")]
+
+
+@pytest.fixture(scope="module")
+def another_kind(tmp_path_factory):
+    """The copy: `BENCHMARK.json` and `benchmark/` (without its work and
+    cache directories), then the GRB configuration's file, code module and
+    reference as new files, and its configuration, its cell and its cell in
+    `GRB_METRICS` as new entries. GOES.json's `goes_grb` at 16 Msps would
+    make `dvbs2_demod` resample, so the program loads the same pipeline
+    with the samplerate of 2 sps under the id `goes_grb_2sps`, from a
+    pipelines file of the user's (as the CLI's `--pipelines_dir` does).
+    Returns (the copy's root, its BENCHMARK.json)."""
+    from satdump_tpu_torch.pipeline.pipeline import load_pipelines_file
+    root = tmp_path_factory.mktemp("another_kind")
+    shutil.copytree(spec.BENCH, root / "benchmark",
+                    ignore=shutil.ignore_patterns("_work", "_cache",
+                                                  "__pycache__"))
+    for f in _fixture_files():
+        assert not (root / "benchmark" / f).exists()
+        shutil.copy(GRB_FIXTURE / f, root / "benchmark" / f)
+    b = copy.deepcopy(SPEC)
+    for key, entry in GRB_ENTRIES.items():
+        b[key].append(entry)
+    for m in b["end_to_end"] + b["per_layer"]:
+        if m["name"] in GRB_METRICS:
+            m["workloads"].append(GRB_CELL)
+    (root / "BENCHMARK.json").write_text(json.dumps(b, indent=2) + "\n")
+    pipe = spec.load_json(spec.ROOT / "resources" / "pipelines" /
+                          "GOES.json")["goes_grb"]
+    pipe["parameters"]["samplerate"]["value"] = spec.load_json(
+        GRB_FIXTURE / "configs" / f"{GRB}.json")["signal"]["samplerate"]
+    (root / "pipelines").mkdir()
+    (root / "pipelines" / f"{GRB}.json").write_text(json.dumps({GRB: pipe}))
+    load_pipelines_file(root / "pipelines" / f"{GRB}.json")
+    return root, b
+
+
+@pytest.fixture
+def in_the_copy(another_kind, monkeypatch):
+    """The harness pointed at the copy: its `BENCHMARK.json`, its files
+    loaded anew (not the benchmark's own, which the module cache holds) and
+    its work directory. After the test, every file the copy shares with the
+    benchmark is still the benchmark's, byte for byte, and the copy's
+    `BENCHMARK.json` is the benchmark's with the new entries alone."""
+    root, b = another_kind
+    monkeypatch.setattr(spec, "BENCH", root / "benchmark")
+    monkeypatch.setattr(spec, "ROOT", root)
+    monkeypatch.setattr(bench, "BENCH", root / "benchmark")
+    for name in [m for m in sys.modules if m.startswith("benchmark_")]:
+        monkeypatch.delitem(sys.modules, name)
+    yield b
+    ours = _files(Path(__file__).resolve().parents[1])
+    theirs = _files(root / "benchmark")
+    assert {p: theirs.get(p) for p in ours} == ours
+    assert set(theirs) - set(ours) == set(_fixture_files())
+    got = spec.load_json(root / "BENCHMARK.json")
+    for key in GRB_ENTRIES:
+        assert got[key].pop() == GRB_ENTRIES[key]
+    for m in got["end_to_end"] + got["per_layer"]:
+        if m["name"] in GRB_METRICS:
+            assert m["workloads"].pop() == GRB_CELL
+    assert got == SPEC
+
+
+@pytest.mark.parametrize("fault", ("none", *FAULTS))
+def test_a_configuration_of_another_kind_comes_as_new_files(fault,
+                                                            in_the_copy,
+                                                            monkeypatch):
+    """In the copy, the GRB cell's dry run is correct with every check at
+    0, and each fault planted underneath it, by level and by the width of
+    the frames sent, trips the number that its reference reads there."""
+    key = plant(monkeypatch, GRB_CELL, fault, in_the_copy) \
+        if fault != "none" else None
+    out = bench.run_cell(GRB_CELL, SEED, 0.5, 0, "cpu", TINY, in_the_copy)
+    c = spec.Cell(GRB_CELL, in_the_copy)
+    assert set(out["checks"]) == set(c.reference.READS.values())
+    assert out["attempted"] > 0
+    if key is None:
+        assert out["correct"] and out["failed"] == 0
+        assert all(v["value"] == 0 for v in out["checks"].values())
+        assert {m["name"] for m in c.end_to_end} == set(out["metrics"])
+    else:
+        assert out["correct"] is False
+        assert out["checks"][key]["value"] > out["checks"][key]["limit"]
+
+
+def test_calibrate_names_a_reference_without_a_control(another_kind):
+    root, _ = another_kind
+    r = subprocess.run([sys.executable, str(root / "benchmark" /
+                                            "calibrate.py"),
+                        "--workload", GRB_CELL, "--seeds", "1"],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 1 and r.stdout == ""
+    assert "reference grb_frames defines no control" in r.stderr
