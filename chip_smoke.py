@@ -29,6 +29,15 @@ Phases (any failure raises and the script exits non-zero):
     (METEOR-M2 and METEOR-M2-x at 1 Msps, GOES HRIT at 6 Msps); the same
     numbers, the device time both with ext warm in L2 and after a 64 MB
     write, at the main path's block and at those three;
+ 4c. K4 (the strip symbol pick, csrc/resample_strip.cu) against its
+    plain version (ops/ffsync.py::resample_strip) on the card and on CPU
+    copies, at tolerance 0 (torch.equal on symbols and valid flags), at
+    FY-3D's 2^18-sample block at sps 3 (out_cap 88,266) and at GRB's sps
+    2, each at skew 0 and +-0.003, with a start a hair before the carried
+    history and one far enough before it that c_s clamps; at both main
+    shapes its device time warm in L2 and after a 64 MB write, the time
+    per wrapper call, the plain version's time on the card and the bytes
+    bound;
  4a. CaduChain's RS decode replayed from its CUDA graph, on its own
     generator (RS_SEED): two batches of 64 MetOp payloads (4 interleaved
     RS(255,223) codewords, dual basis) with 0-16 byte errors a codeword and
@@ -689,6 +698,90 @@ def phase_k2(rng):
             f"call (events), plain {t['plain_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
         if label == K2_TIMED[0]:                  # the main path's block
+            res.update(t)
+    return res
+
+
+# K4 (phase 4c), on a generator of its own so that no later phase's inputs
+# move: (label, sps, skew, start); the first case of each sps is timed.
+# out_cap is psk_demod's for a 2^18 block: FY-3D's 88,266, GRB's 132,398
+K4_SEED = SEED + 22
+K4_N = 1 << 18
+K4_CASES = (
+    ("FY-3D sps 3 skew 0", 3.0, 0.0, 0.37),
+    ("FY-3D sps 3 skew +0.003", 3.0, 0.003, 1.61),
+    ("FY-3D sps 3 skew -0.003, start -4.1 (FIRST_SNAP)", 3.0, -0.003, -4.1),
+    ("FY-3D sps 3 start -40.3 (c_s clamps)", 3.0, -0.003, -40.3),
+    ("GRB sps 2 skew 0", 2.0, 0.0, 0.61),
+    ("GRB sps 2 skew +0.003, start -4.05", 2.0, 0.003, -4.05),
+    ("GRB sps 2 skew -0.003, start -37.9 (c_s clamps)", 2.0, -0.003, -37.9),
+)
+K4_TIMED = ("FY-3D sps 3 skew 0", "GRB sps 2 skew 0")
+
+
+def phase_k4(rng):
+    """K4 against its plain version on the card and on the CPU, tolerance
+    0; its times at FY-3D's and GRB's blocks."""
+    import torch
+    from satdump_tpu_torch.ops import ffsync
+    from satdump_tpu_torch.ops.cuda.resample_strip import resample_strip
+    from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
+    res = {"max_abs_err": 0.0}
+    for label, sps, skew, start in K4_CASES:
+        n_ext = K4_N + 7
+        ext_np = (rng.standard_normal(n_ext)
+                  + 1j * rng.standard_normal(n_ext)).astype(np.complex64)
+        ext = torch.from_numpy(ext_np).cuda()
+        st = torch.tensor(start, dtype=torch.float32, device="cuda")
+        om = torch.tensor(np.float32(sps) * (np.float32(1) + np.float32(skew)),
+                          dtype=torch.float32, device="cuda")
+        _, coefs = ffsync.interp_tables(mm_interpolator_bank(), sps, "cuda")
+        cap = int(np.ceil(K4_N / (sps * 0.99))) + 2         # psk_demod's
+        before = resample_strip.launches
+        got = resample_strip(ext, st, om, coefs, out_cap=cap, sps=sps,
+                             n_in=K4_N)
+        torch.cuda.synchronize()
+        if resample_strip.launches != before + 1:
+            raise AssertionError(f"K4 {label}: the wrapper did not launch")
+        ref = ffsync.resample_strip(ext, st, om, coefs, out_cap=cap,
+                                    sps=sps, n_in=K4_N)
+        cpu = ffsync.resample_strip(ext.cpu(), st.cpu(), om.cpu(),
+                                    coefs.cpu(), out_cap=cap, sps=sps,
+                                    n_in=K4_N)
+        same = all(torch.equal(a, b) for a, b in zip(got, ref)) and \
+            all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu))
+        err = float((got[0].cpu() - cpu[0]).abs().max())
+        n_valid = int(got[1].sum())
+        log(f"K4 {label}: out_cap {cap}, {n_valid} valid; equal to the "
+            f"plain version on the card and on the CPU: {same} (max |err| "
+            f"{err:.3e})")
+        if not same:
+            raise AssertionError(f"K4 {label} differs from its plain version")
+        if label not in K4_TIMED:
+            continue
+        kern = lambda: resample_strip(  # noqa: E731
+            ext, st, om, coefs, out_cap=cap, sps=sps, n_in=K4_N)
+        t = {"ms": kernel_ms(kern, "resample_strip_kernel", 50),
+             "cold_ms": kernel_ms_cold(kern, "resample_strip_kernel", 50),
+             "call_ms": call_ms(kern, 50),
+             "plain_ms": call_ms(lambda: ffsync.resample_strip(
+                 ext, st, om, coefs, out_cap=cap, sps=sps, n_in=K4_N), 10)}
+        # bytes: ext read once, the table, start and omega, the symbols
+        # (complex64) and valid flags (one byte) written
+        nbytes = n_ext * 8 + coefs.numel() * 4 + 8 + cap * 9
+        # operations, each rounded on its own (none an FMA): 10 Horner
+        # steps of a multiply and an add for each of 8 taps, 8 products
+        # and 7 sums on each of two rails, ~10 for the positions and flags
+        ops = cap * (160 + 30 + 10)
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, ops, H100_F32_OPS)
+        log(f"K4 times at {label} (n_ext {n_ext}, out_cap {cap}): kernel "
+            f"{t['ms']:.4f} ms warm in L2, {t['cold_ms']:.4f} ms after a "
+            f"64 MB write (profiler), {t['call_ms']:.4f} ms per wrapper "
+            f"call (events), plain {t['plain_ms']:.4f} ms on the card, bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {nbytes} bytes at "
+            f"{H100_BYTES_PER_S:.3g} B/s)")
+        res[label] = t
+        if label == K4_TIMED[0]:                 # FY-3D's block
             res.update(t)
     return res
 
@@ -2504,6 +2597,7 @@ def phase_dvb(rng, work: Path) -> dict:
     from satdump_tpu_torch import sim
     from satdump_tpu_torch.core.exceptions import PipelineError
     from satdump_tpu_torch.io import write_baseband
+    from satdump_tpu_torch.ops.cuda.resample_strip import resample_strip
     from satdump_tpu_torch.ops.cuda.sample_walk import agc_walk
     from satdump_tpu_torch.ops.dvbs2 import tx
     from satdump_tpu_torch.pipeline.modules.dvbs2.demod import \
@@ -2523,7 +2617,7 @@ def phase_dvb(rng, work: Path) -> dict:
     for tag in ("first", "again"):
         out, wall, launches = _run_counted(lambda: run_pipeline(
             pipe, str(w / "pass.cf32"), str(w / tag), user_params=params),
-            f"goes_grb ({tag} pass)", kernels=(agc_walk,))
+            f"goes_grb ({tag} pass)", kernels=(agc_walk, resample_strip))
         _check_grb(out, cadus, n_cadus, f"goes_grb 17.33 Msps ({len(bb)} "
                    f"samples, {tag} pass)")
         walls[f"grb_cadu_{tag}"] = wall
@@ -2534,6 +2628,7 @@ def phase_dvb(rng, work: Path) -> dict:
             f"{'met' if rate >= GRB_LIVE_MSPS else 'not met'}); "
             f"{len(bb) / grb_rate:.3f} s of signal; launches {launches}")
         walls[f"grb_agc_launches_{tag}"] = launches["agc_walk"]
+        walls[f"grb_k4_launches_{tag}"] = launches["resample_strip"]
     split = _grb_block_split(bb, pipe, params)
     walls["grb_block_split"] = split
     log(f"GRB one 2^18-sample block's split (ms; card: front end and "
@@ -2661,7 +2756,9 @@ INM_AERO_P = ("inmarsat_aero_12", dict(oqpsk=False, dummy_bits=0,
 
 
 def _all_kernels():
-    return _path_kernels() + _classic_kernels() + _vb_kernels()
+    from satdump_tpu_torch.ops.cuda.resample_strip import resample_strip
+    return _path_kernels() + _classic_kernels() + _vb_kernels() + (
+        resample_strip,)
 
 
 def _tree(d: Path, pattern: str = "*") -> dict:
@@ -2803,6 +2900,7 @@ def _fy3_pass(rng, work: Path) -> dict:
         dict(PASS_PARAMS, samplerate=FY3_D_RATE),
         ("baseband", "soft", "cadu"))
     _need(launches["cadu"], ("viterbi_re",), "fengyun3_d_ahrpt decoder")
+    _need(launches["soft"], ("resample_strip",), "fengyun3_d_ahrpt psk_demod")
     _check_cadus(outs["cadu"], cadus, f"fengyun3_d_ahrpt 90 Msps "
                  f"({len(bb)} samples)")
     wall = walls["soft"] + walls["cadu"]
@@ -2822,7 +2920,8 @@ def _fy3_pass(rng, work: Path) -> dict:
         f"one of each a rail")
     out.update(fy3d_soft_s=walls["soft"], fy3d_cadu_s=walls["cadu"],
                fy3d_msamp_s=rate, fy3d_k1_launches=launches["cadu"][
-                   "viterbi_re"], fy3d_search_ms=split["search_ms"],
+                   "viterbi_re"], fy3d_k4_launches=launches["soft"][
+                   "resample_strip"], fy3d_search_ms=split["search_ms"],
                fy3d_search_ops=split["search_ops"],
                fy3d_search_k3=split["search_k3"],
                fy3d_k1_ms=split["k1_ms"])
@@ -5093,6 +5192,7 @@ def main() -> int:
     probe = phase_probe(rng)
     k1 = phase_k1(rng)
     k2 = phase_k2(rng)
+    k4 = phase_k4(np.random.default_rng(K4_SEED))
     phase_rs_graph(np.random.default_rng(RS_SEED))
     walkers = phase_walkers(rng)
     work = ROOT / "satdump_tpu_torch" / "_build" / "smoke"
@@ -5124,6 +5224,8 @@ def main() -> int:
     # INTEGRAL's pm_demod -> conv-concat pass; K1's stay MetOp's
     for k in ("agc_walk", "pll_walk", "costas_walk", "mm_walk"):
         launches[k] = classic_launches[k]
+    # K4's from FY-3D's pass (phase 14): no MetOp path runs the strip pick
+    launches["resample_strip"] = hrpt["fy3d_k4_launches"]
     # turbo_bcjr's from its slice's main path, JUICE's baseband -> frames
     launches["turbo_bcjr"] = bcjr.pop("launches")
     mc_pass = mc["pass"]
@@ -5161,6 +5263,12 @@ def main() -> int:
                                                 "resample_arith_grid"),
                   live_launches=_live_launches(live,
                                                "resample_arith_grid"))),
+            # K4 replaces no Pallas kernel: the JAX package's strip pick is
+            # plain jnp that XLA fuses; its launches are FY-3D's pass's
+            ("resample_strip", "satdump_tpu_torch/csrc/resample_strip.cu",
+             "none: satdump_tpu/ops/ffsync.py:382 (plain jnp)",
+             dict(k4, fy3d_launches=hrpt["fy3d_k4_launches"],
+                  grb_launches=dvb_walls["grb_k4_launches_first"])),
             ("affine_probe", "satdump_tpu_torch/csrc/probe_affine.cu",
              "tools/pallas_smoke.py:10", probe),
             # the classic chain's walkers replace lax.scan loops (no Pallas);

@@ -100,12 +100,12 @@ def _categories(n: int, dev: torch.device) -> Dict[str, dict]:
 def _ff_full(n, rrc, bank, dev):
     from satdump_tpu_torch.ops import ffsync
     cap = int(np.ceil(n / (2.0 * 0.99))) + 2
-    bank_t = torch.as_tensor(bank, device=dev)
+    ffsync.interp_tables(bank, 2.0, dev)
 
     def fn(x):
         _, syms, _, _ = ffsync.ff_psk_demod_block(
             ffsync.ff_clock_init(device=dev), x, order=4, sps=2.0,
-            rrc_taps=rrc, bank=bank_t, out_cap=cap)
+            rrc_taps=rrc, bank=bank, out_cap=cap)
         return syms.abs()
 
     return fn

@@ -13,6 +13,7 @@ def launch_counts() -> dict:
     from satdump_tpu_torch.ops.cuda.gardner import gardner_walk
     from satdump_tpu_torch.ops.cuda.mm_clock import mm_walk
     from satdump_tpu_torch.ops.cuda.resample import resample_arith_grid
+    from satdump_tpu_torch.ops.cuda.resample_strip import resample_strip
     from satdump_tpu_torch.ops.cuda.sample_walk import (agc_walk, costas_walk,
                                                         pll_walk)
     from satdump_tpu_torch.ops.cuda.turbo_bcjr import turbo_bcjr
@@ -22,4 +23,5 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches
             for k in (viterbi_re, resample_arith_grid, agc_walk, pll_walk,
                       costas_walk, mm_walk, turbo_bcjr, viterbi_block_acs,
-                      viterbi_block_traceback, gardner_walk)}
+                      viterbi_block_traceback, gardner_walk,
+                      resample_strip)}

@@ -16,11 +16,14 @@ which are parallel over the whole block:
 
 Plain torch on the device of the input. Where `_strip_geometry(sps)` is
 None (MetOp's sps ≈ 2.571, METEOR's ≈ 3.889) `ff_clock_recovery` picks the
-symbols with `resample_arith_grid` (ops/cuda/resample.py): the CUDA kernel
-K2 on the card, its plain version on the CPU. Outputs use the reference's
-fixed-capacity + valid-mask convention, and state stays on the device.
-Each host read of a card value and each host constant a block copies to
-the card makes the host wait for the card: each is a `wait` span
+symbols with `resample_arith_grid` (ops/cuda/resample.py), elsewhere (sps
+near an integer: FY-3's 3, GRB's 2) with `resample_strip`
+(ops/cuda/resample_strip.py): the CUDA kernels K2 and K4 on the card, their
+plain versions on the CPU. Outputs use the reference's fixed-capacity +
+valid-mask convention, and state stays on the device; the bank and its
+tap polynomials are uploaded once a process (`interp_tables`). Each host
+read of a card value and each host constant a block copies to the card
+makes the host wait for the card: each is a `wait` span
 `psk_demod.<what>` (core/trace.py).
 """
 
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from satdump_tpu_torch.core import trace
+from satdump_tpu_torch.ops.cuda import resample_strip as k4
 from satdump_tpu_torch.ops.cuda.resample import interp_at, resample_arith_grid
 from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
 from satdump_tpu_torch.utils.device import resolve_device
@@ -347,17 +351,10 @@ def _strip_geometry(sps: float, ntaps: int, skew_max: float = 0.003
     return min(2048, 1 << (G.bit_length() - 1)), D
 
 
-_BANK_POLY_CACHE: dict = {}
-
-
 def _bank_poly_coefs(bank: np.ndarray, deg: int = 10) -> np.ndarray:
     """Fit each interpolator tap as a polynomial in the fractional delay.
     bank[branch, tap] with branch = round(frac * nfilt). Returns
     Horner-ordered coefficients (deg+1, ntaps) float32, highest power first."""
-    key = (bank.shape, float(np.sum(bank)), deg)
-    hit = _BANK_POLY_CACHE.get(key)
-    if hit is not None:
-        return hit
     nfilt, ntaps = bank.shape
     fr = np.arange(nfilt) / nfilt
     co = np.stack([np.polyfit(fr, np.asarray(bank[:, t], np.float64), deg)
@@ -369,35 +366,72 @@ def _bank_poly_coefs(bank: np.ndarray, deg: int = 10) -> np.ndarray:
             - bank[:, t]).max()))
     if err >= 5e-4:
         raise ValueError(f"bank poly fit error {err}")
-    _BANK_POLY_CACHE[key] = co
     return co
 
 
+_TABLES: dict = {}
+
+
+def interp_tables(bank: np.ndarray, sps: float, device
+                  ) -> Tuple[torch.Tensor, torch.Tensor | None]:
+    """(the bank, and where sps has a strip geometry its tap polynomials
+    `_bank_poly_coefs`) as float32 tensors on `device`, from the host bank.
+    Each is made and uploaded at its first use on a device and kept, so
+    that the blocks of a stream neither upload them nor read the bank back:
+    the demod modules call this when they build, so that the upload, a
+    wait, happens there and not in a block."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    bank = np.asarray(bank, np.float32)
+    strip = _strip_geometry(sps, bank.shape[1]) is not None
+    key = (bank.shape, bank.tobytes(), dev)
+    got = _TABLES.get(key)
+    if got is None or (strip and got[1] is None):
+        coefs = _bank_poly_coefs(bank) if strip else None
+        got = (torch.tensor(bank, device=dev),
+               None if coefs is None else torch.tensor(coefs, device=dev))
+        _TABLES[key] = got
+    return got if strip else (got[0], None)
+
+
+def strip_window(out_cap: int, n_ext: int, G: int, D: int, s0: int,
+                 ntaps: int = 8) -> Tuple[int, int]:
+    """(Lw, n_extp): resample_strip's segment window length, and the length
+    of its padded ext (STRIP_FRONT zeros, ext, then enough zeros that every
+    segment's window lies inside)."""
+    nseg = -(-out_cap // G)
+    Lw = s0 * G + D + ntaps + 8
+    return Lw, STRIP_FRONT + n_ext + max(nseg * G * s0 + Lw + 64 - n_ext, 0)
+
+
 def resample_strip(ext: torch.Tensor, start: torch.Tensor,
-                   omega: torch.Tensor, bank: np.ndarray, *, out_cap: int,
+                   omega: torch.Tensor, coefs: torch.Tensor, *, out_cap: int,
                    sps: float, n_in: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Arithmetic-grid polyphase interpolation as strided strips (the path
     for sps near an integer). Positions p_k = start + k·omega are split per
     G-symbol segment into a segment window, a stride-s0 slice per strip lane
     m, and a banded weight from 8 compare-selects; the taps are per-tap
-    polynomials in frac. Semantics mirror ff_resample_at."""
-    nfilt, ntaps = bank.shape
+    polynomials in frac, `coefs` ((deg+1, ntaps) on ext's device,
+    `interp_tables`). Semantics mirror ff_resample_at. The plain version of
+    the CUDA kernel K4 (ops/cuda/resample_strip.py), which equals it bit
+    for bit."""
+    ntaps = coefs.shape[1]
     geo = _strip_geometry(sps, ntaps)
     if geo is None:
         raise ValueError(f"resample_strip called with unsuitable sps {sps}")
     G, D = geo
     s0 = round(sps)
     dev = ext.device
-    n_ext = ext.shape[0]
     nseg = -(-out_cap // G)
     cap = nseg * G
-    Lw = s0 * G + D + ntaps + 8
-    pad = max(cap * s0 + Lw + 64 - n_ext, 0)
+    Lw, n_extp = strip_window(out_cap, ext.shape[0], G, D, s0, ntaps)
     # `front` zeros ahead of ext keep a segment window that starts before
     # the carried history (a block whose first symbols lie before it)
     # aligned with its symbols; the windows' contents are the same
     front = STRIP_FRONT
+    pad = n_extp - front - ext.shape[0]
     extp = torch.cat([torch.zeros(front, dtype=ext.dtype, device=dev), ext,
                       torch.zeros(pad, dtype=ext.dtype, device=dev)])
 
@@ -415,11 +449,9 @@ def resample_strip(ext: torch.Tensor, start: torch.Tensor,
     d = src.reshape(nseg, G) + front - c_s[:, None] - s0 * k_rel[None, :]
     d = d.clamp(0, D - 1)
 
-    coefs = _bank_poly_coefs(bank)                # (deg+1, ntaps) host np
-    taps_span = "psk_demod.strip_taps"
-    tp = _f32(coefs[0], dev, taps_span)[None, :].expand(cap, ntaps)
+    tp = coefs[0].expand(cap, ntaps)
     for row in coefs[1:]:
-        tp = tp * frac[:, None] + _f32(row, dev, taps_span)[None, :]
+        tp = tp * frac[:, None] + row
     taps = tp.reshape(nseg, G, ntaps)
 
     M = D + ntaps
@@ -450,18 +482,20 @@ def ff_clock_recovery(state: FFClockState, x: torch.Tensor, *, sps: float,
     Returns (state', symbols[out_cap], valid[out_cap]). The symbol grid is
     anchored to the carried `next_pos`; only the fractional part snaps to
     this block's O&M estimate, so the symbol count stays continuous across
-    block seams. `bank` is a host numpy (128, 8) array or a float32 tensor
-    on x's device (default: firdes.mm_interpolator_bank()).
+    block seams. `bank` is a host numpy (128, 8) array (default:
+    firdes.mm_interpolator_bank()), on the device through `interp_tables`.
 
     Where `_strip_geometry(sps)` is None the symbols come from
     `resample_arith_grid`: the CUDA kernel K2 on the card, its plain
-    version (the core of ff_resample_at) on the CPU. The reference's
-    `use_kernel` switch has no counterpart: the tensor's device decides.
+    version (the core of ff_resample_at) on the CPU; elsewhere from
+    `resample_strip`: K4 on the card, its plain version on the CPU. The
+    reference's `use_kernel` switch has no counterpart: the tensor's device
+    decides.
     """
     dev = x.device
     if bank is None:
         bank = mm_interpolator_bank()
-    bank_t = torch.as_tensor(bank, dtype=F32, device=dev)
+    bank_t, coefs = interp_tables(bank, sps, dev)
     nfilt, ntaps = bank_t.shape
     n = x.shape[-1]
     if out_cap is None:
@@ -474,20 +508,13 @@ def ff_clock_recovery(state: FFClockState, x: torch.Tensor, *, sps: float,
     k0 = torch.round((state.next_pos - tau0) / omega)
     start = tau0 + k0 * omega
 
-    k = torch.arange(out_cap, dtype=F32, device=dev)
-    positions = start + k * omega
-
     ext = torch.cat([state.history[: ntaps - 1], x])
-    strip_geo = _strip_geometry(sps, ntaps)
-    if strip_geo is not None:
-        if isinstance(bank, np.ndarray):
-            bank_np = bank
-        else:
-            with trace.span("psk_demod.bank", "wait"):
-                bank_np = bank_t.cpu().numpy()
-        syms, valid = resample_strip(ext, start, omega, bank_np,
-                                     out_cap=out_cap, sps=sps, n_in=n)
+    if coefs is not None:
+        syms, valid = k4.resample_strip(ext, start, omega, coefs,
+                                        out_cap=out_cap, sps=sps, n_in=n)
     else:
+        k = torch.arange(out_cap, dtype=F32, device=dev)
+        positions = start + k * omega
         # positions in float32, as the reference: at k·omega ≈ 2^21 the ulp
         # is 0.25 sample, which quantizes frac to 32 of the 128 branches
         y = resample_arith_grid(ext, start, omega, bank_t, out_cap=out_cap)

@@ -82,8 +82,9 @@ class PSKDemodModule(BaseDemodModule):
             self.rrc_taps)
         out_n = self.init_input_stages()
         if self.fast:
-            self._bank = torch.as_tensor(firdes.mm_interpolator_bank(),
-                                         device=dev)
+            # the host bank; its device tables are uploaded here, once
+            self._bank = firdes.mm_interpolator_bank()
+            ffsync.interp_tables(self._bank, self.final_sps, dev)
             self._ff_cap = int(np.ceil(out_n / (self.final_sps * 0.99))) + 2
             self._state = ffsync.ff_clock_init(rrc_ntaps=len(self._rrc),
                                                device=dev)

@@ -57,9 +57,10 @@ class DVBS2DemodModule(BaseDemodModule):
         self._rrc = firdes.root_raised_cosine(
             1.0, self.final_samplerate, self.d_symbolrate, self.rrc_alpha,
             self.rrc_taps)
-        self._bank = torch.as_tensor(firdes.mm_interpolator_bank(),
-                                     device=dev)
         out_n = self.init_input_stages()
+        # the host bank; its device tables are uploaded here, once
+        self._bank = firdes.mm_interpolator_bank()
+        ffsync.interp_tables(self._bank, self.final_sps, dev)
         self._ff_cap = int(np.ceil(out_n / (self.final_sps * 0.99))) + 2
         self._agc_state = stages.agc_init(device=dev)
         self._fir_state = fir.fir_init(len(self._rrc), device=dev)

@@ -4,7 +4,8 @@ CPU, over two consecutive blocks.
 The first block starts both packages from their initial state; the second
 starts the port from the JAX state carried across (utils/state.py), so
 each block is compared on its own. Covered: sps 18/7 (MetOp; symbols come
-from K2's plain version), sps 2.0 (the strip resampler), OQPSK and 8PSK.
+from K2's plain version), sps 2.0 and FY-3D's 3 (the strip resampler,
+K4's plain version), OQPSK and 8PSK.
 
 Tolerances, and why: the reductions (AGC mean, O&M matvecs, FFT of x^4,
 cumsums) sum in another order in torch than in XLA, so the estimates agree
@@ -58,8 +59,9 @@ def _signal(rng, up, down, oqpsk, order=4):
 
 
 @pytest.mark.parametrize("up,down,oqpsk", [(18, 7, False), (2, 1, False),
-                                           (2, 1, True)],
-                         ids=["sps_18/7", "sps_2_strip", "oqpsk_sps_2"])
+                                           (2, 1, True), (3, 1, False)],
+                         ids=["sps_18/7", "sps_2_strip", "oqpsk_sps_2",
+                              "sps_3_strip"])
 def test_two_blocks_match_jax(rng, up, down, oqpsk):
     _two_blocks_match_jax(rng, up, down, oqpsk, 4, STATE_TOL)
 

@@ -227,7 +227,7 @@ def test_live_equals_offline(tmp_path, signal):
         k: 0 for k in ("viterbi_re", "resample_arith_grid", "agc_walk",
                        "pll_walk", "costas_walk", "mm_walk", "turbo_bcjr",
                        "viterbi_block_acs", "viterbi_block_traceback",
-                       "gardner_walk")}
+                       "gardner_walk", "resample_strip")}
 
 
 def test_stream_ending_on_a_block_boundary(tmp_path, signal):

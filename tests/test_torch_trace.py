@@ -324,6 +324,45 @@ def test_fy3_decoder_counts_the_cadus_it_writes(tmp_path, rng):
     assert spans["decoder.diff_decode"]["calls"] == 2
 
 
+def test_fy3_psk_demod_blocks_upload_no_tables_and_read_no_bank(tmp_path):
+    """FY-3D's psk_demod (sps 3: the strip pick) over a three-block stream:
+    the bank and its tap polynomials reach the device once, when the
+    module builds; no block reads the bank back or uploads a polynomial
+    row, so each records the 11 waits of the K2 path (MetOp's)."""
+    from satdump_tpu_torch.ops import ffsync
+    from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
+    rng = np.random.default_rng(29)
+    mod = PSKDemodModule(str(tmp_path / "x.cf32"), str(tmp_path / "fy"), {
+        "samplerate": 90e6, "symbolrate": 30e6, "constellation": "qpsk",
+        "rrc_alpha": 0.35, "pll_bw": 0.002, "buffer_size": BLOCK,
+        "torch_device": "cpu"})
+    syms = sim.bits_to_qpsk_symbols(rng.integers(0, 2, 2 * BLOCK
+                                                 ).astype(np.uint8))
+    x = sim.ChannelModel(snr_db=18.0, freq_offset=1e-4, phase=0.4,
+                         seed=5).apply(sim.qpsk_modulate_rational(
+                             syms, 3, 1, rrc_alpha=0.35))
+    ffsync._TABLES.clear()
+    trace.enable()
+    mod.stream_start()
+    assert mod.final_sps == 3.0 and mod.block_size == BLOCK
+    built = dict(ffsync._TABLES)
+    (bank, coefs), = built.values()
+    assert bank.shape == (128, 8) and coefs.shape == (11, 8)
+    softs = [mod.stream_work(x[b * BLOCK: (b + 1) * BLOCK])
+             for b in range(3)]
+    assert sum(len(s) for s in softs) > 0.95 * 2 * 3 * BLOCK / 3
+    assert ffsync._TABLES.keys() == built.keys()
+    assert all(a is b for a, b in zip(*ffsync._TABLES.values(),
+                                      *built.values()))
+    spans = trace.totals()["spans"]
+    assert spans["psk_demod.block"]["calls"] == 3
+    assert "psk_demod.bank" not in spans
+    assert "psk_demod.strip_taps" not in spans
+    waits = sum(v["calls"] for k, v in spans.items()
+                if k.startswith("psk_demod.") and v["kind"] == "wait")
+    assert waits == 3 * 11
+
+
 def test_live_push_parts_are_spans_around_the_modules(tmp_path):
     from satdump_tpu_torch.pipeline.live import TIMED_PARTS, LivePipeline
     from satdump_tpu_torch.pipeline.pipeline import Pipeline, PipelineStep
