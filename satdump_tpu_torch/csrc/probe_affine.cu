@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel tools/pallas_smoke.py::f, the JAX package's check
 // that its toolchain compiles and launches a kernel at all. It lies on no
-// data path; chip_smoke.py builds and launches it right after the build, on
-// pallas_smoke.py's (8, 128) arange input. Its plain twin is
+// data path; tests/test_torch_card_kernels.py launches it on the card, on
+// pallas_smoke.py's (8, 128) arange input among others. Its plain twin is
 // ops/cuda/probe.py's `x * 2 + 1`.
 //
 // Exactness: 2x is exact, so __fmul_rn then __fadd_rn rounds once, as the

@@ -50,7 +50,7 @@
 // intrinsics. e is 0 or 1, so each step has four distinct metrics, base,
 // base+u1, base+u0 and (base+u0)+u1, which equal the reference's form bit
 // for bit (adding e*u = +-0 changes nothing). The products 2*s are __fmul_rn,
-// so the kernel holds no FFMA at all (chip_smoke.py checks its SASS). The
+// so the kernel holds no FFMA at all (the card tests check its SASS). The
 // tie rule is the reference's strict `cand_b < cand_a`: on a tie the
 // survivor comes from the s>>1 predecessor.
 //

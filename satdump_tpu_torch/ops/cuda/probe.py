@@ -2,7 +2,7 @@
 
 Counterpart of tools/pallas_smoke.py:10 `f`, the JAX package's check that its
 TPU toolchain builds and launches a kernel. It lies on no data path:
-chip_smoke.py launches it right after the build. Bound by bytes (one read
+tests/test_torch_card_kernels.py launches it. Bound by bytes (one read
 and one write per element). On a CUDA tensor it launches the kernel; on a
 CPU tensor it runs the plain version, `x * 2 + 1`, which equals the kernel
 bit for bit (2x is exact, so both round once).

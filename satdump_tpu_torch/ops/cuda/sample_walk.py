@@ -49,7 +49,7 @@ def _clip(v, lo, hi):
 
 # -- float32 e^{-j phase}, arg() and |x| of the AGC and the PLL --------------
 # Each function is written once for numpy float32 scalars and arrays: the
-# walks call it on scalars, chip_smoke.py's grid check on arrays. Its
+# walks call it on scalars, the card tests' grid check on arrays. Its
 # operations are + - * / and sqrt (each correctly rounded in float32 on the
 # CPU and, as __fadd_rn / __fmul_rn / __fdiv_rn / __fsqrt_rn, on the card),
 # compares, selects and exact sign flips; csrc/sample_walk.cu repeats them in

@@ -3,7 +3,8 @@
 Counterpart of satdump_tpu/ops/pallas/viterbi.py::viterbi_re_pallas. On a
 CUDA tensor it launches the hand kernel; on a CPU tensor it runs the plain
 version, ops/fec/convolutional.py::viterbi_decode_tiled_re. The two are
-bit-identical (chip_smoke.py holds them to that on the card).
+bit-identical (tests/test_torch_card_kernels.py holds them to that on the
+card).
 """
 
 from __future__ import annotations

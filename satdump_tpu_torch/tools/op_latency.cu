@@ -10,9 +10,9 @@
 // whose latency another test measures (subtracted). Inline PTX keeps every
 // step in the chain; the values stay finite and in range. Each test runs
 // three times and keeps its fewest cycles (the first run fills the
-// instruction cache). Built and run by chip_smoke.py, which keeps a test's
-// figure only where its SASS holds the instruction it names at every step
-// and little else (sass_chain.py::measured_latencies).
+// instruction cache). Built and run by sass_chain.py::measured_latencies,
+// which keeps a test's figure only where its SASS holds the instruction it
+// names at every step and little else.
 
 #include <cstdio>
 #include <cuda_runtime.h>

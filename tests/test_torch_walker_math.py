@@ -2,13 +2,13 @@
 sincos_f32, atan2_f32, abs_f32, mix_f32) against float64 math, on the CPU.
 
 They are built only from correctly rounded float32 operations, so the card's
-device functions (csrc/sample_walk.cu) give the same bits; chip_smoke.py
-holds the two equal on the card. Here: their accuracy in float32 ulp of the
-float64 result (at most 2 for sin and cos over [-2 pi, 2 pi], the PLL's
-wrapped phase, and for atan2 over all finite pairs), C99's special cases of
-atan2, |x| at the AGC's amplitudes, that one function gives the same bits on
-scalars (the walks) and on arrays (the grid check), and that the .cu file
-holds the constants the numpy functions use.
+device functions (csrc/sample_walk.cu) give the same bits;
+tests/test_torch_card_kernels.py holds the two equal on the card. Here: their
+accuracy in float32 ulp of the float64 result (at most 2 for sin and cos over
+[-2 pi, 2 pi], the PLL's wrapped phase, and for atan2 over all finite pairs),
+C99's special cases of atan2, |x| at the AGC's amplitudes, that one function
+gives the same bits on scalars (the walks) and on arrays (the grid check),
+and that the .cu file holds the constants the numpy functions use.
 """
 
 import math
