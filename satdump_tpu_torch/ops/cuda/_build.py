@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 an edited source is rebuilt). The build runs at first use, from the repo's
 sources only; `build()` starts one nvcc per source, all at once. A missing
 nvcc or a failed compile raises: there is no fallback. `Kernel` is the launch
-path the wrappers share.
+path the wrappers share; `recording()` lists the launches made through it,
+which is how a CUDA graph (`ops/cuda/graph.py`) knows the hand kernels it
+holds.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
@@ -34,6 +38,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 ptxas_log: Dict[str, str] = {}     # nvcc's -Xptxas -v report per source
+_local = threading.local()         # `recording()`'s list, per thread
+
+
+class _Replayed:
+    def __repr__(self) -> str:
+        return "REPLAYED"
+
+
+# `Kernel`'s device for a launch that a CUDA graph's replay made
+REPLAYED = _Replayed()
 
 
 class KernelBuildError(SatdumpError):
@@ -103,6 +117,9 @@ class Kernel:
     `kernel(device_index, *args)` launches it on that device's current
     stream: the stream's raw handle is read once, the device is made current
     only when it is not already, and a nonzero error raises.
+    `kernel(REPLAYED, *args)` launches nothing: it is how a CUDA graph's
+    replay passes a launch that it made, with the arguments that its
+    capture recorded, through this path (`ops/cuda/graph.py`).
     """
 
     def __init__(self, name: str, argtypes: Sequence, entry: str = ""):
@@ -119,7 +136,9 @@ class Kernel:
         self._lib, self._fn = lib, fn
         return fn
 
-    def __call__(self, device_index: int, *args) -> None:
+    def __call__(self, device_index, *args) -> None:
+        if device_index is REPLAYED:
+            return
         fn = self._fn or self._load()
         if device_index == torch._C._cuda_getDevice():
             err = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
@@ -131,3 +150,18 @@ class Kernel:
             msg = getattr(self._lib, f"{self.name}_error_string")(err)
             raise RuntimeError(f"{self.entry} launch failed: CUDA error {err} "
                                f"({msg.decode()})")
+        made = getattr(_local, "launches", None)
+        if made is not None:
+            made.append((self, args))
+
+
+@contextmanager
+def recording():
+    """A list of (kernel, args) of each launch that this thread makes
+    through `Kernel` inside the block."""
+    outer = getattr(_local, "launches", None)
+    _local.launches = made = []
+    try:
+        yield made
+    finally:
+        _local.launches = outer

@@ -20,11 +20,14 @@ symbols with `resample_arith_grid` (ops/cuda/resample.py), elsewhere (sps
 near an integer: FY-3's 3, GRB's 2) with `resample_strip`
 (ops/cuda/resample_strip.py): the CUDA kernels K2 and K4 on the card, their
 plain versions on the CPU. Outputs use the reference's fixed-capacity +
-valid-mask convention, and state stays on the device; the bank and its
-tap polynomials are uploaded once a process (`interp_tables`). Each host
-read of a card value and each host constant a block copies to the card
-makes the host wait for the card: each is a `wait` span
-`psk_demod.<what>` (core/trace.py).
+valid-mask convention, and state stays on the device. A block reads
+nothing back to the host and copies nothing to the card: its host
+constants (`_cached`: the bank and its tap polynomials, `interp_tables`;
+the timing tones, the V&V rotation, a long matched filter's taps) are
+uploaded at their first use on a device and kept, the chain's in a `wait`
+span `psk_demod.<what>` each (core/trace.py). So a block's work can be
+captured as one CUDA graph: `FFBlockGraph`, which the psk_demod module
+replays on the card.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 
 from satdump_tpu_torch.core import trace
 from satdump_tpu_torch.ops.cuda import resample_strip as k4
+from satdump_tpu_torch.ops.cuda.graph import Graph
 from satdump_tpu_torch.ops.cuda.resample import interp_at, resample_arith_grid
 from satdump_tpu_torch.ops.firdes import mm_interpolator_bank
 from satdump_tpu_torch.utils.device import resolve_device
@@ -84,13 +88,10 @@ def cfo_estimate(x: torch.Tensor, order: int,
         xm = 0.5 * (xm + torch.roll(xm, -1))
     p = torch.fft.fft(xm).abs()
     k = torch.argmax(p)
-    # indexing by a 0-dim card tensor reads the index on the host: a wait
-    with trace.span("psk_demod.cfo_peak", "wait"):
-        pm1 = p[(k - 1) % n]
-    with trace.span("psk_demod.cfo_peak", "wait"):
-        p0 = p[k]
-    with trace.span("psk_demod.cfo_peak", "wait"):
-        pp1 = p[(k + 1) % n]
+    # the peak and its neighbours by one gather on the device (indexing by
+    # a 0-dim tensor would read the index on the host)
+    pm1, p0, pp1 = p.index_select(0, torch.stack([(k - 1) % n, k,
+                                                  (k + 1) % n]))
     denom = pm1 - 2.0 * p0 + pp1
     delta = torch.where(denom.abs() > 1e-9, 0.5 * (pm1 - pp1) / denom,
                         torch.zeros_like(denom))
@@ -131,11 +132,10 @@ def vv_phase_track(x: torch.Tensor, order: int, sub: int,
     un = u / u.abs().clamp_min(1e-12)
     s = _ipow(un, order).sum(dim=-1)                     # (nsub,)
     if const_rotation:
-        with trace.span("psk_demod.rotation", "wait"):
-            rot = torch.tensor(-1j * order * const_rotation, dtype=C64,
-                               device=x.device)
-        rot = torch.exp(rot)
-        s = s * rot
+        s = s * _cached(("rotation", order, const_rotation), x.device,
+                        lambda dev: torch.exp(_c64(np.asarray(
+                            -1j * order * const_rotation), dev,
+                            "psk_demod.rotation")))
     ph = torch.angle(s) / order                          # (-π/M, π/M]
     period = 2 * math.pi / order
 
@@ -184,6 +184,22 @@ def _c64(a: np.ndarray, device, span: str) -> torch.Tensor:
         return torch.as_tensor(a.astype(np.complex64), device=device)
 
 
+_CONSTS: dict = {}
+
+
+def _cached(key: tuple, device, make):
+    """`make(device)`, the device constants of `key`, made at their first
+    use on `device` and kept, so that the blocks of a stream neither upload
+    them nor wait for that."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    got = _CONSTS.get((*key, dev))
+    if got is None:
+        got = _CONSTS[(*key, dev)] = make(dev)
+    return got
+
+
 def om_timing_fit(x: torch.Tensor, sps: float, sub: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Estimate (tau0, skew) such that symbol k sits at tau0 + k·sps·(1+skew).
@@ -212,15 +228,22 @@ def om_timing_fit(x: torch.Tensor, sps: float, sub: int
         ex = _pw(x)[:nps].reshape(nsub2, sub)
         eh = _pw(xh)[:nps].reshape(nsub2, sub)
         sps2 = 2.0 * sps
-        tke = np.exp(-2j * np.pi * ((2.0 * np.arange(sub)) % sps2) / sps2)
-        tko = np.exp(-2j * np.pi * ((2.0 * np.arange(sub) + 1) % sps2)
-                     / sps2)
-        tones = "psk_demod.tones"
-        cr = ex @ _f32(tke.real, dev, tones) + eh @ _f32(tko.real, dev, tones)
-        ci = ex @ _f32(tke.imag, dev, tones) + eh @ _f32(tko.imag, dev, tones)
-        tj = np.exp(-2j * np.pi * ((np.arange(nsub2) * float(2 * sub))
-                                   % sps2) / sps2)
-        c = _c64(tj, dev, tones) * torch.complex(cr, ci)
+
+        def tones(dev):
+            tke = np.exp(-2j * np.pi * ((2.0 * np.arange(sub)) % sps2)
+                         / sps2)
+            tko = np.exp(-2j * np.pi * ((2.0 * np.arange(sub) + 1) % sps2)
+                         / sps2)
+            tj = np.exp(-2j * np.pi * ((np.arange(nsub2) * float(2 * sub))
+                                       % sps2) / sps2)
+            return (*(_f32(t, dev, "psk_demod.tones") for t in (
+                tke.real, tko.real, tke.imag, tko.imag)),
+                _c64(tj, dev, "psk_demod.tones"))
+        ter, tor, tei, toi, tj = _cached(("tones2", sps, sub, nsub2), dev,
+                                         tones)
+        cr = ex @ ter + eh @ tor
+        ci = ex @ tei + eh @ toi
+        c = tj * torch.complex(cr, ci)
         tau_e, skew = _om_fit(c, sps2, 2 * sub)
         return tau_e * 0.5, skew
     return _om_core(_pw(x), sps, sub)
@@ -240,12 +263,17 @@ def _om_core(e_sig: torch.Tensor, sps: float, sub: int
     # per-sub-block correlation is one real×complex matvec. The tones are
     # host float64 constants cast to float32: the phase 2π·n/sps needs exact
     # modular reduction (a float32 phase at n ~ 4M is off by ~0.5 rad).
-    dev = e_sig.device
-    tk = np.exp(-2j * np.pi * (np.arange(sub) % sps) / sps)
-    tj = np.exp(-2j * np.pi * ((np.arange(nsub) * float(sub)) % sps) / sps)
-    cr = e @ _f32(tk.real, dev, "psk_demod.tones")
-    ci = e @ _f32(tk.imag, dev, "psk_demod.tones")
-    c = _c64(tj, dev, "psk_demod.tones") * torch.complex(cr, ci)  # (nsub,)
+    def tones(dev):
+        tk = np.exp(-2j * np.pi * (np.arange(sub) % sps) / sps)
+        tj = np.exp(-2j * np.pi * ((np.arange(nsub) * float(sub)) % sps)
+                    / sps)
+        return (_f32(tk.real, dev, "psk_demod.tones"),
+                _f32(tk.imag, dev, "psk_demod.tones"),
+                _c64(tj, dev, "psk_demod.tones"))
+    tkr, tki, tj = _cached(("tones", sps, sub, nsub), e_sig.device, tones)
+    cr = e @ tkr
+    ci = e @ tki
+    c = tj * torch.complex(cr, ci)  # (nsub,)
     return _om_fit(c, sps, sub)
 
 
@@ -369,30 +397,22 @@ def _bank_poly_coefs(bank: np.ndarray, deg: int = 10) -> np.ndarray:
     return co
 
 
-_TABLES: dict = {}
-
-
 def interp_tables(bank: np.ndarray, sps: float, device
                   ) -> Tuple[torch.Tensor, torch.Tensor | None]:
     """(the bank, and where sps has a strip geometry its tap polynomials
-    `_bank_poly_coefs`) as float32 tensors on `device`, from the host bank.
-    Each is made and uploaded at its first use on a device and kept, so
-    that the blocks of a stream neither upload them nor read the bank back:
-    the demod modules call this when they build, so that the upload, a
-    wait, happens there and not in a block."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    `_bank_poly_coefs`) as float32 tensors on `device`, from the host bank,
+    made and uploaded at their first use on a device and kept (`_cached`),
+    so that the blocks of a stream neither upload them nor read the bank
+    back: the demod modules call this when they build, so that the upload,
+    a wait, happens there and not in a block."""
     bank = np.asarray(bank, np.float32)
-    strip = _strip_geometry(sps, bank.shape[1]) is not None
-    key = (bank.shape, bank.tobytes(), dev)
-    got = _TABLES.get(key)
-    if got is None or (strip and got[1] is None):
-        coefs = _bank_poly_coefs(bank) if strip else None
-        got = (torch.tensor(bank, device=dev),
-               None if coefs is None else torch.tensor(coefs, device=dev))
-        _TABLES[key] = got
-    return got if strip else (got[0], None)
+    key = (bank.shape, bank.tobytes())
+    bank_t = _cached(("bank", *key), device,
+                     lambda dev: torch.tensor(bank, device=dev))
+    if _strip_geometry(sps, bank.shape[1]) is None:
+        return bank_t, None
+    return bank_t, _cached(("bank_coefs", *key), device, lambda dev: (
+        torch.tensor(_bank_poly_coefs(bank), device=dev)))
 
 
 def strip_window(out_cap: int, n_ext: int, G: int, D: int, s0: int,
@@ -566,7 +586,9 @@ def _segmented_mf(x: torch.Tensor, taps: np.ndarray,
     n = x.shape[-1]
     if ntaps <= 64:
         return _direct_mf(x, taps)
-    H_taps = _f32(taps, x.device, "psk_demod.mf_taps")
+    taps32 = np.asarray(taps, np.float32)
+    H_taps = _cached(("mf_taps", taps32.tobytes()), x.device,
+                     lambda dev: _f32(taps32, dev, "psk_demod.mf_taps"))
     if n <= seg:
         nfft = max(256, 1 << int(np.ceil(np.log2(n + ntaps - 1))))
         X = torch.fft.fft(x, nfft)
@@ -677,3 +699,45 @@ def ff_psk_demod_block(state: FFClockState, x: torch.Tensor, *, order: int,
     noise = (m2 - es).clamp_min(1e-20)
     snr = 10.0 * torch.log10((es / noise).clamp_min(1e-20))
     return state2, syms, valid, snr
+
+
+class FFBlockGraph:
+    """`ff_psk_demod_block` of one fixed block on the card as one CUDA graph
+    (ops/cuda/graph.py), captured once. The graph reads the static input
+    `x` and the tensors of `state`, and at its end writes the new state
+    into those tensors in place. A call copies a block into `x`, replays
+    the graph and returns its (symbols, valid, snr): the graph's own
+    tensors, which its next call overwrites. The warm-up runs on copies of
+    the state, and the state is set back after the graph's first run at
+    construction, so the stream's first block starts from `state` as
+    given. Each stream has its own: two demodulators with equal parameters
+    share no state.
+
+    `state` is on the card (`ff_clock_init`), `n` the block's length; `kw`
+    as `ff_psk_demod_block`'s."""
+
+    def __init__(self, state: FFClockState, n: int, **kw):
+        dev = state.next_pos.device
+        self.x = torch.zeros(n, dtype=C64, device=dev)
+        start = [t.clone() for t in state]
+
+        def block():
+            new, syms, valid, snr = ff_psk_demod_block(state, self.x, **kw)
+            for dst, src in zip(state, new):
+                dst.copy_(src)
+            return syms, valid, snr
+
+        def warm_up():
+            return ff_psk_demod_block(
+                FFClockState(*(t.clone() for t in state)), self.x, **kw)[1:]
+
+        self._graph = Graph(block, dev, warm_up)
+        for dst, src in zip(state, start):
+            dst.copy_(src)
+
+    def __call__(self, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        self.x.copy_(x)
+        self._graph.replay()
+        trace.count("psk_demod.graph_replays")
+        return self._graph.out

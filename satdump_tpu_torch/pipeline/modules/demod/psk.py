@@ -6,7 +6,9 @@ per block, after the input stages [freq_shift] -> [dc_block] -> [rational
 resample to the final rate]:
 * `fast` (the default): [Doppler pre-correction first] -> AGC -> RRC ->
   carrier (FFT of x^M + V&V) -> [OQPSK delay] -> O&M timing + polyphase
-  symbol pick (ops/ffsync.py);
+  symbol pick (ops/ffsync.py); on the card everything from the AGC on is
+  one CUDA graph a block (`ffsync.FFBlockGraph`, captured when the module
+  builds), the Doppler correction and the input stages run ahead of it;
 * `fast: false`, the classic per-sample chain: AGC -> RRC -> Costas (order
   2/4/8) -> [post-Costas DC block] -> [OQPSK delay] -> M&M clock recovery,
   its recurrences on the hand kernels of ops/cuda/{sample_walk,mm_clock}.py;
@@ -88,6 +90,14 @@ class PSKDemodModule(BaseDemodModule):
             self._ff_cap = int(np.ceil(out_n / (self.final_sps * 0.99))) + 2
             self._state = ffsync.ff_clock_init(rrc_ntaps=len(self._rrc),
                                                device=dev)
+            self._ff_kw = dict(order=self._order, sps=self.final_sps,
+                               rrc_taps=self._rrc, bank=self._bank,
+                               out_cap=self._ff_cap, oqpsk=self.is_oqpsk)
+            # on the card the block is one graph replay, which updates
+            # self._state in place
+            self._graph = ffsync.FFBlockGraph(
+                self._state, out_n, **self._ff_kw) \
+                if dev.type == "cuda" else None
             self._dp_state = stages.freq_shift_init(dev)
             self._sample_pos = 0
             return
@@ -115,10 +125,10 @@ class PSKDemodModule(BaseDemodModule):
             self._dp_state, x = stages.doppler_correct(
                 self._dp_state, x, dop, self.d_samplerate)
         x = self.input_stages(x, self.d_dc_block)
+        if self._graph is not None:
+            return self._graph(x)
         self._state, syms, vmask, snr = ffsync.ff_psk_demod_block(
-            self._state, x, order=self._order, sps=self.final_sps,
-            rrc_taps=self._rrc, bank=self._bank, out_cap=self._ff_cap,
-            oqpsk=self.is_oqpsk)
+            self._state, x, **self._ff_kw)
         return syms, vmask, snr
 
     def _classic_block(self, x: torch.Tensor):

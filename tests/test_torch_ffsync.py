@@ -136,3 +136,99 @@ def test_cfo_and_timing_estimates_match_jax(rng):
     tt, st = tff.om_timing_fit(torch.from_numpy(bb), 18 / 7, 2048)
     assert abs(float(tj) - float(tt)) < 1e-3
     assert abs(float(sj) - float(st)) < 1e-7
+
+
+def _cfo_by_index(x: torch.Tensor, order: int,
+                  suppress_nyquist_image: bool = False) -> torch.Tensor:
+    """cfo_estimate as it read the peak's neighbours before the gather:
+    each indexed by a 0-dim tensor, which reads the index on the host."""
+    n = x.shape[-1]
+    u = x / x.abs().clamp_min(1e-12)
+    xm = tff._ipow(u, order)
+    if suppress_nyquist_image:
+        xm = 0.5 * (xm + torch.roll(xm, -1))
+    p = torch.fft.fft(xm).abs()
+    k = torch.argmax(p)
+    pm1, p0, pp1 = p[(k - 1) % n], p[k], p[(k + 1) % n]
+    denom = pm1 - 2.0 * p0 + pp1
+    delta = torch.where(denom.abs() > 1e-9, 0.5 * (pm1 - pp1) / denom,
+                        torch.zeros_like(denom))
+    delta = delta.clamp(-0.5, 0.5)
+    f = (k.to(torch.float32) + delta) / n
+    f = torch.remainder(f + 0.5, 1.0) - 0.5
+    return f / order
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("order,nyq", [(4, False), (4, True), (2, False),
+                                       (8, False)])
+def test_cfo_gather_equals_the_peak_read_by_index(seed, order, nyq):
+    """The peak's three neighbours by one gather give the same f, bit for
+    bit, as indexing by the 0-dim peak index; seed 3 puts the peak at bin
+    0, where the left neighbour wraps to the last bin."""
+    r = np.random.default_rng([4040, seed, order])
+    n = 1 << 12
+    f0 = 0.0 if seed == 3 else r.uniform(-0.4, 0.4) / order
+    x = np.exp(2j * np.pi * (f0 * np.arange(n) + r.integers(0, order, n)
+                             / order)).astype(np.complex64)
+    x += (0.3 * (r.standard_normal(n) + 1j * r.standard_normal(n))
+          ).astype(np.complex64)
+    xt = torch.from_numpy(x)
+    got = tff.cfo_estimate(xt, order, suppress_nyquist_image=nyq)
+    want = _cfo_by_index(xt, order, suppress_nyquist_image=nyq)
+    assert got.dtype == want.dtype == torch.float32 and got.shape == ()
+    assert got.numpy().tobytes() == want.numpy().tobytes()
+    if seed == 3:
+        p = torch.fft.fft(tff._ipow(xt / xt.abs(), order)).abs()
+        assert int(torch.argmax(p)) == 0
+
+
+class _HostReads(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the ops that read a tensor's value on the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("up,down,oqpsk,order", [
+    (18, 7, False, 4), (3, 1, False, 4), (2, 1, True, 4), (18, 7, False, 2)],
+    ids=["metop_sps_18/7", "fy3d_sps_3", "oqpsk_sps_2", "bpsk_sps_18/7"])
+def test_later_blocks_read_nothing_back_and_upload_nothing(
+        rng, monkeypatch, up, down, oqpsk, order):
+    """A block reads no 0-dim value on the host and, after the first block
+    of a process has uploaded them, copies no constant to the device: so
+    the chain can be captured as one CUDA graph (ops/cuda/graph.py)."""
+    sps = up / down
+    bb = _signal(rng, up, down, oqpsk)
+    rrc = firdes.root_raised_cosine(1.0, sps, 1.0, 0.5, 31)
+    cap = int(np.ceil(N / (sps * 0.99))) + 2
+    uploads = []
+    for name in ("_f32", "_c64"):
+        monkeypatch.setattr(tff, name, (lambda f: lambda *a: (
+            uploads.append(a[-1]), f(*a))[1])(getattr(tff, name)))
+    tff._CONSTS.clear()
+    st = tff.ff_clock_init(rrc_ntaps=len(rrc), device="cpu")
+    reads, made = [], []
+    for blk in range(3):
+        x = torch.from_numpy(bb[blk * (N // 2): (blk + 1) * (N // 2)])
+        uploads.clear()
+        with _HostReads() as hr:
+            st, s, v, snr = tff.ff_psk_demod_block(
+                st, x, order=order, sps=sps, rrc_taps=rrc, out_cap=cap,
+                oqpsk=oqpsk)
+        reads.append(hr.n)
+        made.append(sorted(uploads))
+        assert v.sum() > 0.9 * (N // 2) / sps
+    # the timing tones (five near 2 sps, where the estimator runs on the
+    # doubled rate) and, for QPSK's diagonal points, the V&V rotation (the
+    # OQPSK chain's two V&V stages share it)
+    tones = ["psk_demod.tones"] * (5 if sps < 2.1 else 3)
+    rot = ["psk_demod.rotation"] if order == 4 else []
+    assert made == [sorted(tones + rot), [], []]
+    assert reads == [0, 0, 0]

@@ -134,7 +134,8 @@ def test_sources_name_no_jax_or_reference_package():
     # the card tests run on the card's host, where none of these may load
     files += [ROOT / "tests" / f for f in (
         "torch_card.py", "test_torch_card_kernels.py",
-        "test_torch_card_pipelines.py", "test_torch_resample_strip.py")]
+        "test_torch_card_pipelines.py", "test_torch_card_psk_graph.py",
+        "test_torch_resample_strip.py")]
     assert len(files) > 30
     # every CUDA source is built by the one build list, and names no JAX
     cu = sorted(f.stem for f in (PKG / "csrc").glob("*.cu"))

@@ -4,7 +4,8 @@ with self times and kinds; under a torch profiler they are its
 `satdump::<name>` host events; and a MetOp and a FengYun-3 decode record one
 `psk_demod.block` a reader block and count the CADUs their .cadu file
 holds. Also: `ops.cuda.launch_counts()` lists every kernel wrapper of the
-data paths."""
+data paths, and a launch that a CUDA graph's replay passes through the
+launch path is seen there and launches nothing."""
 
 import copy
 import importlib
@@ -252,7 +253,9 @@ def _metop_run(tmp_path, n_cadus):
 
 def test_metop_pipeline_records_a_block_each_read_and_its_cadus(
         tmp_path, monkeypatch):
+    from satdump_tpu_torch.ops import ffsync
     seen = _spans_opened(monkeypatch)
+    ffsync._CONSTS.clear()
     trace.enable()
     cadus, src, out = _metop_run(tmp_path, 12)
     written = np.fromfile(out, np.uint8)
@@ -275,6 +278,10 @@ def test_metop_pipeline_records_a_block_each_read_and_its_cadus(
         assert spans[name]["calls"] == spans["decoder.to_device"]["calls"]
     kinds = {n: s["kind"] for n, s in spans.items()}
     assert kinds["psk_demod.tones"] == kinds["psk_demod.rotation"] == "wait"
+    # the constants reach the device once in the pass, at its first block
+    assert spans["psk_demod.tones"]["calls"] == 3
+    assert spans["psk_demod.rotation"]["calls"] == 1
+    assert "psk_demod.cfo_peak" not in spans
     assert kinds["decoder.unpack"] == kinds["decoder.read"] == "host"
     # a wait opens inside no other wait; every part of a block inside it
     for name, kind, around in seen:
@@ -328,7 +335,9 @@ def test_fy3_psk_demod_blocks_upload_no_tables_and_read_no_bank(tmp_path):
     """FY-3D's psk_demod (sps 3: the strip pick) over a three-block stream:
     the bank and its tap polynomials reach the device once, when the
     module builds; no block reads the bank back or uploads a polynomial
-    row, so each records the 11 waits of the K2 path (MetOp's)."""
+    row, so each records the 4 waits of any block (to_device, pick, snr,
+    to_host), and the first also the 4 uploads of the chain's constants
+    (3 timing tones, the V&V rotation), as MetOp's K2 path does."""
     from satdump_tpu_torch.ops import ffsync
     from satdump_tpu_torch.pipeline.modules.demod.psk import PSKDemodModule
     rng = np.random.default_rng(29)
@@ -341,26 +350,31 @@ def test_fy3_psk_demod_blocks_upload_no_tables_and_read_no_bank(tmp_path):
     x = sim.ChannelModel(snr_db=18.0, freq_offset=1e-4, phase=0.4,
                          seed=5).apply(sim.qpsk_modulate_rational(
                              syms, 3, 1, rrc_alpha=0.35))
-    ffsync._TABLES.clear()
+    ffsync._CONSTS.clear()
     trace.enable()
     mod.stream_start()
     assert mod.final_sps == 3.0 and mod.block_size == BLOCK
-    built = dict(ffsync._TABLES)
-    (bank, coefs), = built.values()
-    assert bank.shape == (128, 8) and coefs.shape == (11, 8)
+    built = dict(ffsync._CONSTS)
+    tables = {k[0]: v for k, v in built.items()}
+    assert len(tables) == len(built) == 2
+    assert tables["bank"].shape == (128, 8)
+    assert tables["bank_coefs"].shape == (11, 8)
     softs = [mod.stream_work(x[b * BLOCK: (b + 1) * BLOCK])
              for b in range(3)]
     assert sum(len(s) for s in softs) > 0.95 * 2 * 3 * BLOCK / 3
-    assert ffsync._TABLES.keys() == built.keys()
-    assert all(a is b for a, b in zip(*ffsync._TABLES.values(),
-                                      *built.values()))
+    # the blocks keep the tables and add only the chain's constants
+    assert all(ffsync._CONSTS[k] is v for k, v in built.items())
+    assert {k[0] for k in ffsync._CONSTS.keys() - built.keys()} == {
+        "tones", "rotation"}
     spans = trace.totals()["spans"]
     assert spans["psk_demod.block"]["calls"] == 3
     assert "psk_demod.bank" not in spans
     assert "psk_demod.strip_taps" not in spans
     waits = sum(v["calls"] for k, v in spans.items()
                 if k.startswith("psk_demod.") and v["kind"] == "wait")
-    assert waits == 3 * 11
+    assert waits == 3 * 4 + 4
+    for part in ("to_device", "pick", "snr", "to_host"):
+        assert spans[f"psk_demod.{part}"]["calls"] == 3, part
 
 
 def test_live_push_parts_are_spans_around_the_modules(tmp_path):
@@ -419,3 +433,38 @@ def test_launch_counts_list_every_kernel_wrapper_of_the_data_paths():
     assert set(launch_counts()) == set(wrappers) - {"affine_probe"}
     assert launch_counts() == {k: w.launches for k, w in wrappers.items()
                                if k != "affine_probe"}
+
+
+def test_count_launches_adds_to_each_wrapper_named():
+    from satdump_tpu_torch.ops.cuda import count_launches, launch_counts
+    before = launch_counts()
+    count_launches({"resample_arith_grid": 3, "viterbi_re": 1})
+    after = launch_counts()
+    assert after.pop("resample_arith_grid") == \
+        before.pop("resample_arith_grid") + 3
+    assert after.pop("viterbi_re") == before.pop("viterbi_re") + 1
+    assert after == before
+    count_launches({"resample_arith_grid": -3, "viterbi_re": -1})
+
+
+def test_a_replayed_launch_passes_the_launch_path_and_launches_nothing(
+        monkeypatch):
+    """`Kernel(REPLAYED, *args)`, how a CUDA graph's replay reports a
+    launch that it made (ops/cuda/graph.py): whatever wraps
+    `Kernel.__call__` sees the arguments, and nothing is built, loaded or
+    launched; nor is it listed by `recording()`, which lists the launches
+    made."""
+    from satdump_tpu_torch.ops.cuda import _build
+    from satdump_tpu_torch.ops.cuda.resample import _KERNEL
+    seen = []
+    orig = _build.Kernel.__call__
+
+    def hook(self, device_index, *args):
+        seen.append((self.entry, device_index, args))
+        return orig(self, device_index, *args)
+    monkeypatch.setattr(_build.Kernel, "__call__", hook)
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail(name))
+    with _build.recording() as made:
+        assert _KERNEL(_build.REPLAYED, 1, 2, 3) is None
+    assert seen == [("resample_arith", _build.REPLAYED, (1, 2, 3))]
+    assert made == [] and _KERNEL._fn is None

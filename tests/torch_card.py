@@ -8,7 +8,7 @@ JAX package does not run:
 
     python3 -m pytest --noconftest -p no:cacheprovider -q -m card \\
         tests/test_torch_card_kernels.py tests/test_torch_card_pipelines.py \\
-        tests/test_torch_resample_strip.py
+        tests/test_torch_card_psk_graph.py tests/test_torch_resample_strip.py
 
 (`--noconftest`: tests/conftest.py imports JAX, and the JAX package does
 not run on the card). Add `-k` to pick one case.
